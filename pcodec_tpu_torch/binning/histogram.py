@@ -69,15 +69,19 @@ class _Builder:
             self.complete_bin(bin_idx)
 
 
-def histogram(latents: np.ndarray, n_bins_log: int, sort_in_place: bool = False):
+def histogram(latents: np.ndarray, n_bins_log: int, sort_in_place: bool = False, sort=None):
     """Returns list[HistogramBin] identical to the reference's histogram().
 
     sort_in_place=True lets a caller that owns `latents` skip np.sort's
-    internal copy (a full-array pass)."""
+    internal copy (a full-array pass). `sort`, when given, returns its
+    argument's values in ascending order in place of np.sort (the GPU
+    encoder sorts on the card)."""
     n = len(latents)
     if n == 0:
         return []
-    if sort_in_place:
+    if sort is not None:
+        s = sort(latents)
+    elif sort_in_place:
         latents.sort()
         s = latents
     else:

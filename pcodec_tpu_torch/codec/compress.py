@@ -75,18 +75,19 @@ def choose_unoptimized_bins_log(compression_level: int, n: int) -> int:
 
 
 def train_infos(latents: np.ndarray, unoptimized_bins_log: int, latent_type: LatentType,
-                ans_cap: Optional[int] = None) -> TrainedBins:
+                ans_cap: Optional[int] = None, sort=None) -> TrainedBins:
     """histogram → optimal merge DP → ANS weight quantization.
 
     ref: chunk_compressor.rs:54-101. ans_cap (TPU profile, see
     ChunkConfig.ans_size_log_cap) bounds the estimate; quantize_weights
-    still raises size_log to fit the bin count when needed.
+    still raises size_log to fit the bin count when needed. sort: see
+    histogram().
     """
     if len(latents) == 0:
         return TrainedBins([], 0, [])
     n_latents = len(latents)
     # train_infos always receives a freshly concatenated buffer it owns
-    unopt = histogram(latents, unoptimized_bins_log, sort_in_place=True)
+    unopt = histogram(latents, unoptimized_bins_log, sort_in_place=True, sort=sort)
     n_log_ceil = 0 if n_latents <= 1 else (n_latents - 1).bit_length()
     estimated_ans_size_log = min(unoptimized_bins_log + 2, c.MAX_COMPRESSION_LEVEL, n_log_ceil)
     if ans_cap is not None:
@@ -460,10 +461,11 @@ def new_candidate(
     unoptimized_bins_log: int,
     number_latent_type: LatentType,
     ans_cap: Optional[int] = None,
+    sort=None,
 ):
     """ref: chunk_compressor.rs:221-289. ans_cap applies at this final
     training only (sample-cost estimation passes None, so mode/delta
-    decisions are cap-independent)."""
+    decisions are cap-independent); so does sort (see histogram())."""
     latents, page_infos = delta_encode_and_build_page_infos(
         delta_encoding, n_per_page, primary, secondary
     )
@@ -488,7 +490,7 @@ def new_candidate(
             for p in page_infos
         ]
         contiguous = concat(parts) if parts else var_latents[:0]
-        trained = train_infos(contiguous, ubl, lt, ans_cap)
+        trained = train_infos(contiguous, ubl, lt, ans_cap, sort)
         bins = bins_from_infos(trained.infos, lt)
         lvcs.set(key, LatentVarCompressor(trained, bins, var_latents))
         var_metas.set(key, ChunkLatentVarMeta(trained.ans_size_log, bins))
@@ -890,8 +892,9 @@ def fallback_chunk_compressor(nt: NumberType, nums: np.ndarray, n_per_page) -> C
     return ChunkCompressor(meta, PerLatentVar(None, lvc, None), page_infos)
 
 
-def chunk_compressor(nt: NumberType, nums: np.ndarray, config: ChunkConfig) -> ChunkCompressor:
-    """The bulk of compression (ref: chunk_compressor.rs:477-534)."""
+def chunk_compressor(nt: NumberType, nums: np.ndarray, config: ChunkConfig, sort=None) -> ChunkCompressor:
+    """The bulk of compression (ref: chunk_compressor.rs:477-534). sort
+    orders the latents of the final training (see histogram())."""
     config.validate(nt.latent)
     n = len(nums)
     if n == 0:
@@ -912,7 +915,7 @@ def chunk_compressor(nt: NumberType, nums: np.ndarray, config: ChunkConfig) -> C
     n_per_page = config.paging_spec.n_per_page(n)
     candidate, bin_counts = new_candidate(
         primary, secondary, n_per_page, mode, delta_encoding, ubl, nt.latent,
-        ans_cap=config.ans_size_log_cap,
+        ans_cap=config.ans_size_log_cap, sort=sort,
     )
     if candidate.should_fallback(nt.latent, n, bin_counts):
         return fallback_chunk_compressor(nt, nums, n_per_page)

@@ -19,12 +19,13 @@ import subprocess
 
 import torch
 
-CHAINS_PER_BLOCK = 128  # must match csrc/chain_decode.cu
+CHAINS_PER_BLOCK = 128  # must match csrc/chain_decode.cu and csrc/bin_ans_encode.cu
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
-SOURCES = ("section_gather", "chain_decode")
+SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
+           "row_sort")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +43,16 @@ _ARGTYPES = {
     # stg, stage_words, word0, curs, n_batches, states0, body_n, table_id,
     # node, lower, ts, moment0, out, n_chains, fuse, device, stream
     "chain_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # latents, page_n, body_n, table_id, states0, nexts, ts, lowers, t1, t2,
+    # b_pad, p1, offsets, states, n_chains, device, stream
+    "bin_ans_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+    # p1, offsets, page_n, curs, out, sec_words, n_chains, device, stream
+    "section_pack": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # rowsA, WA, F0A, lenA, RA, rowsC, WC, F0C, lenC, RC, body, body_words,
+    # device, stream
+    "image_stitch": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _L, _I, _P],
+    # keys, rows, m_pad, key_bytes, device, stream
+    "row_sort": [_P, _I, _L, _I, _I, _P],
 }
 
 
@@ -121,3 +132,26 @@ def launch_chain_decode(stg, word0, curs, states0, body_n, table_id, node, lower
           curs.data_ptr(), curs.shape[1] // 2, states0.data_ptr(), body_n.data_ptr(),
           table_id.data_ptr(), node.data_ptr(), lower.data_ptr(), node.shape[1],
           moment0.data_ptr(), out.data_ptr(), out.shape[0], fuse)
+
+
+def launch_bin_ans_encode(latents, body_n, table_id, states0, nexts, lowers, t1, t2,
+                          p1, offsets, states) -> None:
+    _call("bin_ans_encode", latents, latents.data_ptr(), latents.shape[1], body_n.data_ptr(),
+          table_id.data_ptr(), states0.data_ptr(), nexts.data_ptr(), nexts.shape[1],
+          lowers.data_ptr(), t1.data_ptr(), t2.data_ptr(), lowers.shape[1], p1.data_ptr(),
+          offsets.data_ptr(), states.data_ptr(), latents.shape[0])
+
+
+def launch_section_pack(p1, offsets, curs, out) -> None:
+    _call("section_pack", p1, p1.data_ptr(), offsets.data_ptr(), p1.shape[1], curs.data_ptr(),
+          out.data_ptr(), out.shape[1], out.shape[0])
+
+
+def launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body) -> None:
+    _call("image_stitch", body, rowsA.data_ptr(), rowsA.shape[1], F0A.data_ptr(), lenA.data_ptr(),
+          rowsA.shape[0], rowsC.data_ptr(), rowsC.shape[1], F0C.data_ptr(), lenC.data_ptr(),
+          rowsC.shape[0], body.data_ptr(), body.shape[0])
+
+
+def launch_row_sort(keys) -> None:
+    _call("row_sort", keys, keys.data_ptr(), keys.shape[0], keys.shape[1], keys.element_size())

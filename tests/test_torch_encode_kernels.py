@@ -1,0 +1,217 @@
+"""K5 (bin_ans_encode), K6 (section_pack), K7 (image_stitch) and K8
+(row_sort) of the port, on their own.
+
+The plain versions run here on the CPU; the tests marked `gpu` hold the
+CUDA kernels against the plain versions bit for bit and skip when there is
+no card. This file imports no JAX, so on a GPU machine without JAX it runs
+as `python -m pytest tests/test_torch_encode_kernels.py --noconftest -m gpu`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pcodec_tpu_torch as pt
+from pcodec_tpu_torch.dtypes import U64
+from pcodec_tpu_torch.format.bitio import BitWriter
+from pcodec_tpu_torch.format.metadata import Bins, ChunkLatentVarMeta
+from pcodec_tpu_torch.ops import assemble as asm
+from pcodec_tpu_torch.ops import container_encode as ce
+from pcodec_tpu_torch.ops import kernels
+from pcodec_tpu_torch.ops import row_sort as rs
+
+RNG = np.random.default_rng(31)
+
+
+def _cfg(order, mode="classic"):
+    kind = "try_consecutive" if order else "no_op"
+    return pt.ChunkConfig(mode_spec=pt.ModeSpec(mode), delta_spec=pt.DeltaSpec(kind, order))
+
+
+def _case(name):
+    walk = np.cumsum(RNG.integers(0, 120, 6000) + (RNG.random(6000) < 0.01) * 10**6)
+    return {
+        "i64_o1_p1024": (walk.astype(np.int64), _cfg(1), 1024, 2500),
+        "u64_o1_p256": (walk.astype(np.uint64), _cfg(1), 256, 1 << 20),
+        "i32_o2_p512": ((walk % 2_000_000).astype(np.int32), _cfg(2), 512, 1 << 20),
+        "i64_hi_entropy_p2048": (RNG.integers(-(2**63), 2**63 - 1, 5000, dtype=np.int64),
+                                 _cfg(0), 2048, 1 << 20),
+        "constant_then_walk": (np.concatenate([np.full(1500, 9, np.int64), walk[:1500]]),
+                               _cfg(1), 256, 1500),
+    }[name]
+
+
+def _launch(nums, cfg, page_n, chunk_n, device):
+    plan = asm.plan_image(nums, cfg, page_n, chunk_n, device)
+    return plan, asm.upload_image(plan, device)
+
+
+def _k5_args(a):
+    return (a["latents"], a["body_n"], a["table_id"], a["states0"], a["nexts"], a["lowers"],
+            a["t1"], a["t2"])
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """Exact: on CPU tensors each wrapper returns its plain version's result
+    and launches nothing."""
+    nums, cfg, page_n, chunk_n = _case("i64_o1_p1024")
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cpu")
+    before = dict(kernels.LAUNCHES)
+    outs = ce.bin_ans_encode(*_k5_args(a))
+    for x, y in zip(outs, ce.bin_ans_encode_plain(*_k5_args(a))):
+        assert torch.equal(x, y)
+    p1, offsets, _ = outs
+    _, _, curs, _ = ce.section_cursors(p1)
+    W = plan.launch.sec_words
+    assert torch.equal(ce.section_pack(p1, offsets, curs, W), ce.section_pack_plain(p1, offsets, curs, W))
+    assert kernels.LAUNCHES == before
+
+
+def test_section_pack_plain_matches_bit_writer():
+    """Exact: random ANS values (0-15 bits) and offsets (0-64 bits) packed
+    at the glue's cursors equal BitWriter's stream of the same batches."""
+    n, page_n = 3, 512
+    ren = RNG.integers(0, 16, (n, page_n))
+    ob = RNG.integers(0, 65, (n, page_n))
+    val = RNG.integers(0, 1 << 15, (n, page_n)) & ((1 << ren) - 1)
+    off = RNG.integers(0, 2**64, (n, page_n), dtype=np.uint64)
+    off = np.where(ob >= 64, off, off & ((np.uint64(1) << ob.astype(np.uint64)) - np.uint64(1)))
+    p1 = torch.from_numpy((val | (ren << 15) | (ob << 19)).astype(np.int32))
+    offsets = torch.from_numpy(off.view(np.int64))
+    _, _, curs, total_bits = ce.section_cursors(p1)
+    W = -(-int(total_bits.max()) // 128) * 4 + 4
+    got = ce.section_pack_plain(p1, offsets, curs, W).numpy().view(np.uint8)
+    for c in range(n):
+        w = BitWriter()
+        for b in range(page_n // 256):
+            sl = slice(256 * b, 256 * (b + 1))
+            w.write_batch(val[c, sl].astype(np.uint64), ren[c, sl])
+            w.write_batch(off[c, sl], ob[c, sl])
+        want = np.frombuffer(w.to_bytes(), np.uint8)
+        assert int(total_bits[c]) == int(ren[c].sum() + ob[c].sum())
+        assert np.array_equal(got[c, : len(want)], want) and not got[c, len(want):].any()
+
+
+def test_image_stitch_plain_places_rows():
+    """Exact: rows ORed in at F0, words past lenW ignored."""
+    rows = RNG.integers(0, 2**32, (4, 6)).astype(np.uint32)
+    F0 = np.array([0, 5, 5, 11], np.int64)
+    lenW = np.array([5, 1, 6, 3], np.int64)
+    rows[1, 0] &= 0x0000FFFF  # rows 1 and 2 share word 5: disjoint bits
+    rows[2, 0] &= 0xFFFF0000
+    body = np.zeros(14, np.uint32)
+    for r in range(4):
+        body[F0[r] : F0[r] + lenW[r]] |= rows[r, : lenW[r]]
+    t = torch.from_numpy
+    empty = torch.zeros((0, 2), dtype=torch.int32)
+    none = torch.zeros(0, dtype=torch.int64)
+    got = asm.image_stitch(t(rows.view(np.int32)), t(F0), t(lenW), empty, none, none, 14)
+    assert np.array_equal(got.numpy().view(np.uint32), body)
+
+
+def _sort_rows(span, rows, m):
+    """(rows, m) uint64 keys with ties, whose spans fit 32 bits or need 64."""
+    x = RNG.integers(0, 2**32 if span == "u32" else 2**64, (rows, m), dtype=np.uint64)
+    x[:, : m // 3] = x[:, :1]
+    return x + np.uint64(5 << 40) if span == "u32" else x
+
+
+@pytest.mark.parametrize("span", ["u32", "u64"])
+def test_row_sort_on_cpu_is_numpy_sort(span):
+    """Exact: on the CPU, K8's wrapper and sort_latents return numpy's sort
+    and launch nothing."""
+    x = _sort_rows(span, 3, 1000)
+    before = dict(kernels.LAUNCHES)
+    got = rs.row_sort(torch.from_numpy(x.view(np.int64))).numpy().view(np.uint64)
+    assert np.array_equal(got, np.sort(x, 1))
+    assert np.array_equal(rs.sort_latents(x[1], "cpu"), np.sort(x[1]))
+    assert kernels.LAUNCHES == before
+
+
+def _big_table_launch(device):
+    """A launch whose table (2^14 states, 2^14 bins) exceeds a block's shared
+    memory, so K5 reads it from global memory."""
+    n_bins = 1 << 14
+    lowers = np.sort(RNG.choice(2**40, n_bins, replace=False)).astype(np.uint64) << np.uint64(20)
+    bins = Bins(U64, np.ones(n_bins, np.uint32), lowers, np.full(n_bins, 20, np.uint32))
+    nexts, lo, t1, t2, ts = ce.build_enc_tables(ChunkLatentVarMeta(14, bins))
+    n, page_n = 256, 512
+    lat = lowers[RNG.integers(0, n_bins, (n, page_n))] + RNG.integers(0, 2**20, (n, page_n), dtype=np.uint64)
+    L = ce.EncodeLaunch(
+        page_n=page_n, latents=lat, body_n=RNG.integers(0, page_n + 1, n).astype(np.int64),
+        table_id=np.zeros(n, np.int64), states0=np.full(n, ts, np.int64),
+        nexts=nexts[None].astype(np.int32), lowers=lo[None], t1=t1[None].astype(np.int32),
+        t2=t2[None].astype(np.int32), sec_words=page_n * 36 // 32 + 8,
+    )
+    return L, ce.upload_launch(L, device)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["i64_o1_p1024", "u64_o1_p256", "i32_o2_p512",
+                                  "i64_hi_entropy_p2048", "constant_then_walk"])
+def test_kernels_match_plain_versions_on_card(case):
+    """Exact: K5, K6 and K7 on the card equal their plain versions, and the
+    file image equals the port's container_compress bytes."""
+    _need_card()
+    nums, cfg, page_n, chunk_n = _case(case)
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cuda")
+    before = dict(kernels.LAUNCHES)
+    outs = ce.bin_ans_encode(*_k5_args(a))
+    for x, y in zip(outs, ce.bin_ans_encode_plain(*_k5_args(a))):
+        assert torch.equal(x, y)
+    p1, offsets, states = outs
+    ans_len, off_len, curs, total_bits = ce.section_cursors(p1)
+    W = plan.launch.sec_words
+    sections = ce.section_pack(p1, offsets, curs, W)
+    assert torch.equal(sections, ce.section_pack_plain(p1, offsets, curs, W))
+    prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
+    rows = (prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"])
+    nw = -(-int(prep["sizes"][0]) // 4)
+    assert torch.equal(asm.image_stitch(*rows, nw), asm.image_stitch_plain(*rows, nw))
+    torch.cuda.synchronize()
+    for name in ("bin_ans_encode", "section_pack", "image_stitch"):
+        assert kernels.LAUNCHES[name] > before[name]
+    img = asm.file_image_to_bytes(*asm.run_image(plan, a))
+    assert img == pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 256, 5000, 70000])
+@pytest.mark.parametrize("span", ["u32", "u64"])
+def test_row_sort_matches_plain_version_on_card(span, m):
+    """Exact: K8 on the card equals its plain version, from one tile to rows
+    that take the global passes, on keys of either width."""
+    _need_card()
+    x = torch.from_numpy(_sort_rows(span, 3, m).view(np.int64)).cuda()
+    before = kernels.LAUNCHES["row_sort"]
+    got = rs.row_sort(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_sort"] == before + 1
+    assert torch.equal(got, rs.row_sort_plain(x))
+
+
+@pytest.mark.gpu
+def test_bin_ans_encode_table_in_global_memory_on_card():
+    """Exact: the largest legal table takes K5's global-memory path and
+    still equals the plain version."""
+    _need_card()
+    _, a = _big_table_launch("cuda")
+    for x, y in zip(ce.bin_ans_encode(*_k5_args(a)), ce.bin_ans_encode_plain(*_k5_args(a))):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_encode_wrappers_refuse_wrong_arguments_on_card():
+    _need_card()
+    p1 = torch.zeros((4, 256), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):
+        ce.section_pack(p1, p1, torch.zeros((4, 2), dtype=torch.int64, device="cuda"), 8)
+    _, a = _big_table_launch("cuda")
+    a["table_id"][5] = 1  # a block of chains that does not share one table
+    with pytest.raises(ValueError, match="share one table"):
+        ce.bin_ans_encode(*_k5_args(a))

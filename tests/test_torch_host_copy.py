@@ -92,6 +92,8 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
     code = (
         "import sys; before = set(sys.modules)\n"
         "import pcodec_tpu_torch, pcodec_tpu_torch.ops.container_decode\n"
+        "import pcodec_tpu_torch.ops.container_encode, pcodec_tpu_torch.ops.assemble\n"
+        "import pcodec_tpu_torch.ops.row_sort\n"
         "from pcodec_tpu_torch.codec import compress, decompress\n"
         "new = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'pcodec_tpu'))\n"
