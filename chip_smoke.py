@@ -10,6 +10,20 @@ Phases, one line each (numbers beside the card's name and power limit):
   3. kernels      small containers from the port's own encoder: K1 and K2 on
                   the card equal their plain PyTorch versions bit for bit,
                   and the decode equals the source numbers
+  3b. breadth kernels
+                  one small container per mode x delta kind (Classic with
+                  lookback and with order-6 conv1, Dict with 4, 3,000 and
+                  100,000 entries, IntMult, FloatQuant f32, FloatMult f32
+                  and f64), each at page_n 256 and 1024 with a ragged last
+                  page, plus a lookback container whose pages are too long
+                  for shared memory: the decode equals the source, and every
+                  K3 and K4 call it makes equals the plain version bit for
+                  bit, K3 in shared and in global memory, K4 with its table
+                  in shared and in global memory; the FloatMult joins on the
+                  card equal the CPU's on NaN, inf and subnormal multipliers
+                  and bases for f16, f32 and f64, and where the card's
+                  native f16/f32 multiply differs from the CPU's is printed
+                  (the reason the join multiplies in the softfloat)
   4. encode kernels
                   K8 on the card equals its plain version on rows of either
                   key width, from one tile to rows past 2^16 keys; small
@@ -30,6 +44,17 @@ Phases, one line each (numbers beside the card's name and power limit):
                           phase's container; K5-K8 held against their plain
                           versions at these shapes; the device part and each
                           step timed with CUDA events
+  5b. breadth at full size
+                  the PCT inputs of bench_matrix.py's make_configs (seed
+                  1234, regenerated here): wrapped_lookback_multipage (32M
+                  i64, lookback; K1, K2, K3), dict_i64_100k (16M i64,
+                  100,000 entries, uniform indices; K1, K2, K4 with the
+                  table in global memory) and dict_i64 (32M i64, 4 values;
+                  K1, K2, K4 with the table in shared memory), each encoded by the
+                  host container_compress, decoded on the card by
+                  decode_container_tensor, compared with the source and
+                  timed; K3 and K4 held against their plain versions on
+                  every call the decode made, and timed
   6. a `kernels` JSON line, then the `ok` JSON line last.
 
 Launch counts are set to 0 just before each main-path run and read just
@@ -37,6 +62,7 @@ after it. Any failure exits non-zero before the `ok` line. Without a CUDA
 device, or without the package beside this script, it fails at once.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -154,6 +180,150 @@ def encode_cases(pt):
     ]
 
 
+def breadth_cases(pt):
+    """(name, numbers, config) of the breadth kernel-check phase: one
+    container per mode x delta kind, counts that leave a ragged last page."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 12_345
+    t = np.arange(n, dtype=np.float64)
+    lookback = np.tile(rng.integers(0, 10**6, 512), n // 512 + 1)[:n] + rng.integers(0, 2, n)
+    lpc = (1 << 20) * np.sin(0.01 * t) + (1 << 18) * np.sin(0.003 * t + 1.0) + rng.integers(-64, 64, n)
+    v3000 = rng.integers(-(10**12), 10**12, 3000)
+    v100k = rng.integers(-(10**12), 10**12, 100_000)
+    # every entry used, and enough numbers that the dictionary pays for itself
+    every = np.concatenate([rng.permutation(100_000), rng.integers(0, 100_000, 300_001)])
+
+    def cfg(mode=("classic", 0.0), delta=("no_op", 0)):
+        return pt.ChunkConfig(mode_spec=pt.ModeSpec(*mode), delta_spec=pt.DeltaSpec(*delta))
+
+    return [
+        ("classic_lookback", lookback.astype(np.int64), cfg(delta=("try_lookback", 0))),
+        ("classic_conv1_o6", lpc.astype(np.int32), cfg(delta=("try_conv1", 6))),
+        ("dict_4", np.array([3, 99, 1234567, -5], np.int64)[rng.integers(0, 4, n)], cfg(("try_dict", 0.0))),
+        ("dict_3000", v3000[rng.integers(0, 3000, n)].astype(np.int64), cfg(("try_dict", 0.0))),
+        ("dict_100k", v100k[every].astype(np.int64), cfg(("try_dict", 0.0))),
+        ("int_mult", (np.cumsum(rng.integers(1, 30, n)) * 10**9 + rng.integers(0, 4, n)).astype(np.int64),
+         cfg(("try_int_mult", 10**9))),
+        ("float_quant_f32", (np.round(rng.standard_normal(n) * 16) / 16).astype(np.float32),
+         cfg(("try_float_quant", 12))),
+        ("float_mult_f32", (rng.integers(-5000, 5000, n) * np.float32(0.01)).astype(np.float32),
+         cfg(("try_float_mult", 0.01))),
+        ("float_mult_f64", rng.integers(-5000, 5000, n) * 0.01, cfg(("try_float_mult", 0.01))),
+    ]
+
+
+@contextlib.contextmanager
+def capturing(dec):
+    """Record the arguments of every K3 and K4 call that a decode makes,
+    so the kernels can be held against their plain versions at exactly
+    those inputs."""
+    calls = {"lookback_recon": [], "dict_join": []}
+    saved = {k: getattr(dec, k) for k in calls}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(args)
+            return saved[name](*args)
+        return call
+
+    for k in calls:
+        setattr(dec, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(dec, k, fn)
+
+
+def check_breadth_calls(torch, dec, calls) -> float:
+    """K3 and K4 against their plain versions on every recorded call."""
+    for args in calls["lookback_recon"]:
+        max_abs_err(torch, dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
+    for args in calls["dict_join"]:
+        max_abs_err(torch, dec.dict_join(*args), dec.dict_join_plain(*args))
+    return 0.0
+
+
+def kernel_route(kernels, name, args, smem_entries) -> str:
+    """Which route of K3 or K4 a recorded call took."""
+    if name == "lookback_recon":
+        return "K3 shared memory" if args[0].shape[1] <= kernels.LB_SMEM_MAX_N else "K3 global memory"
+    return "K4 table in shared memory" if args[1].shape[0] <= smem_entries else "K4 table in global memory"
+
+
+def join_inputs(nt, rng):
+    """FloatMult primaries (full range, so NaN and inf multipliers, and
+    small ones, whose products with tiny bases are subnormal) and bases
+    (normal, tiny, subnormal, zero, inf, NaN) as latents of the type."""
+    bits = nt.latent.bits
+    mid = 1 << (bits - 1)
+    prim = rng.integers(0, 1 << min(bits, 63), 20_000, dtype=np.uint64)
+    if bits == 64:
+        prim |= rng.integers(0, 2, 20_000, dtype=np.uint64) << np.uint64(63)
+    prim[:4000] = np.uint64(mid) + rng.integers(-3000, 3000, 4000).astype(np.uint64)
+    sec = rng.integers(0, 1 << min(bits, 63), 20_000, dtype=np.uint64)
+    udt = nt.latent.np_dtype
+    floats = np.array([0.01, 1e-30, 3.0, np.inf, np.nan, 0.0], nt.np_dtype)
+    subnormal = np.array([1, 7], udt).view(nt.np_dtype)
+    bases = nt.to_latent_ordered(np.concatenate([floats, subnormal]))
+    return prim, sec, [int(b) for b in bases]
+
+
+def matrix_inputs(pt):
+    """The PCT decode inputs of bench_matrix.py's make_configs: its seed-1234
+    draws replayed in order (the configs before these are drawn and
+    dropped), so the numbers are the benchmark's own."""
+    rng = np.random.default_rng(1234)
+    n, n2, n4 = 48 << 20, 32 << 20, 16 << 20
+    for draw in (lambda: rng.integers(0, 120, n), lambda: rng.random(n), lambda: rng.integers(0, 10**6, n),
+                 lambda: rng.standard_normal(n2), lambda: rng.integers(1, 30, n2), lambda: rng.integers(0, 4, n2),
+                 lambda: rng.integers(-5000, 5000, n), lambda: rng.standard_normal(n)):
+        draw()
+    pattern = rng.integers(0, 10**6, 512).astype(np.int64)
+    reps = np.tile(pattern, n2 // 512)
+    lookback = reps + rng.integers(0, 2, len(reps))
+    dict4 = np.array([3, 99, 1234567, -5], dtype=np.int64)[rng.integers(0, 4, n2)]
+    big_vals = rng.integers(-(10**12), 10**12, 100_000).astype(np.int64)
+    dict100k = big_vals[rng.integers(0, 100_000, n4)]
+    lb_cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_LOOKBACK))
+    dict_cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(pt.ModeSpec.TRY_DICT))
+    return [("wrapped_lookback_multipage", lookback, lb_cfg, "lookback_recon"),
+            ("dict_i64_100k", dict100k, dict_cfg, "dict_join"),
+            ("dict_i64", dict4, dict_cfg, "dict_join")]
+
+
+def breadth_kernel_numbers(torch, dec, name, calls):
+    """Bytes K3 or K4 must move over the recorded calls of one decode, and
+    the PyTorch call that computes the same function, where one does."""
+    if name == "lookback_recon":  # latents, lookbacks and output at 8 B, and the state
+        return sum(3 * nbytes(a[0]) + nbytes(a[2]) for a in calls), None
+    # 8 B of index in and 8 B of bits out per number, and the table once
+    idx = [torch.clamp(a[0] & 0xFFFFFFFF, max=a[1].shape[0] - 1) for a in calls]
+    for (prim, table), i in zip(calls, idx):
+        if not torch.equal(torch.take(table, i), dec.dict_join(prim, table)):
+            raise AssertionError("K4's torch.take yardstick computes another function")
+    return (sum(2 * nbytes(a[0]) + nbytes(a[1]) for a in calls),
+            lambda: [torch.take(a[1], i) for a, i in zip(calls, idx)])
+
+
+def native_product_mismatch(torch, sf, nt, prim, base, dev):
+    """Products of the FloatMult multipliers and a base in the card's native
+    f16/f32 multiply (the JAX package's join) against the same multiply on
+    the CPU: (differing count, first differing index, CPU bits, card bits).
+    Why the port's join multiplies in the integer softfloat instead."""
+    W, P = nt.latent.bits, nt.mantissa_digits
+    fdt, idt = {16: (torch.float16, torch.int16), 32: (torch.float32, torch.int32)}[W]
+    mult = sf.int_float_latent_to_bits(prim, W, W - P, P).to(idt).view(fdt)
+    base_f = torch.tensor([base], dtype=torch.int64).to(idt).view(fdt)
+    cpu = (mult * base_f).view(idt)
+    card = (mult.to(dev) * base_f.to(dev)).view(idt).cpu()
+    bad = (cpu != card).nonzero().flatten()
+    if not len(bad):
+        return 0, None, None, None
+    i = int(bad[0])
+    return len(bad), i, int(cpu[i]) & ((1 << W) - 1), int(card[i]) & ((1 << W) - 1)
+
+
 def ptxas_lines(reports):
     """(kernel, variant, 'Used ...' or spill line) of each ptxas report."""
     for k, rep in reports.items():
@@ -165,7 +335,11 @@ def ptxas_lines(reports):
                 fuse = re.search(r"ILi(\d)E", name)
                 smem = re.search(r"ILb(\d)E", name)
                 keys = ", u32 keys" if "IjE" in name else ", u64 keys"
-                entry = (f"fuse {fuse.group(1)}" if fuse else
+                ept = re.search(r"lb_smem_kernelILi(\d+)E", name)
+                entry = (f"shared memory, {ept.group(1)} per thread" if ept else
+                         "global route, prologue" if "lb_init_kernel" in name else
+                         "global route, one round" if "lb_round_kernel" in name else
+                         f"fuse {fuse.group(1)}" if fuse else
                          ("table in shared memory" if smem.group(1) == "1" else "table in global memory")
                          if smem else "tile pass" + keys if "tile_kernel" in name
                          else "global pass" + keys if "global_pass" in name else "kernel")
@@ -219,17 +393,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME
     from pcodec_tpu_torch.ops import assemble as asm
     from pcodec_tpu_torch.ops import container_decode as cd
     from pcodec_tpu_torch.ops import container_encode as ce
+    from pcodec_tpu_torch.ops import decode as dops
     from pcodec_tpu_torch.ops import kernels
     from pcodec_tpu_torch.ops import row_sort as rs
+    from pcodec_tpu_torch.ops import softfloat as sf
 
     dev = torch.device("cuda")
     # 1. card
     card = card_line()
-    name = torch.cuda.get_device_name(0)
-    print(f"card: {card} | torch: {name} | count {torch.cuda.device_count()} | "
+    device_kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch: {device_kind} | count {torch.cuda.device_count()} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # 2. build
@@ -256,6 +433,54 @@ def main() -> int:
             raise AssertionError(f"{case}: decode differs from the source")
         fuses = sorted({cp.fuse for cp in plan.launches.values()})
         print(f"kernels: {case}: K1, K2 == plain, decode == source (fuse {fuses})", flush=True)
+    torch.cuda.synchronize()
+
+    # 3b. breadth kernels: every mode x delta kind, K3 and K4 on both routes
+    smem_entries = kernels.dict_join_smem_entries(dev)
+    breadth = breadth_cases(pt)
+    cases = [(case, nums, cfg, page_n) for case, nums, cfg in breadth for page_n in (256, 1024)]
+    long_pages = np.tile(breadth[0][1], 4)  # pages of 20,480 numbers: K3 in global memory
+    cases.append(("classic_lookback_long_pages", long_pages, breadth[0][2], 20_480))
+    seen = set()
+    for case, nums, cfg, page_n in cases:
+        data = pt.container_compress(nums, cfg, page_n=page_n)
+        plan = cd.plan_container(data)
+        arrays = cd.upload_plan(plan, dev)
+        with capturing(dops) as calls:
+            got = cd.to_numbers(cd.decode_plan(plan, arrays), plan.nt)
+        if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
+            raise AssertionError(f"{case} p{page_n}: decode differs from the source")
+        check_breadth_calls(torch, dops, calls)
+        ch = plan.chunks[0]
+        want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join": ch.mode_kind == "dict"}
+        for k, expected in want.items():
+            if bool(calls[k]) != expected:
+                raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, expected them: {expected}")
+        routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
+        seen |= routes
+        print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
+              f"{sorted(routes) or 'no K3/K4'} == plain", flush=True)
+    if len(seen) != 4:
+        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4: {sorted(seen)}")
+    rng = np.random.default_rng(SEED + 4)
+    for ftype in ("f16", "f32", "f64"):
+        nt = NUMBER_TYPES_BY_NAME[ftype]
+        prim, sec, bases = join_inputs(nt, rng)
+        p_cpu, s_cpu = dops._u64_to_tensor(prim), dops._u64_to_tensor(sec)
+        if ftype != "f64":
+            base0 = dops.from_latent_ordered_int(nt, bases[0])
+            n_bad, i, want_b, got_b = native_product_mismatch(torch, sf, nt, p_cpu, base0, dev)
+            first = f", first at index {i}: CPU {want_b:#x}, card {got_b:#x}" if n_bad else ""
+            print(f"breadth: native {ftype} multiply (the JAX package's join) of {len(prim)} multipliers by "
+                  f"base {base0:#x}: the card differs from the CPU at {n_bad}{first} [{card}]", flush=True)
+        for base in bases:
+            want_bits = dops.join_mem(nt, "float_mult", base, p_cpu, s_cpu)
+            got_bits = dops.join_mem(nt, "float_mult", base, p_cpu.to(dev), s_cpu.to(dev)).cpu()
+            if not torch.equal(got_bits, want_bits):
+                raise AssertionError(f"FloatMult {ftype} join with base latent {base:#x} differs on the card "
+                                     f"at {int((got_bits != want_bits).sum())} numbers")
+    print("breadth: FloatMult joins on the card == CPU for f16, f32, f64 on NaN, inf, subnormal "
+          "multipliers and bases", flush=True)
     torch.cuda.synchronize()
 
     # 4. encode kernels against plain versions on small inputs
@@ -500,6 +725,70 @@ def main() -> int:
     print(f"main: K8 bound {k8_bound:.4f} ms; bytes counted: K5 {k5_bytes}, K6 {k6_bytes} "
           f"({payload_words} payload words, offsets at {off_b} bytes), K8 {k8_bytes} [{card}]", flush=True)
 
+    del ia, prep, flat_idx, flat_val, body64, x8, x8b, s8
+    torch.cuda.empty_cache()
+
+    # 5b. breadth at full size
+    breadth_rows = {}
+    for case, nums5, cfg5, kname in matrix_inputs(pt):
+        t0 = time.time()
+        data5 = pt.container_compress(nums5, cfg5)
+        t_enc5 = time.time() - t0
+        t0 = time.time()
+        plan5 = cd.plan_container(data5)
+        t_plan5 = time.time() - t0
+        src = torch.from_numpy(nums5).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        with capturing(dops) as calls:
+            res = cd.decode_container_tensor(data5, dev, plan5)
+            torch.cuda.synchronize()
+        launches5 = dict(kernels.LAUNCHES)
+        peak5 = torch.cuda.max_memory_allocated()
+        if not torch.equal(res, src):
+            raise AssertionError(f"{case}: decode differs at {int((res != src).sum())} of {len(nums5)} numbers")
+        del res, src
+        if launches5[kname] == 0 or (plan5.launches and launches5["chain_decode"] == 0):
+            raise AssertionError(f"{case}: a kernel of its decode path was not launched: {launches5}")
+        kcalls = calls[kname]
+        err5 = check_breadth_calls(torch, dops, calls)
+        arrays5 = cd.upload_plan(plan5, dev)
+        dec5 = time_ms(torch, lambda: cd.decode_plan(plan5, arrays5))
+        k12 = time_ms(torch, lambda: [cd.run_launch(cp, arrays5.words, arrays5.launches[lk])
+                                      for lk, cp in plan5.launches.items()])
+        kern = getattr(dops, kname)
+        plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_plain
+        k_t = time_ms(torch, lambda: [kern(*a) for a in kcalls])
+        k_plain = time_ms(torch, lambda: [plain(*a) for a in kcalls], runs=3, warmup=1)
+        k_bytes, library = breadth_kernel_numbers(torch, dops, kname, kcalls)
+        k_lib = time_ms(torch, library) if library else None
+        k_bound = k_bytes / HBM_BYTES_PER_S * 1e3
+        n5 = len(nums5)
+        bound5 = (len(data5) + n5 * 8) / HBM_BYTES_PER_S * 1e3
+        routes = sorted({kernel_route(kernels, kname, a, smem_entries) for a in kcalls})
+        ch0 = plan5.chunks[0]
+        bins = {k: ("trivial" if vp.trivial else "coded") for k, vp in ch0.var_plans.items()}
+        print(f"breadth: {case}: {n5} i64, {len(data5)} bytes, ratio {nums5.nbytes / len(data5):.4f}, "
+              f"host encode {t_enc5:.1f} s, host plan_container {t_plan5:.3f} s, {len(plan5.chunks)} chunks, "
+              f"chunk 0 {ch0.mode_kind}/{ch0.delta.kind} vars {bins}, launches {launches5}, "
+              f"max_memory_allocated {peak5} bytes [{card}]", flush=True)
+        print(f"breadth: {case}: decode {dec5[0]:.3f} ms median (min {dec5[1]:.3f}, max {dec5[2]:.3f}, "
+              f"{RUNS} runs), {n5 * 8 / (dec5[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound "
+              f"{bound5:.4f} ms = {bound5 / dec5[0]:.1%}; K1 + K2 alone {k12[0]:.4f} ms (min {k12[1]:.4f}, "
+              f"max {k12[2]:.4f}) [{card}]", flush=True)
+        lib_txt = f", torch.take {k_lib[0]:.4f} ms" if k_lib else ""
+        print(f"breadth: {case}: {kname} ({', '.join(routes)}) {k_t[0]:.4f} ms for its {len(kcalls)} calls "
+              f"(min {k_t[1]:.4f}, max {k_t[2]:.4f}), plain {k_plain[0]:.3f} ms{lib_txt}, bound {k_bound:.4f} ms "
+              f"({k_bytes} bytes) [{card}]", flush=True)
+        if kname not in breadth_rows:
+            breadth_rows[kname] = {"launches": launches5[kname], "max_abs_err": err5, "ms": k_t[0],
+                                   "plain_ms": k_plain[0], "bound_ms": k_bound, "bound_by": "bytes",
+                                   "library_ms": k_lib[0] if k_lib else None}
+        del calls, kcalls, arrays5, plan5, data5, nums5
+        torch.cuda.empty_cache()
+
     def by(bytes_, ops_ms):
         return "bytes" if bytes_ / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"
 
@@ -528,9 +817,13 @@ def main() -> int:
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": k8_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
          "bound_by": by(k8_bytes, k8_ops_ms), "library_ms": k8_lib[0]},
+        {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"]},
+        {"name": "dict_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/dict_join.cu",
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1450", **breadth_rows["dict_join"]},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -44,7 +44,7 @@ from pcodec_tpu_torch.codec import container as ctn
 from pcodec_tpu_torch.codec.wrapped import FileCompressor
 from pcodec_tpu_torch.format.bitio import BitWriter
 from pcodec_tpu_torch.ops import kernels
-from pcodec_tpu_torch.ops.container_decode import BATCH, _check_cuda, _resolve_device
+from pcodec_tpu_torch.ops.container_decode import BATCH, _resolve_device
 from pcodec_tpu_torch.ops.container_encode import (
     M32,
     EncodeLaunch,
@@ -55,6 +55,7 @@ from pcodec_tpu_torch.ops.container_encode import (
     plan_encode,
     upload_launch,
 )
+from pcodec_tpu_torch.ops.decode import _check_cuda
 
 i64 = torch.int64
 

@@ -14,7 +14,15 @@ holds the 4 interleaved tANS states and the delta moments of the page.
     chain_decode     K2, CUDA (csrc/chain_decode.cu): one thread per chain,
                      4-stream tANS + offsets + lower; in its fused form it also
                      applies the order-1 delta and the Classic join
-    post             plain torch: consecutive delta, Classic join, ragged trim
+    post             per chunk: the `delta` var first, then `primary` and
+                     `secondary`; delta reconstruction (consecutive and conv1
+                     in plain torch, lookback through K3), ragged trim, then
+                     the mode join (Dict through K4, the others in plain
+                     torch; ops/decode.py holds all of these)
+
+Every mode (Classic, Dict, IntMult, FloatQuant, FloatMult) and every delta
+(NOOP, consecutive, lookback, conv1) of every number type decodes here;
+nothing goes to the host.
 
 u64 values travel as int64 tensors holding the same bits: add, multiply and
 cumsum wrap mod 2^64 exactly, a logical right shift is `(x >> k) & mask`.
@@ -32,31 +40,20 @@ import torch
 from pcodec_tpu_torch import constants as c
 from pcodec_tpu_torch.codec.container import parse_container
 from pcodec_tpu_torch.dtypes import NumberType
+from pcodec_tpu_torch.errors import CorruptionError
 from pcodec_tpu_torch.format import ans
 from pcodec_tpu_torch.format.bitio import BitReader
 from pcodec_tpu_torch.format.metadata import DeltaEncoding, Mode
+from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import kernels
+from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda, _i64, _u64_to_tensor
 
 BATCH = c.FULL_BATCH_N  # 256
 ROUNDS_PER_BATCH = BATCH // c.ANS_INTERLEAVING  # 64
 CHAINS_PER_BLOCK = kernels.CHAINS_PER_BLOCK  # chains sharing one table in K2
 SLACK_WORDS = 2  # zero words after each staged chain (3-word offset reads)
 
-_MIN64 = -(1 << 63)  # 2^63 as an int64 bit pattern
-_BREADTH = (
-    "not ported yet; see ROADMAP.md queue item 'Decode breadth' "
-    "(K3 lookback, K4 dict, IntMult/FloatMult/FloatQuant joins, conv1)"
-)
-
-
-def _i64(v: int) -> int:
-    """u64 python int -> the int64 value with the same bits."""
-    v &= (1 << 64) - 1
-    return v - (1 << 64) if v >> 63 else v
-
-
-def _u64_to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64).view(np.int64)).to(device)
+_DELTA_KINDS = (DeltaEncoding.NOOP, DeltaEncoding.CONSECUTIVE, DeltaEncoding.LOOKBACK, DeltaEncoding.CONV1)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +66,8 @@ class VarPlan:
     key: str
     trivial: bool
     const_lower: int  # u64, the latent of every number when trivial
-    moments: np.ndarray  # (n_pages, state_n) u64 consecutive-delta moments
+    moments: np.ndarray  # (n_pages, state_n) u64 stored delta state
+    bits: int  # the var's latent bits (32 for a Dict primary, else the number's)
     launch_key: Optional[tuple] = None
     chain_start: int = 0  # first chain of this var within its launch
 
@@ -79,8 +77,11 @@ class ChunkPlan:
     n_pages: int
     page_ns: np.ndarray
     page_n: int  # launch page length: max page_n rounded up to BATCH
-    delta_order: int  # consecutive order; 0 for NOOP
+    delta: DeltaEncoding
+    mode_kind: str
+    mode_scalar: int  # IntMult/FloatMult base latent, FloatQuant k; else 0
     var_plans: Dict[str, VarPlan]
+    dict_table: Optional[np.ndarray] = None  # (D,) int64 memory bits of each Dict entry
 
 
 @dataclass
@@ -144,10 +145,10 @@ def _build_var_tables(var_meta):
 
 
 def _check_supported(ci: int, meta) -> None:
-    if meta.mode.kind != Mode.CLASSIC:
-        raise NotImplementedError(f"chunk {ci}: {meta.mode.kind} mode is {_BREADTH}")
-    if meta.delta_encoding.kind not in (DeltaEncoding.NOOP, DeltaEncoding.CONSECUTIVE):
-        raise NotImplementedError(f"chunk {ci}: {meta.delta_encoding.kind} delta is {_BREADTH}")
+    if meta.mode.kind not in Mode._WIRE:
+        raise NotImplementedError(f"chunk {ci}: unknown mode {meta.mode.kind!r}")
+    if meta.delta_encoding.kind not in _DELTA_KINDS:
+        raise NotImplementedError(f"chunk {ci}: unknown delta encoding {meta.delta_encoding.kind!r}")
 
 
 def _fuse_kind(key: str, meta, nt: NumberType) -> int:
@@ -165,8 +166,8 @@ def _fuse_kind(key: str, meta, nt: NumberType) -> int:
 
 
 def plan_container(data: bytes) -> ContainerPlan:
-    """Chain-major decode plan of a PCT container (Classic mode, NOOP or
-    consecutive delta). Any page length decodes on the card."""
+    """Chain-major decode plan of a PCT container: every mode and delta
+    encoding, any page length, all on the card."""
     idx = parse_container(data)
     reader = BitReader(np.frombuffer(idx.data, dtype=np.uint8))
     pages_by_chunk: List[list] = [[] for _ in idx.chunk_metas]
@@ -237,6 +238,7 @@ def plan_container(data: bytes) -> ContainerPlan:
                 trivial=bins.are_trivial() or len(bins) == 0,
                 const_lower=int(bins.lowers[0]) if len(bins) else 0,
                 moments=var_states[key],
+                bits=vm.latent_type.bits,
             )
             var_plans[key] = vp
             if vp.trivial or n_pages == 0:
@@ -259,10 +261,17 @@ def plan_container(data: bytes) -> ContainerPlan:
                     if fuse else np.zeros(n_pages, dtype=np.uint64)
                 ),
             })
-        order = meta.delta_encoding.order if meta.delta_encoding.kind == DeltaEncoding.CONSECUTIVE else 0
+        mode = meta.mode
+        table = None
+        if mode.kind == Mode.DICT:
+            if len(mode.payload) == 0 and n_pages:
+                raise CorruptionError(f"chunk {ci}: dict mode with an empty dictionary")
+            table = dec.dict_table(idx.nt, mode.payload)
         chunks.append(ChunkPlan(
-            n_pages=n_pages, page_ns=page_ns, page_n=page_n, delta_order=order,
-            var_plans=var_plans,
+            n_pages=n_pages, page_ns=page_ns, page_n=page_n, delta=meta.delta_encoding,
+            mode_kind=mode.kind,
+            mode_scalar=int(mode.payload) if mode.kind in (Mode.INT_MULT, Mode.FLOAT_MULT, Mode.FLOAT_QUANT) else 0,
+            var_plans=var_plans, dict_table=table,
         ))
 
     launches = {lkey: _build_launch(lkey, items) for lkey, items in groups.items()}
@@ -498,44 +507,9 @@ def chain_decode(stg, word0, curs, states0, body_n, table_id, node, lower, momen
     return out
 
 
-def _check_cuda(*pairs):
-    dev = pairs[0][0].device
-    for t, dtype in pairs:
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"kernel argument must be a contiguous {dtype} tensor on {dev}, "
-                f"got {t.dtype} on {t.device}"
-            )
-
-
 # ---------------------------------------------------------------------------
-# post: plain torch (XLA in the JAX package)
+# post: delta reconstruction, trim, mode join (XLA and K3/K4 in the JAX package)
 # ---------------------------------------------------------------------------
-
-
-def consecutive_decode_batched(latents, moments, order: int, latent_bits: int):
-    """latents (P, N) and moments (P, order), u64 bits in int64; toggle
-    center + cascaded exclusive cumsums (the JAX `_consecutive_decode_batched`)."""
-    out = latents + _i64(1 << (latent_bits - 1))
-    z = torch.zeros((latents.shape[0], 1), dtype=torch.int64, device=latents.device)
-    for j in range(order - 1, -1, -1):
-        cs = torch.cumsum(out, dim=1)
-        out = moments[:, j : j + 1] + torch.cat([z, cs[:, :-1]], dim=1)
-    return out
-
-
-def from_latent_ordered(nt: NumberType, lat):
-    """latent -> memory bits of the number: the Classic-mode join (the JAX
-    `_from_latent_ordered_u`, which the Classic branch of `_join_mem` is)."""
-    bits = nt.latent.bits
-    mask = _i64((1 << bits) - 1)
-    lat = lat & mask
-    if nt.kind == "unsigned":
-        return lat
-    mid = _i64(1 << (bits - 1))
-    if nt.kind == "signed":
-        return (lat ^ mid) & mask
-    return torch.where((lat & mid) != 0, lat ^ mid, (~lat) & mask)
 
 
 def trim_pages(x, cp: ChunkPlan):
@@ -552,25 +526,49 @@ def result_checksum_u64(res) -> int:
     return int(res.sum()) & ((1 << 64) - 1)
 
 
-def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], device) -> List[torch.Tensor]:
-    """Per chunk: flat memory bits (int64) of its numbers. A fused launch's
-    rows are final memory bits already (the JAX `_mem_from_fused_out`)."""
-    nt = plan.nt
+def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
+    """Undo the var's delta encoding on its (n_pages, page_n) latents (the
+    JAX `_reconstruct_var`); `moments` is the var's stored state on the
+    device and `delta_latents` the chunk's reconstructed `delta` var."""
+    de = cp.delta.for_latent_var(vp.key)
+    if de.kind == DeltaEncoding.NOOP:
+        return lat
+    if de.kind == DeltaEncoding.CONSECUTIVE:
+        return dec.consecutive_decode_batched(lat, moments, de.order, vp.bits)
+    if de.kind == DeltaEncoding.LOOKBACK:
+        return dec.lookback_recon(lat, delta_latents, moments, de.window_n, de.state_n, vp.bits)
+    return dec.conv1_decode_pages(lat, moments, de.weights, de.quantization, de.bias, de.order, vp.bits)
+
+
+def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> List[torch.Tensor]:
+    """Per chunk: flat memory bits (int64) of its numbers (the JAX
+    `_post_chunks`). A fused launch's rows are final memory bits already."""
     results = []
-    for cp in plan.chunks:
-        vp = cp.var_plans["primary"]
-        if vp.trivial:
-            lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower),
-                             dtype=torch.int64, device=device)
-        else:
-            lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
-            if plan.launches[vp.launch_key].fuse:
-                results.append(trim_pages(lat, cp))
+    for cp, arrays in zip(plan.chunks, dev.chunks):
+        var_latents = {}
+        for key in ("delta", "primary", "secondary"):
+            vp = cp.var_plans.get(key)
+            if vp is None:
                 continue
-        if cp.delta_order:
-            moments = _u64_to_tensor(vp.moments, device)
-            lat = consecutive_decode_batched(lat, moments, cp.delta_order, nt.latent.bits)
-        results.append(trim_pages(from_latent_ordered(nt, lat), cp))
+            if vp.trivial:
+                lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
+                                 device=dev.words.device)
+            else:
+                lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
+                if plan.launches[vp.launch_key].fuse:
+                    var_latents[key] = lat
+                    continue
+            var_latents[key] = reconstruct_var(cp, vp, lat, var_latents.get("delta"), arrays["moments_" + key])
+        primary = trim_pages(var_latents["primary"], cp)
+        lkey = cp.var_plans["primary"].launch_key
+        if lkey is not None and plan.launches[lkey].fuse:
+            results.append(primary)
+        elif cp.mode_kind == Mode.DICT:
+            results.append(dec.dict_join(primary, arrays["dict"]))
+        else:
+            secondary = var_latents.get("secondary")
+            secondary = trim_pages(secondary, cp) if secondary is not None else None
+            results.append(dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, primary, secondary))
     return results
 
 
@@ -609,6 +607,8 @@ def _resolve_device(device) -> torch.device:
 class DeviceArrays:
     words: torch.Tensor
     launches: Dict[tuple, Dict[str, torch.Tensor]] = field(default_factory=dict)
+    # per chunk: "moments_<var>" (n_pages, state_n) and, for Dict, "dict"
+    chunks: List[Dict[str, torch.Tensor]] = field(default_factory=list)
 
 
 def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
@@ -630,6 +630,11 @@ def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
             "lower": t(cp.lower.view(np.int64)),
             "moment0": t(cp.moment0.view(np.int64)),
         }
+    for ch in plan.chunks:
+        arrays = {"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()}
+        if ch.dict_table is not None:
+            arrays["dict"] = t(ch.dict_table)
+        dev.chunks.append(arrays)
     return dev
 
 
@@ -644,7 +649,7 @@ def decode_plan(plan: ContainerPlan, dev: DeviceArrays) -> torch.Tensor:
     """Device part of the decode: (n,) int64 memory bits of every number."""
     outs = {lkey: run_launch(cp, dev.words, dev.launches[lkey])
             for lkey, cp in plan.launches.items()}
-    return _concat(post_chunks(plan, outs, dev.words.device), dev.words.device)
+    return _concat(post_chunks(plan, outs, dev), dev.words.device)
 
 
 def decode_container_tensor(data: bytes, device="cuda", plan: Optional[ContainerPlan] = None) -> torch.Tensor:

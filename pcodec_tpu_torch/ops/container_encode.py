@@ -44,13 +44,8 @@ from pcodec_tpu_torch.dtypes import NumberType, number_type_from_np
 from pcodec_tpu_torch.format import ans
 from pcodec_tpu_torch.format.metadata import DeltaEncoding
 from pcodec_tpu_torch.ops import kernels
-from pcodec_tpu_torch.ops.container_decode import (
-    _MIN64,
-    BATCH,
-    CHAINS_PER_BLOCK,
-    _check_cuda,
-    _resolve_device,
-)
+from pcodec_tpu_torch.ops.container_decode import BATCH, CHAINS_PER_BLOCK, _resolve_device
+from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 from pcodec_tpu_torch.ops.row_sort import sort_latents
 
 M32 = 0xFFFFFFFF

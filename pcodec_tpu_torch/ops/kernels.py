@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
-           "row_sort")
+           "row_sort", "lookback_recon", "dict_join")
+LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS = {}
+_DICT_SMEM_ENTRIES = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +55,11 @@ _ARGTYPES = {
     "image_stitch": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _L, _I, _P],
     # keys, rows, m_pad, key_bytes, device, stream
     "row_sort": [_P, _I, _L, _I, _I, _P],
+    # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
+    # ptr_scratch, device, stream
+    "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _I, _P],
+    # primary, table, out, n, D, smem, device, stream
+    "dict_join": [_P, _P, _P, _L, _L, _I, _I, _P],
 }
 
 
@@ -155,3 +162,29 @@ def launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body) -> None:
 
 def launch_row_sort(keys) -> None:
     _call("row_sort", keys, keys.data_ptr(), keys.shape[0], keys.shape[1], keys.element_size())
+
+
+def launch_lookback_recon(lat, lb, mom, out, window_n: int, state_n: int, mid: int, rounds: int,
+                          scratch=None) -> None:
+    """scratch: (add (P, N) int64, ptr (2, P, N) int32) for pages longer
+    than LB_SMEM_MAX_N, else None."""
+    add_s, ptr_s = (scratch[0].data_ptr(), scratch[1].data_ptr()) if scratch else (None, None)
+    _call("lookback_recon", lat, lat.data_ptr(), lb.data_ptr(), mom.data_ptr(), out.data_ptr(),
+          lat.shape[0], lat.shape[1], state_n, window_n, mid, rounds, add_s, ptr_s)
+
+
+def dict_join_smem_entries(device) -> int:
+    """Largest table, in entries, that K4 holds in shared memory on `device`."""
+    index = torch.device(device).index or 0
+    if index not in _DICT_SMEM_ENTRIES:
+        fn = _lib("dict_join").dict_join_smem_entries
+        fn.argtypes = [_I]
+        fn.restype = _L
+        _DICT_SMEM_ENTRIES[index] = fn(index)
+    return _DICT_SMEM_ENTRIES[index]
+
+
+def launch_dict_join(primary, table, out) -> None:
+    smem = int(table.shape[0] <= dict_join_smem_entries(primary.device))
+    _call("dict_join", primary, primary.data_ptr(), table.data_ptr(), out.data_ptr(), primary.shape[0],
+          table.shape[0], smem)

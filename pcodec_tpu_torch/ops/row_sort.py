@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from pcodec_tpu_torch.ops import kernels
-from pcodec_tpu_torch.ops.container_decode import _MIN64, _check_cuda
+from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 
 M32 = 0xFFFFFFFF
 

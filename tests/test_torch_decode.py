@@ -21,6 +21,7 @@ import pcodec_tpu_torch as pt
 from pcodec_tpu_torch.dtypes import NUMBER_TYPES
 from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME as TYPES
 from pcodec_tpu_torch.ops import container_decode as cd
+from pcodec_tpu_torch.ops import decode as dec
 
 RNG = np.random.default_rng(2024)
 CLASSIC = pt.ModeSpec("classic")
@@ -107,6 +108,9 @@ def test_decode_edge_cases(case):
     ("classic", ("try_lookback", 0)),
 ])
 def test_chunks_outside_the_slice_raise(mode, delta):
+    """IntMult, Dict and lookback chunks, refused by the first slice, now
+    decode exactly; a mode or delta kind the format does not know still
+    raises."""
     if mode == "try_int_mult":
         nums = (RNG.integers(0, 1000, 3000) * 1_000_000).astype(np.int64)
         spec = pt.ModeSpec(mode, 1_000_000)
@@ -118,8 +122,12 @@ def test_chunks_outside_the_slice_raise(mode, delta):
         spec = pt.ModeSpec(mode)
     cfg = pt.ChunkConfig(mode_spec=spec, delta_spec=pt.DeltaSpec(*delta))
     data = pt.container_compress(nums, cfg, page_n=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cd.plan_container(data)
+    out = pt.decode_container_device(data, device="cpu")
+    assert np.array_equal(out, nums) and np.array_equal(out, ref_decompress(data))
+    meta = cd.parse_container(data).chunk_metas[0]
+    meta.mode.kind = "unknown"
+    with pytest.raises(NotImplementedError, match="unknown mode"):
+        cd._check_supported(0, meta)
 
 
 def test_default_device_needs_a_card():
@@ -158,7 +166,7 @@ def test_consecutive_decode_matches_jax(order, bits):
     lat = _u64((5, 300)) & np.uint64((1 << bits) - 1 if bits < 64 else 2**64 - 1)
     mom = _u64((5, order))
     ref = np.asarray(pd._consecutive_decode_batched(jnp.asarray(lat), jnp.asarray(mom), order, bits))
-    out = cd.consecutive_decode_batched(cd._u64_to_tensor(lat), cd._u64_to_tensor(mom), order, bits)
+    out = dec.consecutive_decode_batched(cd._u64_to_tensor(lat), cd._u64_to_tensor(mom), order, bits)
     assert np.array_equal(out.numpy().view(np.uint64), ref)
 
 
@@ -170,7 +178,7 @@ def test_classic_join_matches_jax(name):
     ref = np.asarray(pd._join_mem(REF_TYPES[name], Mode.CLASSIC, jnp.uint64(0), None,
                                   jnp.asarray(lat), None))
     ordered = np.asarray(xops._from_latent_ordered_u(REF_TYPES[name], jnp.asarray(lat)))
-    out = cd.from_latent_ordered(TYPES[name], cd._u64_to_tensor(lat)).numpy().view(np.uint64)
+    out = dec.from_latent_ordered(TYPES[name], cd._u64_to_tensor(lat)).numpy().view(np.uint64)
     assert np.array_equal(out, ref) and np.array_equal(out, ordered)
 
 

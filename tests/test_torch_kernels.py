@@ -12,6 +12,7 @@ import torch
 
 import pcodec_tpu_torch as pt
 from pcodec_tpu_torch.ops import container_decode as cd
+from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import kernels
 
 RNG = np.random.default_rng(99)
@@ -63,7 +64,7 @@ def test_fused_chain_decode_equals_latents_then_post(dtype):
     (cp,) = plan.chunks
     moments = cd._u64_to_tensor(cp.var_plans["primary"].moments)
     rows = slice(0, cp.n_pages)
-    post = cd.from_latent_ordered(plan.nt, cd.consecutive_decode_batched(lat[rows], moments, 1, 64))
+    post = dec.from_latent_ordered(plan.nt, dec.consecutive_decode_batched(lat[rows], moments, 1, 64))
     assert torch.equal(cd.trim_pages(fused[rows], cp), cd.trim_pages(post, cp))
 
 
