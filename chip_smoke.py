@@ -26,11 +26,17 @@ Phases, one line each (numbers beside the card's name and power limit):
                   (the reason the join multiplies in the softfloat)
   4. encode kernels
                   K8 on the card equals its plain version on rows of either
-                  key width, from one tile to rows past 2^16 keys; small
-                  inputs: K5, K6 and K7 on the card equal their plain
-                  versions bit for bit, and the file image (trained through
-                  K8; for two inputs also encode_container_device's bytes)
-                  equals the port's container_compress bytes
+                  key width, from one tile to rows past 2^16 keys; K9 equals
+                  its plain version and the host histogram() on rows of few
+                  values, zeros, runs, the largest u64 and full 64-bit
+                  ranges, at nb_log 2, 5, 8 and 12; small inputs: K5, K6 and
+                  K7 on the card equal their plain versions bit for bit, the
+                  file image (trained on the card through K8 and K9 where
+                  device_train_supported covers the configuration, else on
+                  the host; for two inputs also encode_container_device's
+                  bytes) equals the port's container_compress bytes, and
+                  each device-trained chunk meta equals the host
+                  chunk_compressor's
   5. main path    64M taxi-like i64 (seed 1234), page_n 1024, 1M-number
                   chunks, order-1 consecutive delta:
                   decode  the container decoded on the card through K1 and
@@ -38,12 +44,20 @@ Phases, one line each (numbers beside the card's name and power limit):
                           source; K1 and K2 held against their plain versions
                           at the main path's shapes; timed with CUDA events
                   encode  the same numbers encoded to a file image on the
-                          card by encode_container_image_device: training
-                          sorts each chunk's latents through K8, then K5, K6
-                          and K7; compared byte for byte with the decode
-                          phase's container; K5-K8 held against their plain
-                          versions at these shapes; the device part and each
-                          step timed with CUDA events
+                          card by encode_container_image_device: training on
+                          the card (plan_encode_device: K8 sorts every
+                          chunk's delta'd latents, K9 walks their histograms),
+                          then K5, K6 and K7; compared byte for byte with the
+                          decode phase's container; K5-K9 held against their
+                          plain versions at these shapes (K8 and K9 on the
+                          calls the encode made); the device part, the
+                          training and each step timed with CUDA events
+  5c. auto config the same 64M numbers at ChunkConfig() (auto mode, auto
+                  delta) with 2M-number chunks, as bench.py encodes them:
+                  trained on the card (stage-1 candidate sorts and walks,
+                  then each chunk's), the image compared with the port's
+                  container_compress bytes, every K8 and K9 call held
+                  against its plain version, the chosen deltas printed
   5b. breadth at full size
                   the PCT inputs of bench_matrix.py's make_configs (seed
                   1234, regenerated here): wrapped_lookback_multipage (32M
@@ -71,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -82,6 +97,7 @@ K2_OPS_PER_NUMBER = 40  # integer operations of K2's inner loop per decoded numb
 K5_OPS_PER_SYMBOL = 16  # K5's tANS step and offset per coded symbol, besides the search
 K5_OPS_PER_STEP = 4  # K5's operations per binary-search step
 K6_OPS_PER_SYMBOL = 12  # K6's two deposits per coded symbol
+K9_OPS_PER_STEP = 40  # K9's integer operations per walk step (a 64-bit division counted as one)
 _MIN64 = -(1 << 63)
 RUNS = 10
 
@@ -177,6 +193,8 @@ def encode_cases(pt):
          512, 1 << 20),
         ("dict", np.array([3, 99, 1234567, -5], np.int64)[rng.integers(0, 4, 30_000)],
          cfg_of(pt, 0, "try_dict"), 256, 1 << 20),
+        ("i64_auto_config", walk.astype(np.int64), pt.ChunkConfig(), 256, 16_384),
+        ("i16_auto_config_tail", (walk % 30_000).astype(np.int16)[:33_001], pt.ChunkConfig(), 512, 16_384),
     ]
 
 
@@ -213,12 +231,13 @@ def breadth_cases(pt):
 
 
 @contextlib.contextmanager
-def capturing(dec):
-    """Record the arguments of every K3 and K4 call that a decode makes,
-    so the kernels can be held against their plain versions at exactly
-    those inputs."""
-    calls = {"lookback_recon": [], "dict_join": []}
-    saved = {k: getattr(dec, k) for k in calls}
+def capturing(mod, names=("lookback_recon", "dict_join")):
+    """Record the arguments of every call of the named kernel wrappers of
+    `mod` (K3 and K4 of a decode, K8 and K9 of device training), so the
+    kernels can be held against their plain versions at exactly those
+    inputs."""
+    calls = {k: [] for k in names}
+    saved = {k: getattr(mod, k) for k in calls}
 
     def recorder(name):
         def call(*args):
@@ -227,12 +246,12 @@ def capturing(dec):
         return call
 
     for k in calls:
-        setattr(dec, k, recorder(k))
+        setattr(mod, k, recorder(k))
     try:
         yield calls
     finally:
         for k, fn in saved.items():
-            setattr(dec, k, fn)
+            setattr(mod, k, fn)
 
 
 def check_breadth_calls(torch, dec, calls) -> float:
@@ -349,6 +368,65 @@ def ptxas_lines(reports):
                 yield k, entry, line.strip()
 
 
+def walk_lanes(rng):
+    """Rows for K9: few values, zeros, high entropy, runs, the largest u64,
+    tiny rows (n 0, 1 and 10), distinct values and full 64-bit ranges."""
+    return [rng.integers(0, 10, 5000).astype(np.uint64), np.zeros(3000, np.uint64),
+            rng.integers(0, 2**63, 5000).astype(np.uint64), np.repeat(rng.integers(0, 50, 100), 50).astype(np.uint64),
+            np.full(1000, 2**64 - 1, np.uint64), rng.integers(0, 3, 777).astype(np.uint64),
+            np.arange(4096, dtype=np.uint64), rng.integers(0, 2, 10).astype(np.uint64), np.zeros(0, np.uint64),
+            np.array([7], np.uint64), rng.integers(0, 2**64, 3000, dtype=np.uint64)]
+
+
+def walk_tables(torch, dt, lanes, nb_log, dev):
+    """K9's arguments for the rows: the port's sorted extracts at nb_log."""
+    m = max(len(x) for x in lanes)
+    vals = np.zeros((len(lanes), m), np.uint64)
+    live = np.zeros((len(lanes), m), bool)
+    for i, x in enumerate(lanes):
+        vals[i, : len(x)] = x[::-1]
+        live[i, : len(x)] = True
+    n = torch.tensor([len(x) for x in lanes], dtype=torch.int64, device=dev)
+    ext = dt.sorted_extracts(torch.from_numpy(vals.view(np.int64)).to(dev), torch.from_numpy(live).to(dev), n,
+                             torch.full_like(n, nb_log))
+    return (*ext, n, nb_log)
+
+
+def walk_steps(R, n, nb_log: int) -> int:
+    """Steps the walks of one K9 call take, from its R table and counts:
+    a step either ends the lane or moves it to R of its bin."""
+    R, n = R.cpu().numpy(), n.cpu().numpy()
+    nb = 1 << nb_log
+    steps = 0
+    for lane in range(len(n)):
+        pos, ln = 0, int(n[lane])
+        while pos < ln:
+            steps += 1
+            j = (pos << nb_log) // ln
+            if (((j + 1) * ln + nb - 1) >> nb_log) - pos >= ln - pos:
+                break
+            pos = int(R[lane, j])
+    return steps
+
+
+def check_train_calls(torch, dt, rs, calls) -> float:
+    """K8 and K9 against their plain versions on every recorded call."""
+    for (x,) in calls["row_sort"]:
+        max_abs_err(torch, rs.row_sort(x), rs.row_sort_plain(x))
+    for args in calls["walk_bins"]:
+        for a, b in zip(dt.walk_bins(*args), dt.walk_bins_plain(*args)):
+            max_abs_err(torch, a, b)
+    return 0.0
+
+
+def meta_bytes(cc) -> bytes:
+    from pcodec_tpu_torch.format.bitio import BitWriter
+
+    w = BitWriter()
+    cc.write_meta(w)
+    return w.to_bytes()
+
+
 def k5_args(a):
     return (a["latents"], a["body_n"], a["table_id"], a["states0"], a["nexts"], a["lowers"],
             a["t1"], a["t2"])
@@ -397,7 +475,12 @@ def main() -> int:
     from pcodec_tpu_torch.ops import assemble as asm
     from pcodec_tpu_torch.ops import container_decode as cd
     from pcodec_tpu_torch.ops import container_encode as ce
+    from pcodec_tpu_torch.binning.histogram import histogram
+    from pcodec_tpu_torch.codec import compress as cmp
+    from pcodec_tpu_torch.codec.chunk_config import PagingSpec
+    from pcodec_tpu_torch.codec.container import _exact_split
     from pcodec_tpu_torch.ops import decode as dops
+    from pcodec_tpu_torch.ops import device_train as dt
     from pcodec_tpu_torch.ops import kernels
     from pcodec_tpu_torch.ops import row_sort as rs
     from pcodec_tpu_torch.ops import softfloat as sf
@@ -490,9 +573,31 @@ def main() -> int:
             x = torch.from_numpy(sort_rows(rng, span, 3, m)).to(dev)
             max_abs_err(torch, rs.row_sort(x), rs.row_sort_plain(x))
     print("encode: K8 row_sort == plain, keys of 32 and 64 bits, rows of 3 to 2^20 keys", flush=True)
+    lanes = walk_lanes(rng)
+    for nb_log in (2, 5, 8, 12):
+        args = walk_tables(torch, dt, lanes, nb_log, dev)
+        got = dt.walk_bins(*args)
+        for a, b in zip(got, dt.walk_bins_plain(*args)):
+            max_abs_err(torch, a, b)
+        co, lo, up = (t.cpu().numpy().view(np.uint64) for t in got[:3])
+        for i, x in enumerate(lanes):
+            k = int(got[3][i])
+            host = [(b.count, b.lower, b.upper) for b in histogram(x.copy(), nb_log)]
+            if [(int(a), int(b), int(c)) for a, b, c in zip(co[i, :k], lo[i, :k], up[i, :k])] != host:
+                raise AssertionError(f"K9 differs from the host histogram() at nb_log {nb_log}, lane {i}")
+    print(f"encode: K9 histogram_walk == plain == host histogram() on {len(lanes)} lanes at nb_log 2, 5, 8, 12",
+          flush=True)
     for i, (case, nums, cfg, page_n, chunk_n) in enumerate(encode_cases(pt)):
         ref = pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
         plan = asm.plan_image(nums, cfg, page_n, chunk_n, dev)
+        if plan.trained_on == "device":
+            start = 0
+            for ci, (cn, job) in enumerate(zip(plan.enc.chunk_ns, plan.enc.jobs)):
+                chunk_cfg = replace(cfg, paging_spec=PagingSpec.exact_pages(_exact_split(cn, page_n)))
+                host_cc = cmp.chunk_compressor(plan.enc.nt, nums[start : start + cn], chunk_cfg)
+                if meta_bytes(job.cc) != meta_bytes(host_cc):
+                    raise AssertionError(f"{case}: chunk {ci}'s device-trained meta differs from the host's")
+                start += cn
         a = asm.upload_image(plan, dev)
         steps = "no chains (trivial var)"
         if plan.launch.n_chains:
@@ -507,8 +612,9 @@ def main() -> int:
             entry = ", encode_container_device == container_compress"
         L = plan.launch
         bins = sorted({len(job.tables[1]) for job in plan.enc.jobs if not job.trivial})
-        print(f"encode: {case}: {steps}, image == container_compress{entry} "
-              f"({len(plan.enc.jobs)} chunks, {L.n_chains} chains, bins {bins}, "
+        metas = ", chunk metas == host chunk_compressor" if plan.trained_on == "device" else ""
+        print(f"encode: {case}: trained on the {plan.trained_on}{metas}, {steps}, image == container_compress"
+              f"{entry} ({len(plan.enc.jobs)} chunks, {L.n_chains} chains, bins {bins}, "
               f"sec_words {L.sec_words})", flush=True)
     torch.cuda.synchronize()
 
@@ -602,11 +708,12 @@ def main() -> int:
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     t0 = time.time()
-    image = pt.encode_container_image_device(nums, cfg, page_n=1024, chunk_n=1 << 20, device=dev)
-    torch.cuda.synchronize()
+    with capturing(dt, ("row_sort", "walk_bins")) as tcalls:
+        image = pt.encode_container_image_device(nums, cfg, page_n=1024, chunk_n=1 << 20, device=dev)
+        torch.cuda.synchronize()
     t_img = time.time() - t0
-    enc_launches = {k: kernels.LAUNCHES[k]
-                    for k in ("row_sort", "bin_ans_encode", "section_pack", "image_stitch")}
+    enc_launches = {k: kernels.LAUNCHES[k] for k in ("row_sort", "histogram_walk", "bin_ans_encode",
+                                                     "section_pack", "image_stitch")}
     peak_enc = torch.cuda.max_memory_allocated()
     if asm.file_image_to_bytes(*image) != data:
         raise AssertionError("main path file image differs from container_compress's bytes")
@@ -614,12 +721,18 @@ def main() -> int:
         raise AssertionError(f"a kernel of the encode path was not launched: {enc_launches}")
     del image
     print(f"main: file image == container_compress bytes ({len(data)}), launches {enc_launches}, "
-          f"encode_container_image_device {t_img:.1f} s (host training included), "
+          f"encode_container_image_device {t_img:.1f} s (training included), "
           f"max_memory_allocated {peak_enc} bytes [{card}]", flush=True)
+    train_err = check_train_calls(torch, dt, rs, tcalls)
+    (x8,) = tcalls["row_sort"][-1]  # the sort of every chunk's delta'd latents
+    k9_args = tcalls["walk_bins"][-1]  # the walk of every chunk's histogram
+    del tcalls
 
     t0 = time.time()
     iplan = asm.plan_image(nums, cfg, 1024, 1 << 20, dev)
     t_iplan = time.time() - t0
+    if iplan.trained_on != "device":
+        raise AssertionError(f"the main path trained on the {iplan.trained_on}")
     t0 = time.time()
     ia = asm.upload_image(iplan, dev)
     torch.cuda.synchronize()
@@ -627,30 +740,48 @@ def main() -> int:
     L = iplan.launch
     st = check_encode_steps(torch, ce, asm, iplan, ia)
     prep, nw = st["prep"], st["body_words"]
-    print(f"main: host plan_image {t_iplan:.3f} s, upload {t_up:.3f} s, {L.n_chains} chains, "
-          f"b_pad {L.lowers.shape[1]}, ts {L.nexts.shape[1]}, sec_words {L.sec_words}, "
-          f"page p is chain p: {iplan.identity}; "
-          f"K5, K6, K7 == plain at these shapes", flush=True)
+    print(f"main: plan_image {t_iplan:.3f} s (host clock, training on the card included), upload "
+          f"{t_up:.3f} s, {L.n_chains} chains, b_pad {L.lowers.shape[1]}, ts {L.nexts.shape[1]}, "
+          f"sec_words {L.sec_words}, page p is chain p: {iplan.identity}; "
+          f"K5, K6, K7 == plain at these shapes; K8, K9 == plain on the encode's calls", flush=True)
+    train = time_ms(torch, lambda: dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev), runs=3, warmup=1)
+    print(f"main: device training plan_encode_device {train[0]:.1f} ms median (min {train[1]:.1f}, "
+          f"max {train[2]:.1f}, 3 runs, CUDA events) [{card}]", flush=True)
+    # where the training's time goes: its card phases alone at the main path's inputs
+    n_ch = N >> 20
+    rowlen = np.full(N // 1024, 1024)
+    orders, nreal = [1] * n_ch, [(1 << 20) - 1024] * n_ch
+    ubls = [cmp.choose_unoptimized_bins_log(cfg.compression_level, 1 << 20)] * n_ch
+    lat_t = time_ms(torch, lambda: dt.phase_latents(nums, iplan.enc.nt, N // 1024, 1024, None, dev), runs=3, warmup=1)
+    lat2d, _ = dt.phase_latents(nums, iplan.enc.nt, N // 1024, 1024, None, dev)
+    sort_t = time_ms(torch, lambda: dt.phase_delta_sort(lat2d, orders, rowlen, nreal, ubls, 64), runs=3, warmup=1)
+    ext = dt.phase_delta_sort(lat2d, orders, rowlen, nreal, ubls, 64)[2]
+    walk_t = time_ms(torch, lambda: dt.phase_walk(ext, nreal, ubls), runs=3, warmup=1)
+    launch_t = time_ms(torch, lambda: ce.build_encode_launch(iplan.enc), runs=3, warmup=1)
+    rest = train[0] - lat_t[0] - sort_t[0] - walk_t[0]
+    print(f"main: training parts: phase_latents (upload, bijection) {lat_t[0]:.1f} ms, phase_delta_sort "
+          f"(delta, K8, extracts) {sort_t[0]:.1f} ms, phase_walk (K9, read back) {walk_t[0]:.2f} ms, the rest "
+          f"(host screening and chunk build) {rest:.1f} ms; build_encode_launch (latents sliced on the card) "
+          f"{launch_t[0]:.1f} ms [{card}]", flush=True)
+    del lat2d, ext
 
-    # K8 at the main path's shape: chunk 0's latents as its training sorts them
-    cc0 = iplan.enc.jobs[0].cc
-    lat0 = cc0.lvcs.primary.latents
-    train0 = np.concatenate([lat0[i.per_latent_var.primary.start : i.per_latent_var.primary.end]
-                             for i in cc0.page_infos]).astype(np.uint64)
-    x8 = torch.from_numpy(train0.view(np.int64)).to(dev)[None]
-    s8 = rs.row_sort(x8)
-    k8_err = max_abs_err(torch, s8, rs.row_sort_plain(x8))
-    if not np.array_equal(s8[0].cpu().numpy().view(np.uint64), np.sort(train0)):
-        raise AssertionError("K8 differs from numpy's sort at the main path's shape")
+    # K8 and K9 at the main path's shapes: the calls the encode made
     x8b = x8 ^ _MIN64  # unsigned order as int64 order, for torch.sort (not timed)
     k8 = time_ms(torch, lambda: rs.row_sort(x8))
     k8_plain = time_ms(torch, lambda: rs.row_sort_plain(x8))
     k8_lib = time_ms(torch, lambda: torch.sort(x8b, dim=1))
-    m8 = x8.shape[1]
-    span8 = int(train0.max() - train0.min())
-    print(f"main: K8 row_sort {k8[0]:.4f} ms (min {k8[1]:.4f}, max {k8[2]:.4f}) for chunk 0's "
-          f"{m8} latents (span {span8}, {'u32' if span8 <= 0xFFFFFFFF else 'u64'} keys), "
-          f"plain {k8_plain[0]:.4f} ms, torch.sort {k8_lib[0]:.4f} ms [{card}]", flush=True)
+    rows8, m8 = x8.shape
+    print(f"main: K8 row_sort {k8[0]:.4f} ms (min {k8[1]:.4f}, max {k8[2]:.4f}) for {rows8} rows of {m8} "
+          f"latents, plain {k8_plain[0]:.4f} ms, torch.sort {k8_lib[0]:.4f} ms [{card}]", flush=True)
+    k9 = time_ms(torch, lambda: dt.walk_bins(*k9_args))
+    k9_plain = time_ms(torch, lambda: dt.walk_bins_plain(*k9_args), runs=3, warmup=1)
+    k9_one = tuple(x[:1].contiguous() if torch.is_tensor(x) else x for x in k9_args)
+    k9_lane = time_ms(torch, lambda: dt.walk_bins(*k9_one))
+    lanes9, nb9 = k9_args[0].shape
+    steps9 = walk_steps(k9_args[2], k9_args[6], k9_args[7])
+    print(f"main: K9 histogram_walk {k9[0]:.4f} ms (min {k9[1]:.4f}, max {k9[2]:.4f}) for {lanes9} lanes of "
+          f"{nb9} bins ({steps9} steps), one lane alone {k9_lane[0]:.4f} ms, plain {k9_plain[0]:.2f} ms "
+          f"[{card}]", flush=True)
 
     enc = time_ms(torch, lambda: asm.run_image(iplan, ia))
     k5 = time_ms(torch, lambda: ce.bin_ans_encode(*k5_args(ia)))
@@ -703,9 +834,14 @@ def main() -> int:
     row_words = int(prep["lenA"].sum()) + int(prep["lenC"].sum())
     k7_bytes = row_words * 4 + nbytes(prep["F0A"], prep["lenA"], prep["F0C"], prep["lenC"]) + nw * 4
     k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3
-    k8_bytes = 2 * m8 * 8  # each u64 latent read once and written once
-    k8_ops_ms = m8 * math.log2(m8) / SCALAR_OPS_PER_S * 1e3  # m log2 m compares
+    k8_bytes = 2 * rows8 * m8 * 8  # each u64 latent read once and written once
+    k8_ops_ms = rows8 * m8 * math.log2(m8) / SCALAR_OPS_PER_S * 1e3  # m log2 m compares a row
     k8_bound = max(k8_bytes / HBM_BYTES_PER_S * 1e3, k8_ops_ms)
+    # K9: the five tables and s0, n read once, the three bin tables and
+    # n_bins written once; K9_OPS_PER_STEP integer operations a walk step
+    k9_bytes = nbytes(*k9_args[:7]) + 3 * lanes9 * nb9 * 8 + lanes9 * 8
+    k9_ops_ms = steps9 * K9_OPS_PER_STEP / SCALAR_OPS_PER_S * 1e3
+    k9_bound = max(k9_bytes / HBM_BYTES_PER_S * 1e3, k9_ops_ms)
     enc_bound = (N * 8 + len(data)) / HBM_BYTES_PER_S * 1e3
     enc_gbps = N * 8 / (enc[0] * 1e-3) / 1e9
     print(f"main: encode device part (K5, glue, K6, prep, K7) {enc[0]:.3f} ms median "
@@ -722,10 +858,11 @@ def main() -> int:
     print(f"main: K7 image_stitch {k7[0]:.4f} ms (min {k7[1]:.4f}, max {k7[2]:.4f}), "
           f"plain {k7_plain[0]:.3f} ms, index_add_ {k7_lib[0]:.4f} ms, bound {k7_bound:.4f} ms "
           f"[{card}]", flush=True)
-    print(f"main: K8 bound {k8_bound:.4f} ms; bytes counted: K5 {k5_bytes}, K6 {k6_bytes} "
-          f"({payload_words} payload words, offsets at {off_b} bytes), K8 {k8_bytes} [{card}]", flush=True)
+    print(f"main: K8 bound {k8_bound:.4f} ms, K9 bound {k9_bound:.6f} ms; bytes counted: K5 {k5_bytes}, "
+          f"K6 {k6_bytes} ({payload_words} payload words, offsets at {off_b} bytes), K8 {k8_bytes}, "
+          f"K9 {k9_bytes} [{card}]", flush=True)
 
-    del ia, prep, flat_idx, flat_val, body64, x8, x8b, s8
+    del ia, prep, flat_idx, flat_val, body64, x8, x8b, k9_args, k9_one
     torch.cuda.empty_cache()
 
     # 5b. breadth at full size
@@ -789,6 +926,50 @@ def main() -> int:
         del calls, kcalls, arrays5, plan5, data5, nums5
         torch.cuda.empty_cache()
 
+    # 5c. the same numbers at ChunkConfig(), 2M-number chunks
+    auto_cfg = pt.ChunkConfig()
+    t0 = time.time()
+    data_c = pt.container_compress(nums, auto_cfg, page_n=1024, chunk_n=2 << 20)
+    t_enc_c = time.time() - t0
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    with capturing(dt, ("row_sort", "walk_bins")) as ccalls:
+        image_c = pt.encode_container_image_device(nums, auto_cfg, page_n=1024, chunk_n=2 << 20, device=dev)
+        torch.cuda.synchronize()
+    t_img_c = time.time() - t0
+    launches_c = {k: kernels.LAUNCHES[k] for k in ("row_sort", "histogram_walk", "bin_ans_encode",
+                                                   "section_pack", "image_stitch")}
+    if asm.file_image_to_bytes(*image_c) != data_c:
+        raise AssertionError("the ChunkConfig() file image differs from container_compress's bytes")
+    if any(v == 0 for v in launches_c.values()):
+        raise AssertionError(f"a kernel of the ChunkConfig() encode was not launched: {launches_c}")
+    del image_c
+    check_train_calls(torch, dt, rs, ccalls)
+    sorts_c = [tuple(x.shape) for (x,) in ccalls["row_sort"]]
+    walks_c = [tuple(a[0].shape) for a in ccalls["walk_bins"]]
+    k9_c = [time_ms(torch, lambda a=a: dt.walk_bins(*a))[0] for a in ccalls["walk_bins"]]
+    del ccalls
+    t0 = time.time()
+    plan_c = asm.plan_image(nums, auto_cfg, 1024, 2 << 20, dev)
+    t_plan_c = time.time() - t0
+    if plan_c.trained_on != "device":
+        raise AssertionError(f"the ChunkConfig() encode trained on the {plan_c.trained_on}")
+    deltas_c = {}
+    for job in plan_c.enc.jobs:
+        de = job.cc.meta.delta_encoding
+        key = f"{job.cc.meta.mode.kind}/{de.kind}" + (f" {de.order}" if de.order else "")
+        deltas_c[key] = deltas_c.get(key, 0) + 1
+    print(f"auto: {N} taxi-like i64 at ChunkConfig(), 2M-number chunks: {len(data_c)} bytes, host encode "
+          f"{t_enc_c:.1f} s; image == container_compress bytes; launches {launches_c}; chunks {deltas_c}; "
+          f"encode_container_image_device {t_img_c:.1f} s, plan_image {t_plan_c:.3f} s (host clock, "
+          f"training included) [{card}]", flush=True)
+    print(f"auto: K8 calls {sorts_c}, K9 calls {walks_c} == plain; K9 "
+          f"{', '.join(f'{t:.4f}' for t in k9_c)} ms [{card}]", flush=True)
+    del plan_c, data_c
+    torch.cuda.empty_cache()
+
     def by(bytes_, ops_ms):
         return "bytes" if bytes_ / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"
 
@@ -815,8 +996,12 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": k7_lib[0]},
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
-         "max_abs_err": k8_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
+         "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
          "bound_by": by(k8_bytes, k8_ops_ms), "library_ms": k8_lib[0]},
+        {"name": "histogram_walk", "route": "cuda", "source": "pcodec_tpu_torch/csrc/histogram_walk.cu",
+         "replaces": "pcodec_tpu/ops/pallas_walk.py:40", "launches": enc_launches["histogram_walk"],
+         "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,
+         "bound_by": by(k9_bytes, k9_ops_ms), "library_ms": None},
         {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"]},
         {"name": "dict_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/dict_join.cu",

@@ -18,9 +18,11 @@ placement is a word-level OR: rows share at most their boundary words, and
 out-of-payload bits are zero. K7 (`image_stitch`, csrc/image_stitch.cu)
 does the placement.
 
-    plan_image       host: training (container_encode.plan_encode, its
-                     sorts on the card), the launch, the chunk prefixes,
-                     the head's host part
+    plan_image       training (on the card through
+                     device_train.plan_encode_device where it covers the
+                     configuration, else container_encode.plan_encode on
+                     the host, its sorts on the card), the launch, the chunk
+                     prefixes, the head's host part
     upload_image     launch and layout arrays to the card
     run_image        K5 -> glue -> K6 -> prepare_image (plain torch) -> K7
     file_image_to_bytes
@@ -41,7 +43,9 @@ import numpy as np
 import torch
 
 from pcodec_tpu_torch.codec import container as ctn
+from pcodec_tpu_torch.codec.chunk_config import ChunkConfig
 from pcodec_tpu_torch.codec.wrapped import FileCompressor
+from pcodec_tpu_torch.dtypes import number_type_from_np
 from pcodec_tpu_torch.format.bitio import BitWriter
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.container_decode import BATCH, _resolve_device
@@ -56,6 +60,7 @@ from pcodec_tpu_torch.ops.container_encode import (
     upload_launch,
 )
 from pcodec_tpu_torch.ops.decode import _check_cuda
+from pcodec_tpu_torch.ops.device_train import device_train_supported, plan_encode_device
 
 i64 = torch.int64
 
@@ -112,7 +117,7 @@ class ImagePlan:
     enc: EncodePlan
     launch: EncodeLaunch
     chain_of_page: np.ndarray  # (R,) int64 chain of each page; n_chains for a trivial var
-    moments: np.ndarray  # (R, max_order) uint64 consecutive-delta moments per page
+    moments: torch.Tensor  # (R, max_order) int64 (u64 bits): consecutive-delta moments per page
     head_host: bytes  # PCT header + chunk_ns + chunk_meta_bytes
     prefixes: List[bytes]  # per chunk; chunk 0's starts with the wrapped header
     head_bytes: int
@@ -123,15 +128,26 @@ class ImagePlan:
         R = len(self.chain_of_page)
         return R <= self.launch.n_chains and bool(np.array_equal(self.chain_of_page, np.arange(R)))
 
+    @property
+    def trained_on(self) -> str:
+        return self.enc.trained_on
+
 
 def plan_image(nums: np.ndarray, config=None, page_n: int = 1024, chunk_n: int = 1 << 20,
                device="cuda") -> ImagePlan:
-    """Host part of the device file image (the JAX `plan_image`, fed by the
-    host planner, whose sorts run on `device`): training, the launch, and
-    the host-serialized bytes."""
+    """Planning of the device file image (the JAX `plan_image`): training,
+    the launch, and the host-serialized bytes. Training runs on `device`
+    through device_train.plan_encode_device where device_train_supported
+    covers the number type and configuration (`trained_on` "device"), else
+    on the host through container_encode.plan_encode, whose sorts run on
+    `device` (`trained_on` "host")."""
     if len(nums) == 0:
         raise ValueError("plan_image needs at least one number")
-    enc = plan_encode(nums, config, page_n, chunk_n, device)
+    config = config or ChunkConfig()
+    if device_train_supported(number_type_from_np(nums.dtype), config, page_n, chunk_n):
+        enc = plan_encode_device(nums, config, page_n, chunk_n, device)
+    else:
+        enc = plan_encode(nums, config, page_n, chunk_n, device)
     L = build_encode_launch(enc)
 
     orders, sls, tss, bits, meta_bytes = [], [], [], [], []
@@ -162,15 +178,22 @@ def plan_image(nums: np.ndarray, config=None, page_n: int = 1024, chunk_n: int =
     )
     R = layout.total_pages
     chain_of_page = np.full(R, L.n_chains, dtype=np.int64)
-    moments = np.zeros((R, layout.max_order), dtype=np.uint64)
     for ci, (p0, npg) in enumerate(zip(layout.page0_of_chunk(), layout.n_pages)):
         if L.chain_start[ci] >= 0:
             chain_of_page[p0 : p0 + npg] = L.chain_start[ci] + np.arange(npg)
-        o = layout.orders[ci]
-        if o:
-            moments[p0 : p0 + npg, :o] = np.stack(
-                [info.per_latent_var.primary.delta_state for info in enc.jobs[ci].cc.page_infos]
-            ).astype(np.uint64)
+    if enc.dev is not None:  # the moments stay on the card
+        rpc = enc.dev.rows_per_chunk
+        page_rows = np.concatenate([ci * rpc + np.arange(npg) for ci, npg in enumerate(layout.n_pages)])
+        moments = enc.dev.moments[torch.from_numpy(page_rows).to(enc.dev.moments.device), : layout.max_order]
+    else:
+        host = np.zeros((R, layout.max_order), dtype=np.uint64)
+        for ci, (p0, npg) in enumerate(zip(layout.page0_of_chunk(), layout.n_pages)):
+            o = layout.orders[ci]
+            if o:
+                host[p0 : p0 + npg, :o] = np.stack(
+                    [info.per_latent_var.primary.delta_state for info in enc.jobs[ci].cc.page_infos]
+                ).astype(np.uint64)
+        moments = torch.from_numpy(host.view(np.int64))
 
     # head: PCT header (dir_bytes is static) + chunk_ns + chunk_meta_bytes;
     # the device appends page_bytes and the u16 ans/off entries (4E bytes)
@@ -215,7 +238,7 @@ def upload_image(plan: ImagePlan, device="cuda") -> dict:
         "page0": t(lay.page0_of_chunk()),
         "pfx_bytes": t(np.asarray(lay.pfx_bytes, np.int64)),
         "pfx_words": t(pfx.view(np.uint32).astype(np.int64)),
-        "moments": t(plan.moments.view(np.int64)),
+        "moments": plan.moments.to(device),
         "entry_page": t(ep),
         "entry_batch": t(eb),
         "head_host_words": t(np.frombuffer(plan.head_host, np.uint32).astype(np.int64)),

@@ -1,16 +1,20 @@
 """PCT container encode on an NVIDIA GPU: the PyTorch/CUDA counterpart of
 the JAX package's `pcodec_tpu/ops/pallas_encode.py`.
 
-The host trains each chunk (mode, delta, bins: the copied
-`codec.compress.chunk_compressor`, whose latents the card sorts with K8,
-ops/row_sort.py); the card dissects and bit-packs every page. Each page of a
-chunk's primary latent var is one independent encode *chain*:
+Each chunk is trained (mode, delta, bins) on the card by
+ops/device_train.py where it covers the configuration, else on the host by
+plan_encode here (the copied `codec.compress.chunk_compressor`, whose
+latents the card sorts with K8, ops/row_sort.py); the card dissects and
+bit-packs every page. Each page of a chunk's primary latent var is one
+independent encode *chain*:
 
     plan_encode          host, numpy: train every chunk (its latents sorted
                          by K8 on the card), build its tANS encoder table
                          (build_enc_tables)
-    build_encode_launch  host, numpy: one row of latents per chain, one
-                         table per chunk, one launch for all chunks
+    build_encode_launch  one row of latents per chain (from the host's
+                         chunks, or sliced out of device training's rows on
+                         the card), one table per chunk, one launch for all
+                         chunks
     bin_ans_encode       K5, CUDA (csrc/bin_ans_encode.cu): bin search,
                          reverse 4-stream tANS walk and offsets per chain
     section_cursors      plain torch: per-batch section lengths and the bit
@@ -32,7 +36,7 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 from dataclasses import dataclass, field, replace
 from functools import partial
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -101,12 +105,27 @@ class ChunkJob:
 
 
 @dataclass
+class DeviceRows:
+    """The page rows that device training (ops/device_train.py) leaves on
+    the card: page p of chunk ci is row ci * rows_per_chunk + p. Each row
+    holds its page's latents after the chunk's delta (the first `order`
+    columns are junk, the stored latents follow up to the page length); a
+    chunk that fell back to the baseline compressor holds its raw latents."""
+
+    rows: torch.Tensor  # (n_chunks * rows_per_chunk, page_n) int64, u64 bits
+    moments: torch.Tensor  # (n_chunks * rows_per_chunk, max order) int64: each page's delta moments
+    rows_per_chunk: int
+
+
+@dataclass
 class EncodePlan:
     nt: NumberType
     n: int
     page_n: int
     chunk_ns: List[int]
     jobs: List[ChunkJob]
+    trained_on: str = "host"  # "device": ops/device_train.py; "host": plan_encode
+    dev: Optional[DeviceRows] = None  # device training's page rows
 
 
 def _check_encodable(ci: int, meta) -> None:
@@ -120,13 +139,27 @@ def _check_encodable(ci: int, meta) -> None:
         raise NotImplementedError(f"chunk {ci}: {meta.delta_encoding.kind} delta is {_MULTI}")
 
 
+def chunk_job(cc: ChunkCompressor, page_n: int) -> ChunkJob:
+    """The launch job of one trained single-var chunk: its delta order, its
+    encoder table and the worst-case section words of one page."""
+    de = cc.meta.delta_encoding
+    order = de.order if de.kind == DeltaEncoding.CONSECUTIVE else 0
+    lvc = cc.lvcs.primary
+    if lvc.is_trivial:
+        return ChunkJob(cc, order, None, 0)
+    vm = cc.meta.per_latent_var.primary
+    worst = int(np.max(vm.bins.worst_case_bits_per_latent(lvc.ans_size_log)))
+    sec_words = -(-(page_n * (worst + 1) + 64) // 32)
+    return ChunkJob(cc, order, build_enc_tables(vm), sec_words)
+
+
 def plan_encode(nums: np.ndarray, config: Optional[ChunkConfig] = None, page_n: int = 1024,
                 chunk_n: int = 1 << 20, device="cuda") -> EncodePlan:
-    """Training of every chunk and its encoder table (the JAX
-    `_plan_encode`): on the host, except the sort of each chunk's latents,
-    which K8 does on `device` (the GPU unless the caller asks for the CPU).
-    Every page length that is a multiple of 256 encodes on the card, with
-    any table size."""
+    """Training of every chunk and its encoder table on the host (the JAX
+    `_plan_encode`), except the sort of each chunk's latents, which K8 does
+    on `device` (the GPU unless the caller asks for the CPU). Every page
+    length that is a multiple of 256 encodes on the card, with any table
+    size. ops/device_train.plan_encode_device trains on the card instead."""
     if page_n < BATCH or page_n % BATCH:
         raise ValueError(f"page_n must be a positive multiple of {BATCH}")
     sort = partial(sort_latents, device=_resolve_device(device))
@@ -139,18 +172,8 @@ def plan_encode(nums: np.ndarray, config: Optional[ChunkConfig] = None, page_n: 
         chunk_config = replace(config, paging_spec=PagingSpec.exact_pages(ctn._exact_split(cn, page_n)))
         cc = chunk_compressor(nt, nums[start : start + cn], chunk_config, sort=sort)
         start += cn
-        meta = cc.meta
-        _check_encodable(ci, meta)
-        de = meta.delta_encoding
-        order = de.order if de.kind == DeltaEncoding.CONSECUTIVE else 0
-        lvc = cc.lvcs.primary
-        if lvc.is_trivial:
-            jobs.append(ChunkJob(cc, order, None, 0))
-            continue
-        vm = meta.per_latent_var.primary
-        worst = int(np.max(vm.bins.worst_case_bits_per_latent(lvc.ans_size_log)))
-        sec_words = -(-(page_n * (worst + 1) + 64) // 32)
-        jobs.append(ChunkJob(cc, order, build_enc_tables(vm), sec_words))
+        _check_encodable(ci, cc.meta)
+        jobs.append(chunk_job(cc, page_n))
     return EncodePlan(nt=nt, n=len(nums), page_n=page_n, chunk_ns=chunk_ns, jobs=jobs)
 
 
@@ -163,7 +186,9 @@ class EncodeLaunch:
     which encode exactly as that bin."""
 
     page_n: int
-    latents: np.ndarray  # (n_chains, page_n) uint64, zero past body_n
+    # (n_chains, page_n), zero past body_n: a uint64 array built on the host,
+    # or an int64 tensor of the same bits on the card after device training
+    latents: Union[np.ndarray, torch.Tensor]
     body_n: np.ndarray  # (n_chains,) int64 latents coded in the chain
     table_id: np.ndarray  # (n_chains,) int64
     states0: np.ndarray  # (n_chains,) int64 encoder start state (= real table size)
@@ -179,30 +204,44 @@ class EncodeLaunch:
         return len(self.body_n)
 
 
-def _page_rows(cc: ChunkCompressor, order: int, page_n: int):
-    """(rows (n_pages, page_n) uint64, body_n (n_pages,)) of one chunk: page
-    p codes latents [p*page_n + min(order, len), (p+1)*page_n) of the
-    delta-encoded chunk (its stored range), shifted to the row's start."""
-    lat = cc.lvcs.primary.latents.astype(np.uint64)
-    cn = len(lat)
-    full, rem = divmod(cn, page_n)
-    n_pages = full + (1 if rem else 0)
-    rows = np.zeros((n_pages, page_n), dtype=np.uint64)
-    body_n = np.zeros(n_pages, dtype=np.int64)
-    s0 = min(order, page_n)
-    if full:
-        rows[:full, : page_n - s0] = lat[: full * page_n].reshape(full, page_n)[:, s0:]
-        body_n[:full] = page_n - s0
-    if rem:
-        s0 = min(order, rem)
-        rows[full, : rem - s0] = lat[full * page_n + s0 :]
-        body_n[full] = rem - s0
-    return rows, body_n
+def _page_bodies(cn: int, order: int, page_n: int):
+    """(skip, body_n) per page of a chunk of cn numbers: page p codes its
+    latents from min(order, page length) on (its stored range)."""
+    lens = np.asarray(ctn._exact_split(cn, page_n), np.int64)
+    skip = np.minimum(order, lens)
+    return skip, lens - skip
+
+
+def _page_rows(cc: ChunkCompressor, order: int, page_n: int) -> np.ndarray:
+    """(n_pages, page_n) uint64: each page's stored latents of the
+    delta-encoded chunk, shifted to the row's start, zeros after."""
+    lat = cc.lvcs.primary.latents
+    skip, body_n = _page_bodies(len(lat), order, page_n)
+    padded = np.zeros((len(body_n) + 1) * page_n, dtype=np.uint64)
+    padded[: len(lat)] = lat
+    col = np.arange(page_n)[None, :]
+    rows = padded[(np.arange(len(body_n)) * page_n + skip)[:, None] + col]
+    rows[col >= body_n[:, None]] = 0
+    return rows
+
+
+def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n: np.ndarray) -> torch.Tensor:
+    """(n_chains, page_n) int64 on the rows' device: chain c takes row
+    src_row[c] of the device rows from column skip[c] on, body_n[c] latents,
+    zeros after (the JAX `_build_launch_args(dev_rows=...)`)."""
+    rows = dev.rows
+    page_n = rows.shape[1]
+    src, sk, bn = (torch.from_numpy(a).to(rows.device) for a in (src_row, skip, body_n))
+    col = torch.arange(page_n, device=rows.device)[None, :]
+    lat = rows[src].gather(1, (col + sk[:, None]).clamp(max=page_n - 1))
+    return torch.where(col < bn[:, None], lat, 0)
 
 
 def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
     """Chain-major launch arrays of every non-trivial chunk (the JAX
-    `_build_launch_args` without the TPU layout)."""
+    `_build_launch_args` without the TPU layout). The latents come from the
+    host's trained chunks, or, after device training, from the page rows
+    on the card (no host latents, no upload)."""
     page_n = plan.page_n
     items = [(ci, job) for ci, job in enumerate(plan.jobs) if not job.trivial]
     ts = max((job.tables[4] for _, job in items), default=1)
@@ -214,7 +253,7 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
     n_chains = sum(n_rows)
     L = EncodeLaunch(
         page_n=page_n,
-        latents=np.zeros((n_chains, page_n), dtype=np.uint64),
+        latents=np.zeros((n_chains, page_n), dtype=np.uint64) if plan.dev is None else None,
         body_n=np.zeros(n_chains, dtype=np.int64),
         table_id=np.zeros(n_chains, dtype=np.int64),
         states0=np.zeros(n_chains, dtype=np.int64),
@@ -225,6 +264,8 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         sec_words=-(-max((job.sec_words for _, job in items), default=4) // 4) * 4,
         chain_start=[-1] * len(plan.jobs),
     )
+    src_row = np.zeros(n_chains, dtype=np.int64)
+    skip = np.zeros(n_chains, dtype=np.int64)
     pos = 0
     for tid, ((ci, job), rows) in enumerate(zip(items, n_rows)):
         nexts, lowers, t1, t2, tsj = job.tables
@@ -236,14 +277,20 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         L.t1[tid, :b] = t1
         L.t2[tid] = t2[-1]
         L.t2[tid, :b] = t2
-        lat, body_n = _page_rows(job.cc, job.order, page_n)
+        sk, body_n = _page_bodies(plan.chunk_ns[ci], job.order, page_n)
         sl = slice(pos, pos + len(body_n))
-        L.latents[sl] = lat
+        if plan.dev is None:
+            L.latents[sl] = _page_rows(job.cc, job.order, page_n)
+        else:
+            src_row[sl] = ci * plan.dev.rows_per_chunk + np.arange(len(body_n))
+            skip[sl] = sk
         L.body_n[sl] = body_n
         L.table_id[pos : pos + rows] = tid
         L.states0[pos : pos + rows] = tsj
         L.chain_start[ci] = pos
         pos += rows
+    if plan.dev is not None:
+        L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n)
     return L
 
 
@@ -295,7 +342,8 @@ def upload_launch(L: EncodeLaunch, device) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {
-        "latents": t(L.latents.view(np.int64)),
+        "latents": (L.latents.to(device) if isinstance(L.latents, torch.Tensor)
+                    else t(L.latents.view(np.int64))),
         "body_n": t(L.body_n),
         "table_id": t(L.table_id),
         "states0": t(L.states0),

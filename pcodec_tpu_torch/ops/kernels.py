@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
-           "row_sort", "lookback_recon", "dict_join")
+           "row_sort", "lookback_recon", "dict_join", "histogram_walk")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,6 +60,9 @@ _ARGTYPES = {
     "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _I, _P],
     # primary, table, out, n, D, smem, device, stream
     "dict_join": [_P, _P, _P, _L, _L, _I, _I, _P],
+    # V, L, R, SL1, SR, s0, n, nb_log, lanes, counts, lowers, uppers, n_bins,
+    # device, stream
+    "histogram_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -188,3 +191,9 @@ def launch_dict_join(primary, table, out) -> None:
     smem = int(table.shape[0] <= dict_join_smem_entries(primary.device))
     _call("dict_join", primary, primary.data_ptr(), table.data_ptr(), out.data_ptr(), primary.shape[0],
           table.shape[0], smem)
+
+
+def launch_histogram_walk(V, L, R, SL1, SR, s0, n, counts, lowers, uppers, n_bins, nb_log: int) -> None:
+    _call("histogram_walk", V, V.data_ptr(), L.data_ptr(), R.data_ptr(), SL1.data_ptr(), SR.data_ptr(),
+          s0.data_ptr(), n.data_ptr(), nb_log, V.shape[0], counts.data_ptr(), lowers.data_ptr(),
+          uppers.data_ptr(), n_bins.data_ptr())

@@ -94,6 +94,7 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
         "import pcodec_tpu_torch, pcodec_tpu_torch.ops.container_decode\n"
         "import pcodec_tpu_torch.ops.container_encode, pcodec_tpu_torch.ops.assemble\n"
         "import pcodec_tpu_torch.ops.row_sort, pcodec_tpu_torch.ops.decode, pcodec_tpu_torch.ops.softfloat\n"
+        "import pcodec_tpu_torch.ops.device_train\n"
         "from pcodec_tpu_torch.codec import compress, decompress\n"
         "new = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'pcodec_tpu'))\n"

@@ -1,0 +1,129 @@
+"""K9 (histogram_walk) of the port, on its own, and the extracts that feed
+it.
+
+The plain version runs here on the CPU against the host codec's
+histogram(); the tests marked `gpu` hold the CUDA kernel against the plain
+version bit for bit and skip when there is no card. This file imports no
+JAX, so on a GPU machine without JAX it runs as
+`python -m pytest tests/test_torch_train_kernels.py --noconftest -m gpu`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pcodec_tpu_torch as pt
+from pcodec_tpu_torch.binning.histogram import histogram
+from pcodec_tpu_torch.format.bitio import BitWriter
+from pcodec_tpu_torch.ops import assemble as asm
+from pcodec_tpu_torch.ops import device_train as dt
+from pcodec_tpu_torch.ops import kernels
+
+RNG = np.random.default_rng(41)
+U64_MAX = 0xFFFFFFFFFFFFFFFF
+
+
+def _lanes():
+    """Rows of u64 values: few distinct values, zeros, high entropy, long
+    runs, the largest value, tiny rows, a row of 4,096 distinct values."""
+    return [
+        RNG.integers(0, 10, 5000).astype(np.uint64),
+        np.zeros(3000, dtype=np.uint64),
+        RNG.integers(0, 2**63, 5000).astype(np.uint64),
+        np.repeat(RNG.integers(0, 50, 100), 50).astype(np.uint64),
+        np.full(1000, U64_MAX, dtype=np.uint64),
+        RNG.integers(0, 3, 777).astype(np.uint64),
+        np.arange(4096, dtype=np.uint64),
+        RNG.integers(0, 2, 10).astype(np.uint64),
+        np.zeros(0, dtype=np.uint64),
+        np.array([7], dtype=np.uint64),
+        RNG.integers(0, 2**64, 3000, dtype=np.uint64),
+    ]
+
+
+def _tables(lanes, nb_log, device):
+    """K9's inputs for the rows: sorted_extracts of the rows padded to one
+    width, each at nb_log."""
+    m = max(len(x) for x in lanes)
+    vals = np.zeros((len(lanes), m), np.uint64)
+    live = np.zeros((len(lanes), m), bool)
+    for i, x in enumerate(lanes):
+        vals[i, : len(x)] = RNG.permutation(x)
+        live[i, : len(x)] = True
+    n = torch.tensor([len(x) for x in lanes], dtype=torch.int64, device=device)
+    t = torch.from_numpy(vals.view(np.int64)).to(device)
+    ext = dt.sorted_extracts(t, torch.from_numpy(live).to(device), n, torch.full_like(n, nb_log))
+    return ext, n
+
+
+def _host_bins(x, nb_log):
+    return [(b.count, b.lower, b.upper) for b in histogram(x.copy(), nb_log)]
+
+
+@pytest.mark.parametrize("nb_log", [2, 5, 8, 10, 12])
+def test_walk_plain_matches_host_histogram(nb_log):
+    """Exact: the plain K9 over the port's extracts gives the host codec's
+    histogram() bins, lane by lane, with zeros after each lane's bins."""
+    lanes = _lanes()
+    (V, L, R, SL1, SR, s0), n = _tables(lanes, nb_log, "cpu")
+    counts, lowers, uppers, n_bins = dt.walk_bins(V, L, R, SL1, SR, s0, n, nb_log)
+    co, lo, up = (t.numpy().view(np.uint64) for t in (counts, lowers, uppers))
+    for i, x in enumerate(lanes):
+        k = int(n_bins[i])
+        got = [(int(a), int(b), int(c)) for a, b, c in zip(co[i, :k], lo[i, :k], up[i, :k])]
+        assert got == _host_bins(x, nb_log), i
+        assert not (co[i, k:].any() or lo[i, k:].any() or up[i, k:].any())
+
+
+def test_walk_wrapper_takes_the_plain_version_on_cpu():
+    """Exact: on CPU tensors walk_bins returns walk_bins_plain's result and
+    launches nothing."""
+    (V, L, R, SL1, SR, s0), n = _tables(_lanes(), 5, "cpu")
+    before = dict(kernels.LAUNCHES)
+    for a, b in zip(dt.walk_bins(V, L, R, SL1, SR, s0, n, 5), dt.walk_bins_plain(V, L, R, SL1, SR, s0, n, 5)):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES == before
+
+
+def _meta(cc) -> bytes:
+    w = BitWriter()
+    cc.write_meta(w)
+    return w.to_bytes()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb_log", list(range(2, 13)))
+def test_walk_kernel_matches_plain_version_on_card(nb_log):
+    """Exact: K9 on the card equals its plain version, on lanes of n 0, 1
+    and 10, all-equal values, all 0xFFFF... values and full 64-bit ranges."""
+    _need_card()
+    (V, L, R, SL1, SR, s0), n = _tables(_lanes(), nb_log, "cuda")
+    before = kernels.LAUNCHES["histogram_walk"]
+    got = dt.walk_bins(V, L, R, SL1, SR, s0, n, nb_log)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["histogram_walk"] == before + 1
+    for a, b in zip(got, dt.walk_bins_plain(V, L, R, SL1, SR, s0, n, nb_log)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [pt.ChunkConfig(), pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_consecutive", 2))])
+def test_device_training_on_card_writes_the_container(cfg):
+    """Exact: training on the card (K8 and K9) plans the CPU's chunk metas,
+    and the image equals the port's container_compress bytes."""
+    _need_card()
+    nums = np.cumsum(RNG.integers(0, 120, 70_000) + (RNG.random(70_000) < 0.01) * 10**6).astype(np.int64)
+    before = dict(kernels.LAUNCHES)
+    plan = asm.plan_image(nums, cfg, 256, 32768, "cuda")
+    cpu = asm.plan_image(nums, cfg, 256, 32768, "cpu")
+    assert plan.trained_on == "device"
+    for name in ("row_sort", "histogram_walk"):
+        assert kernels.LAUNCHES[name] > before[name]
+    assert [_meta(j.cc) for j in plan.enc.jobs] == [_meta(j.cc) for j in cpu.enc.jobs]
+    img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
+    assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=32768)
