@@ -69,43 +69,63 @@ Phases, one line each (numbers beside the card's name and power limit):
                   decode_container_tensor, compared with the source and
                   timed; K3 and K4 held against their plain versions on
                   every call the decode made, and timed
-  6. a `kernels` JSON line, then the `ok` JSON line last.
+  6. experiments   the microbenchmarks of pcodec_tpu_torch/experiments, the
+                  ports of the Pallas prototypes in experiments/: every
+                  kernel first held bit for bit against its plain version
+                  at small shapes (E2 also refusing a row of 2^19 keys);
+                  then each experiment's own shapes, each kernel compared
+                  with its plain version and timed beside it, printed in
+                  the experiment's units: E5 proto_realign (256 and 2,048
+                  groups, beside K1's main-path time), E1 proto_dma (its
+                  five tile and round counts), E3 micro_gather (the XLA
+                  variants as plain PyTorch yardsticks, routes take and
+                  taa at T 2,048 x TS 1,024 x 192 steps, lane at 6,144
+                  steps, each also one row alone), E4a gather_row,
+                  E4b proto_round_loop (64, 256 and 1,024 tiles, and 256
+                  and 1,024 with emit), E2 bitonic_cluster (its checks,
+                  (96, 2^16) beside K8 and torch.sort; at (32, 2^21), which
+                  no cluster holds, the refusal, then K8 and torch.sort)
+  7. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
+     holds the numbers of the kernel's last shape: `launches` made at that
+     shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
 
-Launch counts are set to 0 just before each main-path run and read just
-after it. Any failure exits non-zero before the `ok` line. Without a CUDA
-device, or without the package beside this script, it fails at once.
+Launch counts are set to 0 just before each main-path run, and before
+phase 6's runs at the experiments' shapes, and read just after. Any
+failure exits non-zero before the `ok` line. Without a CUDA device, or
+without the package beside this script, it fails at once.
 """
 
 import contextlib
 import json
 import math
-import os
 import re
-import statistics
-import subprocess
 import sys
 import time
 from dataclasses import replace
 
 import numpy as np
 
+from pcodec_tpu_torch.experiments.common import RUNS, bound, card_line, check_equal, nbytes, time_ms
+
 N = 64 * 1024 * 1024
 SEED = 1234
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
 K2_OPS_PER_NUMBER = 40  # integer operations of K2's inner loop per decoded number
 K5_OPS_PER_SYMBOL = 16  # K5's tANS step and offset per coded symbol, besides the search
 K5_OPS_PER_STEP = 4  # K5's operations per binary-search step
 K6_OPS_PER_SYMBOL = 12  # K6's two deposits per coded symbol
 K9_OPS_PER_STEP = 40  # K9's integer operations per walk step (a 64-bit division counted as one)
 _MIN64 = -(1 << 63)
-RUNS = 10
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
+# phase 6's rows: kernel -> (source in csrc/, the prototype it replaces)
+EXPERIMENT_ROWS = {
+    "proto_dma": ("proto_dma", "experiments/proto_dma.py:24"),
+    "bitonic_cluster": ("bitonic_cluster", "experiments/pallas_bitonic.py:42"),
+    "gather_take": ("micro_gather", "experiments/micro_gather.py:109"),
+    "gather_taa": ("micro_gather", "experiments/micro_gather.py:137"),
+    "gather_lane": ("micro_gather", "experiments/micro_gather.py:171"),
+    "gather_row": ("micro_gather", "experiments/proto_round_loop.py:26"),
+    "proto_round_loop": ("proto_round_loop", "experiments/proto_round_loop.py:52"),
+    "proto_realign": ("proto_realign", "experiments/proto_realign.py:23"),
+}
 
 
 def make_data() -> np.ndarray:
@@ -115,32 +135,6 @@ def make_data() -> np.ndarray:
     jumps = rng.random(N) < 0.001
     incs = incs + jumps * rng.integers(0, 10**6, N)
     return np.cumsum(incs).astype(np.int64)
-
-
-def time_ms(torch, fn, runs=RUNS, warmup=2):
-    """Median, min and max of `runs` CUDA-event timings of fn()."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times), min(times), max(times)
-
-
-def max_abs_err(torch, a, b) -> float:
-    if not torch.equal(a, b):
-        bad = int((a != b).sum())
-        raise AssertionError(f"kernel differs from its plain version at {bad} of {a.numel()} values")
-    return 0.0
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def cfg_of(pt, order, mode="classic", level=8):
@@ -254,12 +248,12 @@ def capturing(mod, names=("lookback_recon", "dict_join")):
             setattr(mod, k, fn)
 
 
-def check_breadth_calls(torch, dec, calls) -> float:
+def check_breadth_calls(dec, calls) -> float:
     """K3 and K4 against their plain versions on every recorded call."""
     for args in calls["lookback_recon"]:
-        max_abs_err(torch, dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
+        check_equal(dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
     for args in calls["dict_join"]:
-        max_abs_err(torch, dec.dict_join(*args), dec.dict_join_plain(*args))
+        check_equal(dec.dict_join(*args), dec.dict_join_plain(*args))
     return 0.0
 
 
@@ -349,7 +343,9 @@ def ptxas_lines(reports):
         entry = "kernel"
         for line in rep.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
+            if m and k in {source for source, _ in EXPERIMENT_ROWS.values()}:
+                entry = re.search(r"\d([a-z]+(?:_[a-z]+)*_kernel)E", m.group(1)).group(1)
+            elif m:
                 name = m.group(1)
                 fuse = re.search(r"ILi(\d)E", name)
                 smem = re.search(r"ILb(\d)E", name)
@@ -409,13 +405,13 @@ def walk_steps(R, n, nb_log: int) -> int:
     return steps
 
 
-def check_train_calls(torch, dt, rs, calls) -> float:
+def check_train_calls(dt, rs, calls) -> float:
     """K8 and K9 against their plain versions on every recorded call."""
     for (x,) in calls["row_sort"]:
-        max_abs_err(torch, rs.row_sort(x), rs.row_sort_plain(x))
+        check_equal(rs.row_sort(x), rs.row_sort_plain(x))
     for args in calls["walk_bins"]:
         for a, b in zip(dt.walk_bins(*args), dt.walk_bins_plain(*args)):
-            max_abs_err(torch, a, b)
+            check_equal(a, b)
     return 0.0
 
 
@@ -444,23 +440,80 @@ def stitch_args(prep):
     return (prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"])
 
 
-def check_encode_steps(torch, ce, asm, plan, a):
+def check_encode_steps(ce, asm, plan, a):
     """K5, K6 and K7 against their plain versions on one uploaded plan.
     Returns their errors and the intermediate tensors."""
     outs = ce.bin_ans_encode(*k5_args(a))
-    err = {"bin_ans_encode": max(max_abs_err(torch, x, y)
+    err = {"bin_ans_encode": max(check_equal(x, y)
                                  for x, y in zip(outs, ce.bin_ans_encode_plain(*k5_args(a))))}
     p1, offsets, states = outs
     ans_len, off_len, curs, total_bits = ce.section_cursors(p1)
     W = plan.launch.sec_words
     sections = ce.section_pack(p1, offsets, curs, W)
-    err["section_pack"] = max_abs_err(torch, sections, ce.section_pack_plain(p1, offsets, curs, W))
+    err["section_pack"] = check_equal(sections, ce.section_pack_plain(p1, offsets, curs, W))
     prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
     nw = -(-int(prep["sizes"][0]) // 4)
     body = asm.image_stitch(*stitch_args(prep), nw)
-    err["image_stitch"] = max_abs_err(torch, body, asm.image_stitch_plain(*stitch_args(prep), nw))
+    err["image_stitch"] = check_equal(body, asm.image_stitch_plain(*stitch_args(prep), nw))
     return dict(err=err, p1=p1, offsets=offsets, states=states, ans_len=ans_len, off_len=off_len, curs=curs,
                 total_bits=total_bits, sections=sections, prep=prep, body_words=nw)
+
+
+def experiment_checks(torch, dev) -> None:
+    """Each microbenchmark kernel against its plain version at small shapes
+    (ragged rows, wrapping sums, states outside the table, clusters of 1 to
+    8 blocks), and E2's refusal of a row longer than a cluster holds."""
+    from pcodec_tpu_torch.experiments import micro_gather as mg
+    from pcodec_tpu_torch.experiments import pallas_bitonic as pb
+    from pcodec_tpu_torch.experiments import proto_dma as pd
+    from pcodec_tpu_torch.experiments import proto_realign as pr
+    from pcodec_tpu_torch.experiments import proto_round_loop as prl
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def i32(shape, lo=-(2**31), hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    raw2d, st = i32((4096, 128)), i32(37 * 8, 0, 4096 // 8 - 2)
+    check_equal(pr.realign(st, raw2d), pr.realign_plain(st, raw2d))
+    raw, starts = i32(1 << 16), i32((40, 128), 0, (1 << 16) - 3071)
+    for heavy in (0, 64):
+        check_equal(pd.dma_checksum(starts, raw, heavy), pd.dma_checksum_plain(starts, raw, heavy))
+    for rows, ts in ((13, 64), (64, 1024), (3, 1 << 14)):
+        table, idx0 = i32((rows, ts)), i32((rows, 4), 0, ts)
+        want = mg.gather_steps_plain(table, idx0, 37)
+        check_equal(mg.gather_take(table.flatten(), idx0, 37), want)
+        check_equal(mg.gather_taa(table, idx0, 37), want)
+    tbl, idx = i32((19, 128)), i32((19, 128))
+    check_equal(mg.lane_steps(tbl, idx, 300), mg.lane_steps_plain(tbl, idx, 300))
+    tbl, idx = i32((5, 77)), i32((5, 77), 0, 77)
+    check_equal(mg.row_gather(tbl, idx), mg.row_gather_plain(tbl, idx))
+    sec, node, state = i32((3, 256, 128)), i32((8, 1024)), i32((3, 8, 128), 0, 1024)
+    state[0, :, :5] = torch.tensor([-7, 1024, 5000, -(2**31), 2**31 - 1], dtype=torch.int32)
+    for got, want in zip(prl.round_loop(sec, node, state, 7, True), prl.round_loop_plain(sec, node, state, 7, True)):
+        check_equal(got, want)
+    for rows, m in ((3, 2), (8, 256), (16, 1024), (5, 1 << 16), (2, 1 << 18)):
+        x = i32((rows, m))
+        x[:, : m // 3] = x[:, :1]
+        check_equal(pb.sort_rows_u32(x), pb.sort_rows_u32_plain(x))
+    try:
+        pb.sort_rows_u32(torch.zeros((1, 1 << 19), dtype=torch.int32, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("E2 took a row of 2^19 keys")
+
+
+def experiment_runs(dev) -> dict:
+    """Each microbenchmark's main(): the experiment's own shapes through its
+    kernels, each checked against its plain version, timed and printed in
+    the experiment's units. Returns {kernel: its row at its last shape, the
+    experiment's largest}."""
+    from pcodec_tpu_torch.experiments import micro_gather, pallas_bitonic, proto_dma, proto_realign
+    from pcodec_tpu_torch.experiments import proto_round_loop
+
+    mods = (proto_realign, proto_dma, micro_gather, proto_round_loop, pallas_bitonic)
+    return {r["name"]: r for mod in mods for r in mod.main(dev)}
 
 
 def main() -> int:
@@ -469,7 +522,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pcodec_tpu_torch as pt
     from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME
     from pcodec_tpu_torch.ops import assemble as asm
@@ -507,10 +559,10 @@ def main() -> int:
         for lkey, cp in plan.launches.items():
             a = arrays.launches[lkey]
             stg = cd.section_gather(arrays.words, a["word0"], cp.stage_words)
-            max_abs_err(torch, stg, cd.section_gather_plain(arrays.words, a["word0"], cp.stage_words))
+            check_equal(stg, cd.section_gather_plain(arrays.words, a["word0"], cp.stage_words))
             args = (stg, a["word0"], a["curs"], a["states0"], a["body_n"], a["table_id"],
                     a["node"], a["lower"], a["moment0"], cp.page_n, cp.fuse)
-            max_abs_err(torch, cd.chain_decode(*args), cd.chain_decode_plain(*args))
+            check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args))
         got = cd.to_numbers(cd.decode_plan(plan, arrays), plan.nt)
         if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
             raise AssertionError(f"{case}: decode differs from the source")
@@ -533,7 +585,7 @@ def main() -> int:
             got = cd.to_numbers(cd.decode_plan(plan, arrays), plan.nt)
         if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
             raise AssertionError(f"{case} p{page_n}: decode differs from the source")
-        check_breadth_calls(torch, dops, calls)
+        check_breadth_calls(dops, calls)
         ch = plan.chunks[0]
         want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join": ch.mode_kind == "dict"}
         for k, expected in want.items():
@@ -571,14 +623,14 @@ def main() -> int:
     for span in ("u32", "u64"):
         for m in (3, 256, 5000, 70_000, 1 << 20):
             x = torch.from_numpy(sort_rows(rng, span, 3, m)).to(dev)
-            max_abs_err(torch, rs.row_sort(x), rs.row_sort_plain(x))
+            check_equal(rs.row_sort(x), rs.row_sort_plain(x))
     print("encode: K8 row_sort == plain, keys of 32 and 64 bits, rows of 3 to 2^20 keys", flush=True)
     lanes = walk_lanes(rng)
     for nb_log in (2, 5, 8, 12):
         args = walk_tables(torch, dt, lanes, nb_log, dev)
         got = dt.walk_bins(*args)
         for a, b in zip(got, dt.walk_bins_plain(*args)):
-            max_abs_err(torch, a, b)
+            check_equal(a, b)
         co, lo, up = (t.cpu().numpy().view(np.uint64) for t in got[:3])
         for i, x in enumerate(lanes):
             k = int(got[3][i])
@@ -601,7 +653,7 @@ def main() -> int:
         a = asm.upload_image(plan, dev)
         steps = "no chains (trivial var)"
         if plan.launch.n_chains:
-            check_encode_steps(torch, ce, asm, plan, a)
+            check_encode_steps(ce, asm, plan, a)
             steps = "K5, K6, K7 == plain"
         if asm.file_image_to_bytes(*asm.run_image(plan, a)) != ref:
             raise AssertionError(f"{case}: file image differs from container_compress")
@@ -660,16 +712,16 @@ def main() -> int:
     a = arrays.launches[lkey]
     words, W = arrays.words, cp.stage_words
     stg = cd.section_gather(words, a["word0"], W)
-    k1_err = max_abs_err(torch, stg, cd.section_gather_plain(words, a["word0"], W))
+    k1_err = check_equal(stg, cd.section_gather_plain(words, a["word0"], W))
     args = (stg, a["word0"], a["curs"], a["states0"], a["body_n"], a["table_id"], a["node"],
             a["lower"], a["moment0"], cp.page_n, cp.fuse)
-    k2_err = max_abs_err(torch, cd.chain_decode(*args), cd.chain_decode_plain(*args))
+    k2_err = check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args))
 
-    dec = time_ms(torch, lambda: cd.decode_plan(plan, arrays))
-    k1 = time_ms(torch, lambda: cd.section_gather(words, a["word0"], W))
-    k2 = time_ms(torch, lambda: cd.chain_decode(*args))
-    k1_plain = time_ms(torch, lambda: cd.section_gather_plain(words, a["word0"], W), runs=3, warmup=1)
-    k2_plain = time_ms(torch, lambda: cd.chain_decode_plain(*args), runs=3, warmup=1)
+    dec = time_ms(lambda: cd.decode_plan(plan, arrays))
+    k1 = time_ms(lambda: cd.section_gather(words, a["word0"], W))
+    k2 = time_ms(lambda: cd.chain_decode(*args))
+    k1_plain = time_ms(lambda: cd.section_gather_plain(words, a["word0"], W), runs=3, warmup=1)
+    k2_plain = time_ms(lambda: cd.chain_decode_plain(*args), runs=3, warmup=1)
     # yardstick for K1: one torch.take over a precomputed index (the index is not timed)
     col = torch.arange(W, device=dev)
     idx = a["word0"][:, None] + col[None, :]
@@ -677,7 +729,7 @@ def main() -> int:
     words_ext = torch.cat([words, words.new_zeros(1)])
     if not torch.equal(torch.take(words_ext, idx), stg):
         raise AssertionError("K1's torch.take yardstick computes another function")
-    k1_lib = time_ms(torch, lambda: torch.take(words_ext, idx))
+    k1_lib = time_ms(lambda: torch.take(words_ext, idx))
 
     n_chains = cp.n_chains
     out_bytes = n_chains * cp.page_n * 8
@@ -685,10 +737,9 @@ def main() -> int:
     k2_in = stg.numel() * 4 + nbytes(*(a[k] for k in ("word0", "curs", "states0", "body_n",
                                                        "table_id", "node", "lower", "moment0")))
     k2_bytes = k2_in + out_bytes
-    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
-    k2_ops_ms = int(cp.body_n.sum()) * K2_OPS_PER_NUMBER / SCALAR_OPS_PER_S * 1e3
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S * 1e3, k2_ops_ms)
-    dec_bound = (len(data) + N * 8) / HBM_BYTES_PER_S * 1e3
+    k1_bound = bound(k1_bytes)[0]
+    k2_bound, k2_by = bound(k2_bytes, int(cp.body_n.sum()) * K2_OPS_PER_NUMBER)
+    dec_bound = bound(len(data) + N * 8)[0]
     gbps = N * 8 / (dec[0] * 1e-3) / 1e9
     print(f"main: decode {dec[0]:.3f} ms median (min {dec[1]:.3f}, max {dec[2]:.3f}, {RUNS} runs), "
           f"{gbps:.2f} GB/s of output, byte bound {dec_bound:.4f} ms = {dec_bound / dec[0]:.1%} "
@@ -698,7 +749,6 @@ def main() -> int:
           f"[{card}]", flush=True)
     print(f"main: K2 chain_decode {k2[0]:.4f} ms (min {k2[1]:.4f}, max {k2[2]:.4f}), "
           f"plain {k2_plain[0]:.1f} ms, bound {k2_bound:.4f} ms [{card}]", flush=True)
-    k2_by = "bytes" if k2_bytes / HBM_BYTES_PER_S * 1e3 >= k2_ops_ms else "operations"
     del arrays, a, words, stg, args, idx, words_ext, col
     torch.cuda.empty_cache()
 
@@ -723,7 +773,7 @@ def main() -> int:
     print(f"main: file image == container_compress bytes ({len(data)}), launches {enc_launches}, "
           f"encode_container_image_device {t_img:.1f} s (training included), "
           f"max_memory_allocated {peak_enc} bytes [{card}]", flush=True)
-    train_err = check_train_calls(torch, dt, rs, tcalls)
+    train_err = check_train_calls(dt, rs, tcalls)
     (x8,) = tcalls["row_sort"][-1]  # the sort of every chunk's delta'd latents
     k9_args = tcalls["walk_bins"][-1]  # the walk of every chunk's histogram
     del tcalls
@@ -738,13 +788,13 @@ def main() -> int:
     torch.cuda.synchronize()
     t_up = time.time() - t0
     L = iplan.launch
-    st = check_encode_steps(torch, ce, asm, iplan, ia)
+    st = check_encode_steps(ce, asm, iplan, ia)
     prep, nw = st["prep"], st["body_words"]
     print(f"main: plan_image {t_iplan:.3f} s (host clock, training on the card included), upload "
           f"{t_up:.3f} s, {L.n_chains} chains, b_pad {L.lowers.shape[1]}, ts {L.nexts.shape[1]}, "
           f"sec_words {L.sec_words}, page p is chain p: {iplan.identity}; "
           f"K5, K6, K7 == plain at these shapes; K8, K9 == plain on the encode's calls", flush=True)
-    train = time_ms(torch, lambda: dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev), runs=3, warmup=1)
+    train = time_ms(lambda: dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev), runs=3, warmup=1)
     print(f"main: device training plan_encode_device {train[0]:.1f} ms median (min {train[1]:.1f}, "
           f"max {train[2]:.1f}, 3 runs, CUDA events) [{card}]", flush=True)
     # where the training's time goes: its card phases alone at the main path's inputs
@@ -752,12 +802,12 @@ def main() -> int:
     rowlen = np.full(N // 1024, 1024)
     orders, nreal = [1] * n_ch, [(1 << 20) - 1024] * n_ch
     ubls = [cmp.choose_unoptimized_bins_log(cfg.compression_level, 1 << 20)] * n_ch
-    lat_t = time_ms(torch, lambda: dt.phase_latents(nums, iplan.enc.nt, N // 1024, 1024, None, dev), runs=3, warmup=1)
+    lat_t = time_ms(lambda: dt.phase_latents(nums, iplan.enc.nt, N // 1024, 1024, None, dev), runs=3, warmup=1)
     lat2d, _ = dt.phase_latents(nums, iplan.enc.nt, N // 1024, 1024, None, dev)
-    sort_t = time_ms(torch, lambda: dt.phase_delta_sort(lat2d, orders, rowlen, nreal, ubls, 64), runs=3, warmup=1)
+    sort_t = time_ms(lambda: dt.phase_delta_sort(lat2d, orders, rowlen, nreal, ubls, 64), runs=3, warmup=1)
     ext = dt.phase_delta_sort(lat2d, orders, rowlen, nreal, ubls, 64)[2]
-    walk_t = time_ms(torch, lambda: dt.phase_walk(ext, nreal, ubls), runs=3, warmup=1)
-    launch_t = time_ms(torch, lambda: ce.build_encode_launch(iplan.enc), runs=3, warmup=1)
+    walk_t = time_ms(lambda: dt.phase_walk(ext, nreal, ubls), runs=3, warmup=1)
+    launch_t = time_ms(lambda: ce.build_encode_launch(iplan.enc), runs=3, warmup=1)
     rest = train[0] - lat_t[0] - sort_t[0] - walk_t[0]
     print(f"main: training parts: phase_latents (upload, bijection) {lat_t[0]:.1f} ms, phase_delta_sort "
           f"(delta, K8, extracts) {sort_t[0]:.1f} ms, phase_walk (K9, read back) {walk_t[0]:.2f} ms, the rest "
@@ -767,33 +817,33 @@ def main() -> int:
 
     # K8 and K9 at the main path's shapes: the calls the encode made
     x8b = x8 ^ _MIN64  # unsigned order as int64 order, for torch.sort (not timed)
-    k8 = time_ms(torch, lambda: rs.row_sort(x8))
-    k8_plain = time_ms(torch, lambda: rs.row_sort_plain(x8))
-    k8_lib = time_ms(torch, lambda: torch.sort(x8b, dim=1))
+    k8 = time_ms(lambda: rs.row_sort(x8))
+    k8_plain = time_ms(lambda: rs.row_sort_plain(x8))
+    k8_lib = time_ms(lambda: torch.sort(x8b, dim=1))
     rows8, m8 = x8.shape
     print(f"main: K8 row_sort {k8[0]:.4f} ms (min {k8[1]:.4f}, max {k8[2]:.4f}) for {rows8} rows of {m8} "
           f"latents, plain {k8_plain[0]:.4f} ms, torch.sort {k8_lib[0]:.4f} ms [{card}]", flush=True)
-    k9 = time_ms(torch, lambda: dt.walk_bins(*k9_args))
-    k9_plain = time_ms(torch, lambda: dt.walk_bins_plain(*k9_args), runs=3, warmup=1)
+    k9 = time_ms(lambda: dt.walk_bins(*k9_args))
+    k9_plain = time_ms(lambda: dt.walk_bins_plain(*k9_args), runs=3, warmup=1)
     k9_one = tuple(x[:1].contiguous() if torch.is_tensor(x) else x for x in k9_args)
-    k9_lane = time_ms(torch, lambda: dt.walk_bins(*k9_one))
+    k9_lane = time_ms(lambda: dt.walk_bins(*k9_one))
     lanes9, nb9 = k9_args[0].shape
     steps9 = walk_steps(k9_args[2], k9_args[6], k9_args[7])
     print(f"main: K9 histogram_walk {k9[0]:.4f} ms (min {k9[1]:.4f}, max {k9[2]:.4f}) for {lanes9} lanes of "
           f"{nb9} bins ({steps9} steps), one lane alone {k9_lane[0]:.4f} ms, plain {k9_plain[0]:.2f} ms "
           f"[{card}]", flush=True)
 
-    enc = time_ms(torch, lambda: asm.run_image(iplan, ia))
-    k5 = time_ms(torch, lambda: ce.bin_ans_encode(*k5_args(ia)))
-    glue = time_ms(torch, lambda: ce.section_cursors(st["p1"]))
-    k6 = time_ms(torch, lambda: ce.section_pack(st["p1"], st["offsets"], st["curs"], L.sec_words))
-    prep_t = time_ms(torch, lambda: asm.prepare_image(iplan, ia, st["sections"], st["states"],
+    enc = time_ms(lambda: asm.run_image(iplan, ia))
+    k5 = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)))
+    glue = time_ms(lambda: ce.section_cursors(st["p1"]))
+    k6 = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], st["curs"], L.sec_words))
+    prep_t = time_ms(lambda: asm.prepare_image(iplan, ia, st["sections"], st["states"],
                                                       st["ans_len"], st["off_len"], st["total_bits"]))
-    k7 = time_ms(torch, lambda: asm.image_stitch(*stitch_args(prep), nw))
-    k5_plain = time_ms(torch, lambda: ce.bin_ans_encode_plain(*k5_args(ia)), runs=3, warmup=1)
-    k6_plain = time_ms(torch, lambda: ce.section_pack_plain(st["p1"], st["offsets"], st["curs"],
+    k7 = time_ms(lambda: asm.image_stitch(*stitch_args(prep), nw))
+    k5_plain = time_ms(lambda: ce.bin_ans_encode_plain(*k5_args(ia)), runs=3, warmup=1)
+    k6_plain = time_ms(lambda: ce.section_pack_plain(st["p1"], st["offsets"], st["curs"],
                                                             L.sec_words), runs=3, warmup=1)
-    k7_plain = time_ms(torch, lambda: asm.image_stitch_plain(*stitch_args(prep), nw), runs=3, warmup=1)
+    k7_plain = time_ms(lambda: asm.image_stitch_plain(*stitch_args(prep), nw), runs=3, warmup=1)
     # yardstick for K7: one index_add_ of the row words over a precomputed
     # flat index (the index and the int64 words are not timed)
     flat_idx, flat_val = [], []
@@ -813,7 +863,7 @@ def main() -> int:
     k7_library()
     if not torch.equal(ce._to_i32(body64), asm.image_stitch(*stitch_args(prep), nw)):
         raise AssertionError("K7's index_add_ yardstick computes another function")
-    k7_lib = time_ms(torch, k7_library)
+    k7_lib = time_ms(k7_library)
 
     # bytes the functions need: each coded symbol's latent in, its p1 word
     # and its offset (4 bytes unless some bin has over 32 offset bits) out;
@@ -825,24 +875,20 @@ def main() -> int:
     k5_bytes = (syms * (8 + 4 + off_b) + nbytes(*(ia[k] for k in ("body_n", "table_id", "states0", "nexts",
                                                                   "lowers", "t1", "t2")))
                 + nbytes(st["states"]))
-    k5_ops_ms = syms * (K5_OPS_PER_SYMBOL + K5_OPS_PER_STEP * int(math.log2(b_pad))) / SCALAR_OPS_PER_S * 1e3
-    k5_bound = max(k5_bytes / HBM_BYTES_PER_S * 1e3, k5_ops_ms)
+    k5_bound, k5_by = bound(k5_bytes, syms * (K5_OPS_PER_SYMBOL + K5_OPS_PER_STEP * int(math.log2(b_pad))))
     payload_words = int(((st["total_bits"] + 31) >> 5).sum())
     k6_bytes = syms * (4 + off_b) + nbytes(st["curs"]) + payload_words * 4
-    k6_ops_ms = syms * K6_OPS_PER_SYMBOL / SCALAR_OPS_PER_S * 1e3
-    k6_bound = max(k6_bytes / HBM_BYTES_PER_S * 1e3, k6_ops_ms)
+    k6_bound, k6_by = bound(k6_bytes, syms * K6_OPS_PER_SYMBOL)
     row_words = int(prep["lenA"].sum()) + int(prep["lenC"].sum())
     k7_bytes = row_words * 4 + nbytes(prep["F0A"], prep["lenA"], prep["F0C"], prep["lenC"]) + nw * 4
-    k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3
+    k7_bound = bound(k7_bytes)[0]
     k8_bytes = 2 * rows8 * m8 * 8  # each u64 latent read once and written once
-    k8_ops_ms = rows8 * m8 * math.log2(m8) / SCALAR_OPS_PER_S * 1e3  # m log2 m compares a row
-    k8_bound = max(k8_bytes / HBM_BYTES_PER_S * 1e3, k8_ops_ms)
+    k8_bound, k8_by = bound(k8_bytes, rows8 * m8 * math.log2(m8))  # m log2 m compares a row
     # K9: the five tables and s0, n read once, the three bin tables and
     # n_bins written once; K9_OPS_PER_STEP integer operations a walk step
     k9_bytes = nbytes(*k9_args[:7]) + 3 * lanes9 * nb9 * 8 + lanes9 * 8
-    k9_ops_ms = steps9 * K9_OPS_PER_STEP / SCALAR_OPS_PER_S * 1e3
-    k9_bound = max(k9_bytes / HBM_BYTES_PER_S * 1e3, k9_ops_ms)
-    enc_bound = (N * 8 + len(data)) / HBM_BYTES_PER_S * 1e3
+    k9_bound, k9_by = bound(k9_bytes, steps9 * K9_OPS_PER_STEP)
+    enc_bound = bound(N * 8 + len(data))[0]
     enc_gbps = N * 8 / (enc[0] * 1e-3) / 1e9
     print(f"main: encode device part (K5, glue, K6, prep, K7) {enc[0]:.3f} ms median "
           f"(min {enc[1]:.3f}, max {enc[2]:.3f}, {RUNS} runs), {enc_gbps:.2f} GB/s of input, "
@@ -890,20 +936,20 @@ def main() -> int:
         if launches5[kname] == 0 or (plan5.launches and launches5["chain_decode"] == 0):
             raise AssertionError(f"{case}: a kernel of its decode path was not launched: {launches5}")
         kcalls = calls[kname]
-        err5 = check_breadth_calls(torch, dops, calls)
+        err5 = check_breadth_calls(dops, calls)
         arrays5 = cd.upload_plan(plan5, dev)
-        dec5 = time_ms(torch, lambda: cd.decode_plan(plan5, arrays5))
-        k12 = time_ms(torch, lambda: [cd.run_launch(cp, arrays5.words, arrays5.launches[lk])
+        dec5 = time_ms(lambda: cd.decode_plan(plan5, arrays5))
+        k12 = time_ms(lambda: [cd.run_launch(cp, arrays5.words, arrays5.launches[lk])
                                       for lk, cp in plan5.launches.items()])
         kern = getattr(dops, kname)
         plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_plain
-        k_t = time_ms(torch, lambda: [kern(*a) for a in kcalls])
-        k_plain = time_ms(torch, lambda: [plain(*a) for a in kcalls], runs=3, warmup=1)
+        k_t = time_ms(lambda: [kern(*a) for a in kcalls])
+        k_plain = time_ms(lambda: [plain(*a) for a in kcalls], runs=3, warmup=1)
         k_bytes, library = breadth_kernel_numbers(torch, dops, kname, kcalls)
-        k_lib = time_ms(torch, library) if library else None
-        k_bound = k_bytes / HBM_BYTES_PER_S * 1e3
+        k_lib = time_ms(library) if library else None
+        k_bound = bound(k_bytes)[0]
         n5 = len(nums5)
-        bound5 = (len(data5) + n5 * 8) / HBM_BYTES_PER_S * 1e3
+        bound5 = bound(len(data5) + n5 * 8)[0]
         routes = sorted({kernel_route(kernels, kname, a, smem_entries) for a in kcalls})
         ch0 = plan5.chunks[0]
         bins = {k: ("trivial" if vp.trivial else "coded") for k, vp in ch0.var_plans.items()}
@@ -946,10 +992,10 @@ def main() -> int:
     if any(v == 0 for v in launches_c.values()):
         raise AssertionError(f"a kernel of the ChunkConfig() encode was not launched: {launches_c}")
     del image_c
-    check_train_calls(torch, dt, rs, ccalls)
+    check_train_calls(dt, rs, ccalls)
     sorts_c = [tuple(x.shape) for (x,) in ccalls["row_sort"]]
     walks_c = [tuple(a[0].shape) for a in ccalls["walk_bins"]]
-    k9_c = [time_ms(torch, lambda a=a: dt.walk_bins(*a))[0] for a in ccalls["walk_bins"]]
+    k9_c = [time_ms(lambda a=a: dt.walk_bins(*a))[0] for a in ccalls["walk_bins"]]
     del ccalls
     t0 = time.time()
     plan_c = asm.plan_image(nums, auto_cfg, 1024, 2 << 20, dev)
@@ -970,8 +1016,21 @@ def main() -> int:
     del plan_c, data_c
     torch.cuda.empty_cache()
 
-    def by(bytes_, ops_ms):
-        return "bytes" if bytes_ / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"
+    # 6. experiments: the microbenchmarks of pcodec_tpu_torch/experiments
+    t_exp = time.time()
+    experiment_checks(torch, dev)
+    print(f"experiments: every kernel == plain at small shapes, E2 refuses a row of 2^19 keys [{card}]", flush=True)
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    exp = experiment_runs(dev)
+    torch.cuda.synchronize()
+    exp_launches = {k: kernels.LAUNCHES[k] for k in EXPERIMENT_ROWS}
+    if any(v == 0 for v in exp_launches.values()):
+        raise AssertionError(f"a kernel of the experiments was not launched: {exp_launches}")
+    print(f"experiments: E5 proto_realign at 2048 groups {exp['proto_realign']['ms'][0]:.4f} ms beside K1 "
+          f"section_gather at the main path {k1[0]:.4f} ms; launches {exp_launches}; phase {time.time() - t_exp:.1f} s "
+          f"[{card}]", flush=True)
 
     rows = [
         {"name": "section_gather", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_gather.cu",
@@ -985,11 +1044,11 @@ def main() -> int:
         {"name": "bin_ans_encode", "route": "cuda", "source": "pcodec_tpu_torch/csrc/bin_ans_encode.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:142", "launches": enc_launches["bin_ans_encode"],
          "max_abs_err": st["err"]["bin_ans_encode"], "ms": k5[0], "plain_ms": k5_plain[0], "bound_ms": k5_bound,
-         "bound_by": by(k5_bytes, k5_ops_ms), "library_ms": None},
+         "bound_by": k5_by, "library_ms": None},
         {"name": "section_pack", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_pack.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:268", "launches": enc_launches["section_pack"],
          "max_abs_err": st["err"]["section_pack"], "ms": k6[0], "plain_ms": k6_plain[0], "bound_ms": k6_bound,
-         "bound_by": by(k6_bytes, k6_ops_ms), "library_ms": None},
+         "bound_by": k6_by, "library_ms": None},
         {"name": "image_stitch", "route": "cuda", "source": "pcodec_tpu_torch/csrc/image_stitch.cu",
          "replaces": "pcodec_tpu/ops/assemble.py:495", "launches": enc_launches["image_stitch"],
          "max_abs_err": st["err"]["image_stitch"], "ms": k7[0], "plain_ms": k7_plain[0], "bound_ms": k7_bound,
@@ -997,16 +1056,26 @@ def main() -> int:
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
-         "bound_by": by(k8_bytes, k8_ops_ms), "library_ms": k8_lib[0]},
+         "bound_by": k8_by, "library_ms": k8_lib[0]},
         {"name": "histogram_walk", "route": "cuda", "source": "pcodec_tpu_torch/csrc/histogram_walk.cu",
          "replaces": "pcodec_tpu/ops/pallas_walk.py:40", "launches": enc_launches["histogram_walk"],
          "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,
-         "bound_by": by(k9_bytes, k9_ops_ms), "library_ms": None},
+         "bound_by": k9_by, "library_ms": None},
         {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"]},
         {"name": "dict_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/dict_join.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1450", **breadth_rows["dict_join"]},
     ]
+    # phase 6's rows: the numbers of each kernel's last shape; launches at
+    # that shape (its check, warm-ups and timed runs), beside the phase's
+    # launches over all of the experiment's shapes
+    for name, (source, replaces) in EXPERIMENT_ROWS.items():
+        r = exp[name]
+        rows.append({"name": name, "route": "cuda", "source": f"pcodec_tpu_torch/csrc/{source}.cu",
+                     "replaces": replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"][0], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
+                     "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,14 +25,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
-           "row_sort", "lookback_recon", "dict_join", "histogram_walk")
+           "row_sort", "lookback_recon", "dict_join", "histogram_walk",
+           # the microbenchmarks of pcodec_tpu_torch/experiments/
+           "proto_realign", "proto_dma", "micro_gather", "proto_round_loop", "bitonic_cluster")
+# micro_gather's four routes (its `route` argument), each counted on its own
+GATHER_ROUTES = ("gather_take", "gather_taa", "gather_lane", "gather_row")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES if name != "micro_gather"}
 _LIBS = {}
 _DICT_SMEM_ENTRIES = {}
 
@@ -63,6 +67,16 @@ _ARGTYPES = {
     # V, L, R, SL1, SR, s0, n, nb_log, lanes, counts, lowers, uppers, n_bins,
     # device, stream
     "histogram_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # raw2d, n_rows, starts_blk, out, n_groups, device, stream
+    "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
+    # raw, n_raw, starts, part, out, n_tiles, heavy_rounds, device, stream
+    "proto_dma": [_P, _L, _P, _P, _P, _I, _I, _I, _P],
+    # route, table, idx, out, rows, width, steps, device, stream
+    "micro_gather": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # sec, node, state, out, emit, n_tiles, rounds, device, stream
+    "proto_round_loop": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # keys, rows, m, device, stream
+    "bitonic_cluster": [_P, _I, _L, _I, _P],
 }
 
 
@@ -121,14 +135,14 @@ def _lib(name: str):
     return _LIBS[name]
 
 
-def _call(name: str, t: torch.Tensor, *args) -> None:
+def _call(name: str, t: torch.Tensor, *args, count: str = None) -> None:
     lib = _lib(name)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     rc = getattr(lib, name)(*args, t.device.index or 0, stream)
     if rc:
         msg = lib.pcodec_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{count or name} kernel launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES[count or name] += 1
 
 
 def launch_section_gather(words, word0, out) -> None:
@@ -197,3 +211,27 @@ def launch_histogram_walk(V, L, R, SL1, SR, s0, n, counts, lowers, uppers, n_bin
     _call("histogram_walk", V, V.data_ptr(), L.data_ptr(), R.data_ptr(), SL1.data_ptr(), SR.data_ptr(),
           s0.data_ptr(), n.data_ptr(), nb_log, V.shape[0], counts.data_ptr(), lowers.data_ptr(),
           uppers.data_ptr(), n_bins.data_ptr())
+
+
+def launch_proto_realign(raw2d, starts_blk, out) -> None:
+    _call("proto_realign", raw2d, raw2d.data_ptr(), raw2d.shape[0], starts_blk.data_ptr(), out.data_ptr(),
+          out.shape[0])
+
+
+def launch_proto_dma(raw, starts, part, out, heavy_rounds: int) -> None:
+    _call("proto_dma", raw, raw.data_ptr(), raw.shape[0], starts.data_ptr(), part.data_ptr(), out.data_ptr(),
+          starts.shape[0], heavy_rounds)
+
+
+def launch_micro_gather(route: str, table, idx, out, rows: int, width: int, steps: int) -> None:
+    _call("micro_gather", table, GATHER_ROUTES.index(route), table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+          rows, width, steps, count=route)
+
+
+def launch_proto_round_loop(sec, node, state, out, emit, rounds: int) -> None:
+    _call("proto_round_loop", sec, sec.data_ptr(), node.data_ptr(), state.data_ptr(), out.data_ptr(),
+          None if emit is None else emit.data_ptr(), sec.shape[0], rounds)
+
+
+def launch_bitonic_cluster(keys) -> None:
+    _call("bitonic_cluster", keys, keys.data_ptr(), keys.shape[0], keys.shape[1])

@@ -19,6 +19,26 @@ from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 
 M32 = 0xFFFFFFFF
+MIN32 = -(1 << 31)
+
+
+def row_sort_u32_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's u32 path: each row of keys (rows, m) int32,
+    holding u32 bits, in ascending unsigned order."""
+    return torch.sort(keys ^ MIN32, dim=1).values ^ MIN32
+
+
+def row_sort_u32(keys: torch.Tensor) -> torch.Tensor:
+    """K8 on u32 keys as row_sort_u32_plain, into a new tensor; m must be a
+    power of two (row_sort pads its rows)."""
+    if keys.device.type == "cpu":
+        return row_sort_u32_plain(keys)
+    if keys.dim() != 2 or keys.shape[1] & (keys.shape[1] - 1):
+        raise ValueError("row_sort_u32 takes a (rows, m) tensor, m a power of two")
+    _check_cuda((keys, torch.int32))
+    out = keys.clone()
+    kernels.launch_row_sort(out)
+    return out
 
 
 def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
