@@ -18,7 +18,8 @@ Phases, one line each (numbers beside the card's name and power limit):
                   page, plus a lookback container whose pages are too long
                   for shared memory: the decode equals the source, and every
                   K3 and K4 call it makes equals the plain version bit for
-                  bit, K3 in shared and in global memory, K4 with its table
+                  bit, K3 in shared and in global memory, K4 (one call a
+                  decode, every Dict chunk of the container) with its table
                   in shared and in global memory; the FloatMult joins on the
                   card equal the CPU's on NaN, inf and subnormal multipliers
                   and bases for f16, f32 and f64, and where the card's
@@ -26,7 +27,8 @@ Phases, one line each (numbers beside the card's name and power limit):
                   (the reason the join multiplies in the softfloat)
   4. encode kernels
                   K8 on the card equals its plain version on rows of either
-                  key width, from one tile to rows past 2^16 keys; K9 equals
+                  key width, spans of 0, 2^32 - 1 and 2^32 and keys at the
+                  largest u64, rows of 1 to 2^20 + 3 keys; K9 equals
                   its plain version and the host histogram() on rows of few
                   values, zeros, runs, the largest u64 and full 64-bit
                   ranges, at nb_log 2, 5, 8 and 12; small inputs: K5, K6 and
@@ -51,13 +53,17 @@ Phases, one line each (numbers beside the card's name and power limit):
                           decode phase's container; K5-K9 held against their
                           plain versions at these shapes (K8 and K9 on the
                           calls the encode made); the device part, the
-                          training and each step timed with CUDA events
+                          training and each step timed with CUDA events, K8
+                          three ways: as called, its sort launch alone on
+                          prepared keys, and torch.sort, and one call's
+                          device time split over its kernels
   5c. auto config the same 64M numbers at ChunkConfig() (auto mode, auto
                   delta) with 2M-number chunks, as bench.py encodes them:
                   trained on the card (stage-1 candidate sorts and walks,
                   then each chunk's), the image compared with the port's
                   container_compress bytes, every K8 and K9 call held
-                  against its plain version, the chosen deltas printed
+                  against its plain version and each K8 call timed three
+                  ways as in phase 5, the chosen deltas printed
   5b. breadth at full size
                   the PCT inputs of bench_matrix.py's make_configs (seed
                   1234, regenerated here): wrapped_lookback_multipage (32M
@@ -68,7 +74,20 @@ Phases, one line each (numbers beside the card's name and power limit):
                   host container_compress, decoded on the card by
                   decode_container_tensor, compared with the source and
                   timed; K3 and K4 held against their plain versions on
-                  every call the decode made, and timed
+                  every call the decode made, and timed a call and on the
+                  card alone; K4 makes one launch a decode, timed beside one
+                  torch.take over the container's concatenated table (its
+                  library_ms) and beside a torch.take a chunk. Two more
+                  Dict containers (16M i64, seed 1235) put K4 where its
+                  tables' sizes matter: 1,500 values (a concatenated table
+                  of about 24,000 entries in shared memory) and 10,000
+                  (each chunk's table fits shared memory, their sum does
+                  not). K4's shared-memory route is timed with each of its
+                  grids (blocks walking tiles, a block a tile) on every
+                  such decode and on one chunk of 16M indices against
+                  tables of 128 entries to the shared-memory limit; K3 and
+                  K9 are timed a call with the raw stream handle the
+                  binding passes and with torch's Stream-object accessor
   6. experiments   the microbenchmarks of pcodec_tpu_torch/experiments, the
                   ports of the Pallas prototypes in experiments/: every
                   kernel first held bit for bit against its plain version
@@ -225,7 +244,7 @@ def breadth_cases(pt):
 
 
 @contextlib.contextmanager
-def capturing(mod, names=("lookback_recon", "dict_join")):
+def capturing(mod, names=("lookback_recon", "dict_join_chunks")):
     """Record the arguments of every call of the named kernel wrappers of
     `mod` (K3 and K4 of a decode, K8 and K9 of device training), so the
     kernels can be held against their plain versions at exactly those
@@ -249,11 +268,13 @@ def capturing(mod, names=("lookback_recon", "dict_join")):
 
 
 def check_breadth_calls(dec, calls) -> float:
-    """K3 and K4 against their plain versions on every recorded call."""
+    """K3 and K4 against their plain versions on every recorded call (K4
+    into copies of the output the decode gave it)."""
     for args in calls["lookback_recon"]:
         check_equal(dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
-    for args in calls["dict_join"]:
-        check_equal(dec.dict_join(*args), dec.dict_join_plain(*args))
+    for bases, desc, table, out in calls["dict_join_chunks"]:
+        check_equal(dec.dict_join_chunks(bases, desc, table, out.clone()),
+                    dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
     return 0.0
 
 
@@ -261,7 +282,7 @@ def kernel_route(kernels, name, args, smem_entries) -> str:
     """Which route of K3 or K4 a recorded call took."""
     if name == "lookback_recon":
         return "K3 shared memory" if args[0].shape[1] <= kernels.LB_SMEM_MAX_N else "K3 global memory"
-    return "K4 table in shared memory" if args[1].shape[0] <= smem_entries else "K4 table in global memory"
+    return "K4 table in shared memory" if args[2].shape[0] <= smem_entries else "K4 table in global memory"
 
 
 def join_inputs(nt, rng):
@@ -301,22 +322,107 @@ def matrix_inputs(pt):
     lb_cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_LOOKBACK))
     dict_cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(pt.ModeSpec.TRY_DICT))
     return [("wrapped_lookback_multipage", lookback, lb_cfg, "lookback_recon"),
-            ("dict_i64_100k", dict100k, dict_cfg, "dict_join"),
-            ("dict_i64", dict4, dict_cfg, "dict_join")]
+            ("dict_i64_100k", dict100k, dict_cfg, "dict_join_chunks"),
+            ("dict_i64", dict4, dict_cfg, "dict_join_chunks")]
+
+
+def dict_size_inputs(pt):
+    """Two TRY_DICT containers beside bench_matrix.py's, 16M i64 of
+    uniform draws from 1,500 and from 10,000 random values (seed 1235), in
+    1M-number chunks: every chunk's table holds about all the values."""
+    rng = np.random.default_rng(SEED + 1)
+    dict_cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(pt.ModeSpec.TRY_DICT))
+    cases = []
+    for case, v in (("dict_i64_1500", 1500), ("dict_i64_10k", 10_000)):
+        vals = rng.integers(-(10**12), 10**12, v).astype(np.int64)
+        cases.append((case, vals[rng.integers(0, v, 16 << 20)], dict_cfg, "dict_join_chunks"))
+    return cases
+
+
+# the K4 route each of dict_size_inputs' containers is there to take
+DICT_SIZE_ROUTES = {"dict_i64_1500": "K4 table in shared memory", "dict_i64_10k": "K4 table in global memory"}
+K4_SWEEP_N = 16 << 20
+
+
+def k4_grids(kernels, fn, check) -> dict:
+    """fn (K4 calls) timed on the card alone under each grid of K4's
+    shared-memory route, interleaved walk, tile, tile, walk: "walk", blocks
+    that fill the card each walking tiles, and "tile", a block a tile.
+    check() runs once under each grid first. Returns {grid: [ms, ms]}."""
+    keep = kernels.DICT_WALK_ENTRIES
+    got = {"walk": [], "tile": []}
+    try:
+        for grid in ("walk", "tile", "tile", "walk"):
+            kernels.DICT_WALK_ENTRIES = 0 if grid == "walk" else 1 << 62
+            if not got[grid]:
+                check()
+            got[grid].append(time_ms(fn, hold=True)[0])
+    finally:
+        kernels.DICT_WALK_ENTRIES = keep
+    return got
+
+
+def grid_line(got) -> str:
+    return ", ".join(f"{g} {' '.join(f'{t:.4f}' for t in ts)} ms" for g, ts in got.items())
+
+
+def k4_grid_sweep(torch, kernels, dops, dev, smem_entries) -> str:
+    """K4 (dict_join, one chunk) on K4_SWEEP_N random indices against
+    random tables of 128 entries to the shared-memory limit, each grid
+    timed as k4_grids times it."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    parts = []
+    for D in sorted({128, 512, 1024, 2048, 4096, 8192, 12288, 16384, smem_entries}):
+        table = torch.randint(-(1 << 62), 1 << 62, (D,), device=dev, generator=gen)
+        prim = torch.randint(0, D, (K4_SWEEP_N,), device=dev, generator=gen)
+        want = dops.dict_join_plain(prim, table)
+        got = k4_grids(kernels, lambda: dops.dict_join(prim, table),
+                       lambda: check_equal(dops.dict_join(prim, table), want))
+        parts.append(f"{D} entries: {grid_line(got)}")
+    return "; ".join(parts)
+
+
+def stream_accessors(torch, kernels, fn) -> dict:
+    """fn's median a call with the binding's stream accessor
+    (kernels._stream, through a torch Stream object) and with torch's
+    private raw-handle accessor, interleaved object, raw, raw, object.
+    Returns {accessor: [ms, ms]}."""
+    obj = kernels._stream
+    got = {"object": [], "raw": []}
+    try:
+        for acc in ("object", "raw", "raw", "object"):
+            kernels._stream = obj if acc == "object" else torch._C._cuda_getCurrentRawStream
+            got[acc].append(time_ms(fn)[0])
+    finally:
+        kernels._stream = obj
+    return got
+
+
+def accessor_line(got) -> str:
+    return ", ".join(f"{a} {' '.join(f'{t:.4f}' for t in ts)} ms" for a, ts in got.items())
 
 
 def breadth_kernel_numbers(torch, dec, name, calls):
     """Bytes K3 or K4 must move over the recorded calls of one decode, and
-    the PyTorch call that computes the same function, where one does."""
+    the PyTorch calls that compute the same function, where they exist: for
+    K4 one torch.take over the concatenated table with each number's global
+    index (the yardstick), and one torch.take a chunk (the calls of a join
+    launched chunk by chunk), both over indices prepared untimed."""
     if name == "lookback_recon":  # latents, lookbacks and output at 8 B, and the state
-        return sum(3 * nbytes(a[0]) + nbytes(a[2]) for a in calls), None
+        return sum(3 * nbytes(a[0]) + nbytes(a[2]) for a in calls), None, None
     # 8 B of index in and 8 B of bits out per number, and the table once
-    idx = [torch.clamp(a[0] & 0xFFFFFFFF, max=a[1].shape[0] - 1) for a in calls]
-    for (prim, table), i in zip(calls, idx):
-        if not torch.equal(torch.take(table, i), dec.dict_join(prim, table)):
-            raise AssertionError("K4's torch.take yardstick computes another function")
-    return (sum(2 * nbytes(a[0]) + nbytes(a[1]) for a in calls),
-            lambda: [torch.take(a[1], i) for a, i in zip(calls, idx)])
+    ((bases, desc, table, out),) = calls
+    rows = desc.tolist()  # base, start, n, output offset, table offset, D
+    idx = [torch.clamp(bases[b].reshape(-1)[start : start + n] & 0xFFFFFFFF, max=D - 1)
+           for b, start, n, _, _, D in rows]
+    tables = [table[toff : toff + D] for *_, toff, D in rows]
+    gidx = torch.cat([i + r[4] for i, r in zip(idx, rows)])
+    want = torch.cat([out[off : off + n] for _, _, n, off, _, _ in rows])
+    if not torch.equal(torch.take(table, gidx), want):
+        raise AssertionError("K4's torch.take yardstick computes another function")
+    n_dict = int(desc[:, 2].sum())
+    return (n_dict * 16 + nbytes(table), lambda: torch.take(table, gidx),
+            lambda: [torch.take(t, i) for t, i in zip(tables, idx)])
 
 
 def native_product_mismatch(torch, sf, nt, prim, base, dev):
@@ -349,19 +455,26 @@ def ptxas_lines(reports):
                 name = m.group(1)
                 fuse = re.search(r"ILi(\d)E", name)
                 smem = re.search(r"ILb(\d)E", name)
-                keys = ", u32 keys" if "IjE" in name else ", u64 keys"
                 ept = re.search(r"lb_smem_kernelILi(\d+)E", name)
+                sort = re.search(r"(minmax|span|hist|scan|scatter)_kernel(?:I([yj]+)((?:Lb\dE)*))?", name)
                 entry = (f"shared memory, {ept.group(1)} per thread" if ept else
                          "global route, prologue" if "lb_init_kernel" in name else
                          "global route, one round" if "lb_round_kernel" in name else
                          f"fuse {fuse.group(1)}" if fuse else
                          ("table in shared memory" if smem.group(1) == "1" else "table in global memory")
-                         if smem else "tile pass" + keys if "tile_kernel" in name
-                         else "global pass" + keys if "global_pass" in name else "kernel")
+                         if smem else sort_entry(sort) if sort else "kernel")
             elif "Used" in line:
                 yield k, entry, line.split(":", 1)[1].strip()
             elif "spill" in line:
                 yield k, entry, line.strip()
+
+
+def sort_entry(m) -> str:
+    """A K8 kernel's name and its template's key types (u64/u32 of the
+    input, the keys and the output) and flags, from its mangled name."""
+    types = "/".join({"y": "u64", "j": "u32"}[c] for c in m.group(2) or "")
+    flags = ",".join(re.findall(r"Lb(\d)E", m.group(3) or ""))
+    return f"{m.group(1)} pass" + (f" {types}" if types else "") + (f" flags {flags}" if flags else "")
 
 
 def walk_lanes(rng):
@@ -428,12 +541,66 @@ def k5_args(a):
             a["t1"], a["t2"])
 
 
+SORT_SPANS = ("u32", "u64", "2^32-1", "2^32", "equal", "largest_u64")
+
+
 def sort_rows(rng, span, rows, m):
-    """(rows, m) int64 holding u64 keys with ties, whose spans fit 32 bits
-    or need 64."""
-    x = rng.integers(0, 2**32 if span == "u32" else 2**64, (rows, m), dtype=np.uint64)
+    """(rows, m) int64 holding u64 keys with ties whose largest row span
+    fits 32 bits or needs 64 ("u32", "u64"), is exactly 2^32 - 1 or 2^32
+    (the boundary of K8's key widths), is 0, or whose keys sit at the
+    largest u64."""
+    if span == "equal":
+        return np.full((rows, m), -12345, np.int64)
+    if span == "largest_u64":
+        x = np.full((rows, m), 2**64 - 1, np.uint64)
+        x[:, ::5] -= rng.integers(0, 2**40, x[:, ::5].shape, dtype=np.uint64)
+        return x.view(np.int64)
+    top = {"u32": 2**32 - 1, "u64": 2**64 - 1, "2^32-1": 2**32 - 1, "2^32": 2**32}[span]
+    x = rng.integers(0, top, (rows, m), dtype=np.uint64, endpoint=True)
     x[:, : m // 3] = x[:, :1]
-    return (x + np.uint64(5 << 40) if span == "u32" else x).view(np.int64)
+    if span.startswith("2^32"):
+        x[0, 0], x[0, -1] = 0, top
+    return (x if span == "u64" else x + np.uint64(5 << 40)).view(np.int64)
+
+
+def k8_three_ways(torch, kernels, rs, x):
+    """K8 on x timed three ways: the wrapper as the path calls it (span
+    read back, scratch allocated), the sort launch alone on prepared keys
+    (span, scratch and output made untimed) and torch.sort of the keys in
+    unsigned order (flipped untimed); each a call's (median, min, max) and
+    the card's median alone. Returns them and (key bytes, passes)."""
+    mm, span = rs.radix_span(x)
+    key_bytes, passes = rs.radix_plan(span)
+    out, keys, hist = rs.radix_scratch(x, key_bytes, passes)
+    xb = x ^ _MIN64
+    ways = [lambda: rs.row_sort(x), lambda: kernels.launch_row_sort(x, out, mm, keys, hist, key_bytes, passes),
+            lambda: torch.sort(xb, dim=1)]
+    return [(time_ms(f), time_ms(f, hold=True)[0]) for f in ways], (key_bytes, passes)
+
+
+def kernel_split(torch, fn) -> str:
+    """Device time of each kernel one call of fn launches, from the
+    profiler's trace of that call (warmed up first), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_time_total", 0) > 0:
+            name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
+            split[name] = split.get(name, 0) + e.device_time_total / 1e3
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def k8_line(ways, plan) -> str:
+    (w, wh), (k, kh), (t, th) = ways
+    return (f"key bytes {plan[0]}, {plan[1]} passes: as called {w[0]:.4f} ms (min {w[1]:.4f}, max {w[2]:.4f}; "
+            f"card alone {wh:.4f}), sort launch alone {k[0]:.4f} ms (card alone {kh:.4f}), torch.sort {t[0]:.4f} ms "
+            f"(card alone {th:.4f}); torch.sort takes {t[0] / w[0]:.2f}x K8's time as called")
 
 
 def stitch_args(prep):
@@ -587,10 +754,12 @@ def main() -> int:
             raise AssertionError(f"{case} p{page_n}: decode differs from the source")
         check_breadth_calls(dops, calls)
         ch = plan.chunks[0]
-        want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join": ch.mode_kind == "dict"}
+        want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join_chunks": ch.mode_kind == "dict"}
         for k, expected in want.items():
             if bool(calls[k]) != expected:
                 raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, expected them: {expected}")
+        if len(calls["dict_join_chunks"]) > 1:
+            raise AssertionError(f"{case} p{page_n}: {len(calls['dict_join_chunks'])} K4 calls, not one a decode")
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
@@ -620,11 +789,17 @@ def main() -> int:
 
     # 4. encode kernels against plain versions on small inputs
     rng = np.random.default_rng(SEED + 2)
-    for span in ("u32", "u64"):
-        for m in (3, 256, 5000, 70_000, 1 << 20):
+    plans8 = set()
+    for span in SORT_SPANS:
+        for m in (1, 3, 256, 5000, 42_200, 70_000, (1 << 20) + 3):
             x = torch.from_numpy(sort_rows(rng, span, 3, m)).to(dev)
             check_equal(rs.row_sort(x), rs.row_sort_plain(x))
-    print("encode: K8 row_sort == plain, keys of 32 and 64 bits, rows of 3 to 2^20 keys", flush=True)
+            if m > 1:
+                plans8.add(rs.radix_plan(rs.radix_span(x)[1]))
+    if not {(4, 0), (4, 4), (8, 5), (8, 8)} <= plans8:
+        raise AssertionError(f"phase 4 missed a key width or pass count of K8: {sorted(plans8)}")
+    print(f"encode: K8 row_sort == plain on spans {', '.join(SORT_SPANS)} (key bytes, passes: {sorted(plans8)}), "
+          f"rows of 1 to 2^20 + 3 keys", flush=True)
     lanes = walk_lanes(rng)
     for nb_log in (2, 5, 8, 12):
         args = walk_tables(torch, dt, lanes, nb_log, dev)
@@ -762,8 +937,8 @@ def main() -> int:
         image = pt.encode_container_image_device(nums, cfg, page_n=1024, chunk_n=1 << 20, device=dev)
         torch.cuda.synchronize()
     t_img = time.time() - t0
-    enc_launches = {k: kernels.LAUNCHES[k] for k in ("row_sort", "histogram_walk", "bin_ans_encode",
-                                                     "section_pack", "image_stitch")}
+    enc_launches = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk",
+                                                     "bin_ans_encode", "section_pack", "image_stitch")}
     peak_enc = torch.cuda.max_memory_allocated()
     if asm.file_image_to_bytes(*image) != data:
         raise AssertionError("main path file image differs from container_compress's bytes")
@@ -816,13 +991,14 @@ def main() -> int:
     del lat2d, ext
 
     # K8 and K9 at the main path's shapes: the calls the encode made
-    x8b = x8 ^ _MIN64  # unsigned order as int64 order, for torch.sort (not timed)
-    k8 = time_ms(lambda: rs.row_sort(x8))
+    k8_ways, k8_plan = k8_three_ways(torch, kernels, rs, x8)
+    k8, k8_lib = k8_ways[0][0], k8_ways[2][0]
     k8_plain = time_ms(lambda: rs.row_sort_plain(x8))
-    k8_lib = time_ms(lambda: torch.sort(x8b, dim=1))
     rows8, m8 = x8.shape
-    print(f"main: K8 row_sort {k8[0]:.4f} ms (min {k8[1]:.4f}, max {k8[2]:.4f}) for {rows8} rows of {m8} "
-          f"latents, plain {k8_plain[0]:.4f} ms, torch.sort {k8_lib[0]:.4f} ms [{card}]", flush=True)
+    print(f"main: K8 row_sort for {rows8} rows of {m8} latents: {k8_line(k8_ways, k8_plan)}; plain "
+          f"{k8_plain[0]:.4f} ms [{card}]", flush=True)
+    print(f"main: K8 row_sort's kernels, one call's device time (torch.profiler): "
+          f"{kernel_split(torch, lambda: rs.row_sort(x8))} [{card}]", flush=True)
     k9 = time_ms(lambda: dt.walk_bins(*k9_args))
     k9_plain = time_ms(lambda: dt.walk_bins_plain(*k9_args), runs=3, warmup=1)
     k9_one = tuple(x[:1].contiguous() if torch.is_tensor(x) else x for x in k9_args)
@@ -832,6 +1008,8 @@ def main() -> int:
     print(f"main: K9 histogram_walk {k9[0]:.4f} ms (min {k9[1]:.4f}, max {k9[2]:.4f}) for {lanes9} lanes of "
           f"{nb9} bins ({steps9} steps), one lane alone {k9_lane[0]:.4f} ms, plain {k9_plain[0]:.2f} ms "
           f"[{card}]", flush=True)
+    k9_acc = stream_accessors(torch, kernels, lambda: dt.walk_bins(*k9_args))
+    print(f"main: K9 a call by stream accessor: {accessor_line(k9_acc)} [{card}]", flush=True)
 
     enc = time_ms(lambda: asm.run_image(iplan, ia))
     k5 = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)))
@@ -908,12 +1086,12 @@ def main() -> int:
           f"K6 {k6_bytes} ({payload_words} payload words, offsets at {off_b} bytes), K8 {k8_bytes}, "
           f"K9 {k9_bytes} [{card}]", flush=True)
 
-    del ia, prep, flat_idx, flat_val, body64, x8, x8b, k9_args, k9_one
+    del ia, prep, flat_idx, flat_val, body64, x8, k9_args, k9_one
     torch.cuda.empty_cache()
 
     # 5b. breadth at full size
     breadth_rows = {}
-    for case, nums5, cfg5, kname in matrix_inputs(pt):
+    for case, nums5, cfg5, kname in matrix_inputs(pt) + dict_size_inputs(pt):
         t0 = time.time()
         data5 = pt.container_compress(nums5, cfg5)
         t_enc5 = time.time() - t0
@@ -933,8 +1111,11 @@ def main() -> int:
         if not torch.equal(res, src):
             raise AssertionError(f"{case}: decode differs at {int((res != src).sum())} of {len(nums5)} numbers")
         del res, src
-        if launches5[kname] == 0 or (plan5.launches and launches5["chain_decode"] == 0):
+        lname = "dict_join" if kname == "dict_join_chunks" else kname
+        if launches5[lname] == 0 or (plan5.launches and launches5["chain_decode"] == 0):
             raise AssertionError(f"{case}: a kernel of its decode path was not launched: {launches5}")
+        if lname == "dict_join" and launches5[lname] != 1:
+            raise AssertionError(f"{case}: {launches5[lname]} K4 launches, not one a decode")
         kcalls = calls[kname]
         err5 = check_breadth_calls(dops, calls)
         arrays5 = cd.upload_plan(plan5, dev)
@@ -942,15 +1123,19 @@ def main() -> int:
         k12 = time_ms(lambda: [cd.run_launch(cp, arrays5.words, arrays5.launches[lk])
                                       for lk, cp in plan5.launches.items()])
         kern = getattr(dops, kname)
-        plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_plain
+        plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_chunks_plain
         k_t = time_ms(lambda: [kern(*a) for a in kcalls])
+        k_alone = time_ms(lambda: [kern(*a) for a in kcalls], hold=True)[0]
         k_plain = time_ms(lambda: [plain(*a) for a in kcalls], runs=3, warmup=1)
-        k_bytes, library = breadth_kernel_numbers(torch, dops, kname, kcalls)
-        k_lib = time_ms(library) if library else None
+        k_bytes, library, per_chunk = breadth_kernel_numbers(torch, dops, kname, kcalls)
+        k_lib = (time_ms(library), time_ms(library, hold=True)[0]) if library else None
+        k_old = time_ms(per_chunk) if per_chunk else None
         k_bound = bound(k_bytes)[0]
         n5 = len(nums5)
         bound5 = bound(len(data5) + n5 * 8)[0]
         routes = sorted({kernel_route(kernels, kname, a, smem_entries) for a in kcalls})
+        if case in DICT_SIZE_ROUTES and routes != [DICT_SIZE_ROUTES[case]]:
+            raise AssertionError(f"{case}: K4 took {routes}, not {DICT_SIZE_ROUTES[case]}")
         ch0 = plan5.chunks[0]
         bins = {k: ("trivial" if vp.trivial else "coded") for k, vp in ch0.var_plans.items()}
         print(f"breadth: {case}: {n5} i64, {len(data5)} bytes, ratio {nums5.nbytes / len(data5):.4f}, "
@@ -961,16 +1146,31 @@ def main() -> int:
               f"{RUNS} runs), {n5 * 8 / (dec5[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound "
               f"{bound5:.4f} ms = {bound5 / dec5[0]:.1%}; K1 + K2 alone {k12[0]:.4f} ms (min {k12[1]:.4f}, "
               f"max {k12[2]:.4f}) [{card}]", flush=True)
-        lib_txt = f", torch.take {k_lib[0]:.4f} ms" if k_lib else ""
+        lib_txt = ""
+        if k_lib:
+            lib_txt = (f", one torch.take over the container's index {k_lib[0][0]:.4f} ms (card alone "
+                       f"{k_lib[1]:.4f}), a torch.take a chunk {k_old[0]:.4f} ms for {len(kcalls[0][1])} chunks; "
+                       f"K4 at {k_t[0] / k_lib[0][0]:.2f}x the one torch.take's time")
         print(f"breadth: {case}: {kname} ({', '.join(routes)}) {k_t[0]:.4f} ms for its {len(kcalls)} calls "
-              f"(min {k_t[1]:.4f}, max {k_t[2]:.4f}), plain {k_plain[0]:.3f} ms{lib_txt}, bound {k_bound:.4f} ms "
+              f"(min {k_t[1]:.4f}, max {k_t[2]:.4f}; card alone {k_alone:.4f}, {k_bound / k_alone:.1%} of the bound), "
+              f"{launches5[lname]} launches, plain {k_plain[0]:.3f} ms{lib_txt}, bound {k_bound:.4f} ms "
               f"({k_bytes} bytes) [{card}]", flush=True)
-        if kname not in breadth_rows:
-            breadth_rows[kname] = {"launches": launches5[kname], "max_abs_err": err5, "ms": k_t[0],
+        if routes == ["K4 table in shared memory"]:
+            grids = k4_grids(kernels, lambda: [kern(*a) for a in kcalls], lambda: check_breadth_calls(dops, calls))
+            print(f"breadth: {case}: K4 card alone by grid (each == plain): {grid_line(grids)} [{card}]", flush=True)
+        if kname == "lookback_recon":
+            acc = stream_accessors(torch, kernels, lambda: [kern(*a) for a in kcalls])
+            print(f"breadth: {case}: K3 a call ({len(kcalls)} calls) by stream accessor: {accessor_line(acc)} "
+                  f"[{card}]", flush=True)
+        if lname not in breadth_rows:
+            breadth_rows[lname] = {"launches": launches5[lname], "max_abs_err": err5, "ms": k_t[0],
                                    "plain_ms": k_plain[0], "bound_ms": k_bound, "bound_by": "bytes",
-                                   "library_ms": k_lib[0] if k_lib else None}
+                                   "library_ms": k_lib[0][0] if k_lib else None}
         del calls, kcalls, arrays5, plan5, data5, nums5
         torch.cuda.empty_cache()
+
+    print(f"breadth: K4 grid sweep, one chunk of {K4_SWEEP_N} random indices, card alone by grid (each == "
+          f"plain): {k4_grid_sweep(torch, kernels, dops, dev, smem_entries)} [{card}]", flush=True)
 
     # 5c. the same numbers at ChunkConfig(), 2M-number chunks
     auto_cfg = pt.ChunkConfig()
@@ -985,8 +1185,8 @@ def main() -> int:
         image_c = pt.encode_container_image_device(nums, auto_cfg, page_n=1024, chunk_n=2 << 20, device=dev)
         torch.cuda.synchronize()
     t_img_c = time.time() - t0
-    launches_c = {k: kernels.LAUNCHES[k] for k in ("row_sort", "histogram_walk", "bin_ans_encode",
-                                                   "section_pack", "image_stitch")}
+    launches_c = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk",
+                                                   "bin_ans_encode", "section_pack", "image_stitch")}
     if asm.file_image_to_bytes(*image_c) != data_c:
         raise AssertionError("the ChunkConfig() file image differs from container_compress's bytes")
     if any(v == 0 for v in launches_c.values()):
@@ -996,6 +1196,7 @@ def main() -> int:
     sorts_c = [tuple(x.shape) for (x,) in ccalls["row_sort"]]
     walks_c = [tuple(a[0].shape) for a in ccalls["walk_bins"]]
     k9_c = [time_ms(lambda a=a: dt.walk_bins(*a))[0] for a in ccalls["walk_bins"]]
+    k8_c = [(tuple(x.shape), *k8_three_ways(torch, kernels, rs, x)) for (x,) in ccalls["row_sort"]]
     del ccalls
     t0 = time.time()
     plan_c = asm.plan_image(nums, auto_cfg, 1024, 2 << 20, dev)
@@ -1013,6 +1214,8 @@ def main() -> int:
           f"training included) [{card}]", flush=True)
     print(f"auto: K8 calls {sorts_c}, K9 calls {walks_c} == plain; K9 "
           f"{', '.join(f'{t:.4f}' for t in k9_c)} ms [{card}]", flush=True)
+    for shape, ways, plan8 in k8_c:
+        print(f"auto: K8 row_sort {shape}: {k8_line(ways, plan8)} [{card}]", flush=True)
     del plan_c, data_c
     torch.cuda.empty_cache()
 
@@ -1056,7 +1259,7 @@ def main() -> int:
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
-         "bound_by": k8_by, "library_ms": k8_lib[0]},
+         "bound_by": k8_by, "library_ms": k8_lib[0], "span_launches": enc_launches["row_sort_span"]},
         {"name": "histogram_walk", "route": "cuda", "source": "pcodec_tpu_torch/csrc/histogram_walk.cu",
          "replaces": "pcodec_tpu/ops/pallas_walk.py:40", "launches": enc_launches["histogram_walk"],
          "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,

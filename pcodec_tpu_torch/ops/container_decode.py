@@ -16,9 +16,11 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      applies the order-1 delta and the Classic join
     post             per chunk: the `delta` var first, then `primary` and
                      `secondary`; delta reconstruction (consecutive and conv1
-                     in plain torch, lookback through K3), ragged trim, then
-                     the mode join (Dict through K4, the others in plain
-                     torch; ops/decode.py holds all of these)
+                     in plain torch, lookback through K3), then each
+                     non-Dict chunk's ragged trim and mode join in plain
+                     torch (ops/decode.py holds all of these)
+    dict join        K4, CUDA (csrc/dict_join.cu): every Dict chunk of the
+                     container in one launch, straight into the output
 
 Every mode (Classic, Dict, IntMult, FloatQuant, FloatMult) and every delta
 (NOOP, consecutive, lookback, conv1) of every number type decodes here;
@@ -83,6 +85,11 @@ class ChunkPlan:
     var_plans: Dict[str, VarPlan]
     dict_table: Optional[np.ndarray] = None  # (D,) int64 memory bits of each Dict entry
 
+    @property
+    def n(self) -> int:
+        """Numbers of the chunk: whole pages but the last."""
+        return (self.n_pages - 1) * self.page_n + int(self.page_ns[-1]) if self.n_pages else 0
+
 
 @dataclass
 class ChainPlan:
@@ -119,6 +126,20 @@ class ContainerPlan:
     chunks: List[ChunkPlan]
     launches: Dict[tuple, ChainPlan]
     words: np.ndarray  # container bytes as u32 words, zero padded
+    offsets: np.ndarray  # (n_chunks + 1,) int64 first number of each chunk, then the count
+    # K4's plan: every Dict chunk's table back to back; the tensors the Dict
+    # chunks' primary latents lie in, ("launch", launch key) for a launch
+    # output (the chunks without a delta) or ("chunk", chunk index) for
+    # latents reconstructed or filled by the post; per Dict chunk (in chunk
+    # order) a row (base, start, n, output offset, table offset, D)
+    dict_chunks: List[int]
+    dict_bases: List[tuple]
+    dict_desc: np.ndarray  # (len(dict_chunks), 6) int64
+    dict_table: np.ndarray  # (sum of D,) int64 memory bits
+
+    @property
+    def n(self) -> int:
+        return int(self.offsets[-1])
 
 
 def _build_var_tables(var_meta):
@@ -281,7 +302,32 @@ def plan_container(data: bytes) -> ContainerPlan:
     n_words = -(-n_words // 4) * 4 + 4
     raw = np.zeros(4 * n_words, dtype=np.uint8)
     raw[: len(data)] = np.frombuffer(data, dtype=np.uint8)
-    return ContainerPlan(nt=idx.nt, chunks=chunks, launches=launches, words=raw.view(np.uint32))
+    offsets = np.concatenate([[0], np.cumsum([ch.n for ch in chunks], dtype=np.int64)]).astype(np.int64)
+    dict_chunks = [ci for ci, ch in enumerate(chunks) if ch.dict_table is not None]
+    dict_bases, rows, toff = [], [], 0
+    for ci in dict_chunks:
+        ch = chunks[ci]
+        vp = ch.var_plans["primary"]
+        if _dict_from_launch(ch):
+            base, start = ("launch", vp.launch_key), vp.chain_start * ch.page_n
+        else:
+            base, start = ("chunk", ci), 0
+        if base not in dict_bases:
+            dict_bases.append(base)
+        rows.append([dict_bases.index(base), start, ch.n, offsets[ci], toff, len(ch.dict_table)])
+        toff += len(ch.dict_table)
+    return ContainerPlan(nt=idx.nt, chunks=chunks, launches=launches, words=raw.view(np.uint32), offsets=offsets,
+                         dict_chunks=dict_chunks, dict_bases=dict_bases,
+                         dict_desc=np.array(rows, dtype=np.int64).reshape(-1, 6),
+                         dict_table=np.concatenate([chunks[ci].dict_table for ci in dict_chunks])
+                         if dict_chunks else np.zeros(0, np.int64))
+
+
+def _dict_from_launch(ch: ChunkPlan) -> bool:
+    """Whether K4 reads a Dict chunk's index latents from its launch's rows
+    as K2 left them (a coded primary without a delta)."""
+    return (ch.var_plans["primary"].launch_key is not None
+            and ch.delta.for_latent_var("primary").kind == DeltaEncoding.NOOP)
 
 
 def _build_launch(lkey: tuple, items: list) -> ChainPlan:
@@ -540,11 +586,18 @@ def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
     return dec.conv1_decode_pages(lat, moments, de.weights, de.quantization, de.bias, de.order, vp.bits)
 
 
-def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> List[torch.Tensor]:
-    """Per chunk: flat memory bits (int64) of its numbers (the JAX
-    `_post_chunks`). A fused launch's rows are final memory bits already."""
+def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
+    """(n,) int64 memory bits of every number of the container (the JAX
+    `_post_chunks` and the concatenation after it). A fused launch's rows
+    are final memory bits already. Every Dict chunk is joined by one K4
+    launch straight into the output, the other chunks' results are copied
+    into it; a container without Dict chunks is concatenated, a view where
+    its chunks lie end to end in one launch output."""
     results = []
-    for cp, arrays in zip(plan.chunks, dev.chunks):
+    dict_latents = {}  # Dict chunk -> its primary latents made by the post
+    for ci, (cp, arrays) in enumerate(zip(plan.chunks, dev.chunks)):
+        if cp.mode_kind == Mode.DICT and _dict_from_launch(cp):
+            continue  # K4 reads the launch's rows
         var_latents = {}
         for key in ("delta", "primary", "secondary"):
             vp = cp.var_plans.get(key)
@@ -559,17 +612,25 @@ def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "Devi
                     var_latents[key] = lat
                     continue
             var_latents[key] = reconstruct_var(cp, vp, lat, var_latents.get("delta"), arrays["moments_" + key])
+        if cp.mode_kind == Mode.DICT:
+            dict_latents[ci] = var_latents["primary"]
+            continue
         primary = trim_pages(var_latents["primary"], cp)
         lkey = cp.var_plans["primary"].launch_key
         if lkey is not None and plan.launches[lkey].fuse:
             results.append(primary)
-        elif cp.mode_kind == Mode.DICT:
-            results.append(dec.dict_join(primary, arrays["dict"]))
         else:
             secondary = var_latents.get("secondary")
             secondary = trim_pages(secondary, cp) if secondary is not None else None
             results.append(dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, primary, secondary))
-    return results
+    if not plan.dict_chunks:
+        return _concat(results, dev.words.device)
+    out = torch.empty(plan.n, dtype=torch.int64, device=dev.words.device)
+    is_dict = set(plan.dict_chunks)
+    for ci, res in zip((ci for ci in range(len(plan.chunks)) if ci not in is_dict), results):
+        out[plan.offsets[ci] : plan.offsets[ci + 1]] = res
+    bases = [outs[key] if kind == "launch" else dict_latents[key] for kind, key in plan.dict_bases]
+    return dec.dict_join_chunks(bases, plan.dict_desc, dev.dict_table, out)
 
 
 def _concat(pieces: List[torch.Tensor], device) -> torch.Tensor:
@@ -607,8 +668,9 @@ def _resolve_device(device) -> torch.device:
 class DeviceArrays:
     words: torch.Tensor
     launches: Dict[tuple, Dict[str, torch.Tensor]] = field(default_factory=dict)
-    # per chunk: "moments_<var>" (n_pages, state_n) and, for Dict, "dict"
+    # per chunk: "moments_<var>" (n_pages, state_n)
     chunks: List[Dict[str, torch.Tensor]] = field(default_factory=list)
+    dict_table: Optional[torch.Tensor] = None  # every Dict chunk's table, back to back
 
 
 def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
@@ -618,7 +680,7 @@ def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dev = DeviceArrays(words=t(plan.words.view(np.int32)))
+    dev = DeviceArrays(words=t(plan.words.view(np.int32)), dict_table=t(plan.dict_table))
     for lkey, cp in plan.launches.items():
         dev.launches[lkey] = {
             "word0": t(cp.word0),
@@ -631,10 +693,7 @@ def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
             "moment0": t(cp.moment0.view(np.int64)),
         }
     for ch in plan.chunks:
-        arrays = {"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()}
-        if ch.dict_table is not None:
-            arrays["dict"] = t(ch.dict_table)
-        dev.chunks.append(arrays)
+        dev.chunks.append({"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()})
     return dev
 
 
@@ -649,7 +708,7 @@ def decode_plan(plan: ContainerPlan, dev: DeviceArrays) -> torch.Tensor:
     """Device part of the decode: (n,) int64 memory bits of every number."""
     outs = {lkey: run_launch(cp, dev.words, dev.launches[lkey])
             for lkey, cp in plan.launches.items()}
-    return _concat(post_chunks(plan, outs, dev), dev.words.device)
+    return post_chunks(plan, outs, dev)
 
 
 def decode_container_tensor(data: bytes, device="cuda", plan: Optional[ContainerPlan] = None) -> torch.Tensor:

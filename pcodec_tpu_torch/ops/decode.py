@@ -6,8 +6,10 @@ The counterparts of the XLA helpers in the JAX package's
 
     bijections        latent <-> memory bits of every number type
     join_mem          the mode joins (Classic, IntMult, FloatQuant, FloatMult)
-    dict_join         K4, CUDA (csrc/dict_join.cu): the Dict join, a clamped
-                      gather of each entry's memory bits
+    dict_join_chunks  K4, CUDA (csrc/dict_join.cu): the Dict join of every
+                      Dict chunk of a container in one launch, a clamped
+                      gather of each entry's memory bits; dict_join is its
+                      one-chunk case
     consecutive_decode_batched, conv1_decode_pages
                       delta reconstruction in plain torch (XLA in JAX)
     lookback_recon    K3, CUDA (csrc/lookback_recon.cu): per-page lookback
@@ -119,22 +121,48 @@ def dict_table(nt: NumberType, dict_vals: np.ndarray) -> np.ndarray:
 
 
 def dict_join_plain(primary: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: memory bits table[min(primary & 0xFFFFFFFF, D - 1)]."""
+    """Plain version of K4 on one chunk: memory bits
+    table[min(primary & 0xFFFFFFFF, D - 1)]."""
     idx = torch.clamp(primary & 0xFFFFFFFF, max=table.shape[0] - 1)
     return table[idx]
 
 
+def dict_join_chunks_plain(bases, desc: np.ndarray, table: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4 over every Dict chunk of a container, into `out`.
+
+    bases: the int64 tensors the chunks' index latents lie in (a launch
+    output, or a chunk's latents reconstructed under a delta); desc (C, 6)
+    int64 rows (base, start, n, out offset, table offset, D): the chunk's
+    latents are the flat elements [start, start + n) of bases[base], and
+    out[off : off + n] = dict_join_plain(latents, table[toff : toff + D]).
+    Returns out."""
+    for b, start, n, off, toff, D in np.asarray(desc, np.int64).reshape(-1, 6).tolist():
+        out[off : off + n] = dict_join_plain(bases[b].reshape(-1)[start : start + n], table[toff : toff + D])
+    return out
+
+
+def dict_join_chunks(bases, desc: np.ndarray, table: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K4: every Dict chunk of a container joined by one launch, straight
+    into the container's output; arguments as dict_join_chunks_plain."""
+    if out.device.type == "cpu":
+        return dict_join_chunks_plain(bases, desc, table, out)
+    if out.dim() != 1 or table.dim() != 1:
+        raise ValueError("dict_join_chunks needs a flat table and a flat output")
+    _check_cuda((out, torch.int64), (table, torch.int64), *((b, torch.int64) for b in bases))
+    kernels.launch_dict_join(bases, desc, table, out)
+    return out
+
+
 def dict_join(primary: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """K4: the Dict join. primary (n,) int64 index latents, table (D,) int64
-    memory bits -> (n,) int64 memory bits."""
+    """K4 on one chunk: primary (n,) int64 index latents, table (D,) int64
+    memory bits -> (n,) int64 memory bits; the one-chunk case of
+    dict_join_chunks."""
     if primary.device.type == "cpu":
         return dict_join_plain(primary, table)
     if primary.dim() != 1 or table.dim() != 1 or table.shape[0] < 1:
         raise ValueError("dict_join needs a flat primary and a non-empty flat table")
-    _check_cuda((primary, torch.int64), (table, torch.int64))
     out = torch.empty_like(primary)
-    kernels.launch_dict_join(primary, table, out)
-    return out
+    return dict_join_chunks([primary], np.array([[0, 0, primary.shape[0], 0, 0, table.shape[0]]]), table, out)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 CHAINS_PER_BLOCK = 128  # must match csrc/chain_decode.cu and csrc/bin_ans_encode.cu
@@ -36,7 +37,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES if name != "micro_gather"}
+# K4's shared-memory table past which its blocks fill the card and walk
+# tiles (the copy paid once a block) instead of a block a tile: chip_smoke.py's
+# grid sweep has a block a tile ahead up to 8,192 entries, walking from 16,384
+DICT_WALK_ENTRIES = 8192
+
+# C calls that launched kernels, by name; dict_join's counts its kernels
+LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES + ("row_sort_span",) if name != "micro_gather"}
 _LIBS = {}
 _DICT_SMEM_ENTRIES = {}
 
@@ -57,13 +64,14 @@ _ARGTYPES = {
     # rowsA, WA, F0A, lenA, RA, rowsC, WC, F0C, lenC, RC, body, body_words,
     # device, stream
     "image_stitch": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _L, _I, _P],
-    # keys, rows, m_pad, key_bytes, device, stream
-    "row_sort": [_P, _I, _L, _I, _I, _P],
+    # in, out, rows, m, in_bytes, key_bytes, passes, mm, keys, hist, device, stream
+    "row_sort": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _I, _P],
     # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
     # ptr_scratch, device, stream
     "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _I, _P],
-    # primary, table, out, n, D, smem, device, stream
-    "dict_join": [_P, _P, _P, _L, _L, _I, _I, _P],
+    # bases, numels, n_bases, desc, n_chunks, table, n_table, out, n_out, smem, walk, launched,
+    # device, stream
+    "dict_join": [_P, _P, _I, _P, _I, _P, _L, _P, _L, _I, _I, _P, _I, _P],
     # V, L, R, SL1, SR, s0, n, nb_log, lanes, counts, lowers, uppers, n_bins,
     # device, stream
     "histogram_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -77,6 +85,11 @@ _ARGTYPES = {
     "proto_round_loop": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # keys, rows, m, device, stream
     "bitonic_cluster": [_P, _I, _L, _I, _P],
+}
+# C functions beside a library's own: name -> (library, argtypes)
+_MORE_FUNCS = {
+    # in, rows, m, in_bytes, mm, device, stream
+    "row_sort_span": ("row_sort", [_P, _I, _L, _I, _P, _I, _P]),
 }
 
 
@@ -126,23 +139,34 @@ def _lib(name: str):
     if name not in _LIBS:
         build((name,))
         lib = ctypes.CDLL(_lib_path(name))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        funcs = [(name, _ARGTYPES[name])] + [(f, a) for f, (src, a) in _MORE_FUNCS.items() if src == name]
+        for fn_name, argtypes in funcs:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.pcodec_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pcodec_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
 
 
-def _call(name: str, t: torch.Tensor, *args, count: str = None) -> None:
-    lib = _lib(name)
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    rc = getattr(lib, name)(*args, t.device.index or 0, stream)
+def _stream(index: int) -> int:
+    """The current stream of device `index` as a raw handle."""
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _call(name: str, t: torch.Tensor, *args, count: str = None, launched: ctypes.c_int = None) -> None:
+    """Call C function `name` (of its own library, or of the one
+    _MORE_FUNCS names) on t's device and current stream; raise on its error,
+    else count under `count` (default `name`) one launch, or the kernels
+    the call wrote into `launched`."""
+    lib = _lib(_MORE_FUNCS[name][0] if name in _MORE_FUNCS else name)
+    index = t.device.index or 0
+    rc = getattr(lib, name)(*args, index, _stream(index))
     if rc:
         msg = lib.pcodec_cuda_error_string(rc).decode()
         raise RuntimeError(f"{count or name} kernel launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES[count or name] += 1
+    LAUNCHES[count or name] += 1 if launched is None else launched.value
 
 
 def launch_section_gather(words, word0, out) -> None:
@@ -177,8 +201,15 @@ def launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body) -> None:
           rowsC.shape[0], body.data_ptr(), body.shape[0])
 
 
-def launch_row_sort(keys) -> None:
-    _call("row_sort", keys, keys.data_ptr(), keys.shape[0], keys.shape[1], keys.element_size())
+def launch_row_sort_span(x, mm) -> None:
+    """K8's first kernels: mm (2 rows + 1,) int64 gets each row's minimum,
+    its maximum and the largest span of x (rows, m)."""
+    _call("row_sort_span", x, x.data_ptr(), x.shape[0], x.shape[1], x.element_size(), mm.data_ptr())
+
+
+def launch_row_sort(x, out, mm, keys, hist, key_bytes: int, passes: int) -> None:
+    _call("row_sort", x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], x.element_size(), key_bytes, passes,
+          mm.data_ptr(), keys.data_ptr(), hist.data_ptr())
 
 
 def launch_lookback_recon(lat, lb, mom, out, window_n: int, state_n: int, mid: int, rounds: int,
@@ -201,10 +232,20 @@ def dict_join_smem_entries(device) -> int:
     return _DICT_SMEM_ENTRIES[index]
 
 
-def launch_dict_join(primary, table, out) -> None:
-    smem = int(table.shape[0] <= dict_join_smem_entries(primary.device))
-    _call("dict_join", primary, primary.data_ptr(), table.data_ptr(), out.data_ptr(), primary.shape[0],
-          table.shape[0], smem)
+def launch_dict_join(bases, desc, table, out) -> None:
+    """bases: the int64 tensors the chunks read; desc (C, 6) int64 numpy
+    rows (base, start, n, output offset, table offset, D). The C side
+    checks every row against its base, the output and the table."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64)
+    if desc.ndim != 2 or desc.shape[1] != 6:
+        raise ValueError("dict_join takes (C, 6) descriptor rows")
+    smem = int(table.shape[0] <= dict_join_smem_entries(out.device))
+    walk = int(table.shape[0] > DICT_WALK_ENTRIES)
+    B = len(bases)
+    launched = ctypes.c_int(0)
+    _call("dict_join", out, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
+          (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc.shape[0], table.data_ptr(),
+          table.shape[0], out.data_ptr(), out.shape[0], smem, walk, ctypes.byref(launched), launched=launched)
 
 
 def launch_histogram_walk(V, L, R, SL1, SR, s0, n, counts, lowers, uppers, n_bins, nb_log: int) -> None:

@@ -30,6 +30,7 @@ from pcodec_tpu_torch.format.metadata import DeltaEncoding
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import softfloat as sf
+from tests.test_torch_breadth_kernels import dict_container
 
 RNG = np.random.default_rng(303)
 WEP = {"f16": (16, 5, 11), "f32": (32, 8, 24), "f64": (64, 11, 53)}
@@ -138,6 +139,37 @@ def test_decode_lookback_and_delta_var_types(case, monkeypatch):
     de = plan.chunks[0].delta
     assert de.kind == DeltaEncoding.LOOKBACK
     assert de.state_n == (64 if case == "i64_state_n_64" else 1)
+
+
+@pytest.mark.parametrize("case", ["dict", "consecutive", "mixed"])
+def test_dict_containers_decode_as_the_reference(case):
+    """Exact: multi-chunk TRY_DICT containers (every chunk Dict, under an
+    order-1 delta, or with a Classic chunk between Dict chunks), whose Dict
+    chunks the port joins in one K4 call into the output, decode as the JAX
+    package's container_decompress."""
+    nums, cfg = dict_container(case)
+    data = pt.container_compress(nums, cfg, page_n=256, chunk_n=3000)
+    out = pt.decode_container_device(data, device="cpu")
+    assert np.array_equal(out, ref_decompress(data))
+    assert np.array_equal(out, nums)
+
+
+def test_dict_with_delta_i64_keeps_its_32_bit_latents():
+    """Exact: the reference fault of a Dict chunk under a delta with i64
+    numbers (300 draws of {7, -3, 10^15, 42}, each repeated 5 times, the
+    first 42; page_n 256): the port decodes 42 at index 1, as
+    container_decompress does."""
+    vals = np.array([7, -3, 10**15, 42], np.int64)
+    draws = np.random.default_rng(42).integers(0, 4, 300)
+    draws[0] = 3
+    nums = np.repeat(vals[draws], 5)
+    cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_dict"), delta_spec=pt.DeltaSpec("try_consecutive", 1))
+    data = pt.container_compress(nums, cfg, page_n=256)
+    plan = cd.plan_container(data)
+    assert plan.chunks[0].mode_kind == "dict" and plan.chunks[0].delta.kind == "consecutive"
+    out = pt.decode_container_device(data, device="cpu")
+    assert out[1] == 42
+    assert np.array_equal(out, ref_decompress(data))
 
 
 def test_decode_float_mult_f64_with_a_subnormal_base():

@@ -71,6 +71,58 @@ def test_dict_join_plain_clamps_like_the_format():
     assert dec.dict_join_plain(prim, table).tolist() == [-3, 8997, 8997, 2997, 8997, 8997]
 
 
+def dict_container(case):
+    """Numbers and config of a three-chunk TRY_DICT container (chunk_n
+    3,000): every chunk Dict ("dict", and "consecutive" under an order-1
+    delta), or a Classic chunk of high-entropy numbers between two Dict
+    chunks ("mixed")."""
+    rng = np.random.default_rng(77)
+    four = np.array([3, 99, 1234567, -5], np.int64)[rng.integers(0, 4, 3000)]
+    forty = rng.integers(-(10**12), 10**12, 40)[rng.integers(0, 40, 2500)]
+    middle = rng.integers(-(2**62), 2**62, 3000) if case == "mixed" else four[::-1]
+    delta = ("try_consecutive", 1) if case == "consecutive" else ("no_op", 0)
+    cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_dict"), delta_spec=pt.DeltaSpec(*delta))
+    return np.concatenate([four, middle, forty]).astype(np.int64), cfg
+
+
+def _dict_join_calls(data, device):
+    """Decode on `device`, recording the arguments of every container-level
+    K4 call; returns (plan, decoded bits, calls)."""
+    plan = cd.plan_container(data)
+    calls = []
+    saved = dec.dict_join_chunks
+
+    def record(*args):
+        calls.append(args)
+        return saved(*args)
+
+    dec.dict_join_chunks = record
+    try:
+        got = cd.decode_container_tensor(data, device, plan)
+    finally:
+        dec.dict_join_chunks = saved
+    return plan, got, calls
+
+
+@pytest.mark.parametrize("case", ["dict", "consecutive", "mixed"])
+def test_dict_join_chunks_plain_is_the_per_chunk_join(case):
+    """Exact: the container-level plain K4 equals each Dict chunk's
+    dict_join_plain on its trimmed latents and its own table, concatenated;
+    one call per decode, the decode equal to the source."""
+    nums, cfg = dict_container(case)
+    data = pt.container_compress(nums, cfg, page_n=256, chunk_n=3000)
+    plan, got, calls = _dict_join_calls(data, "cpu")
+    assert np.array_equal(got.numpy(), nums)
+    assert [plan.chunks[ci].mode_kind for ci in range(3)] == ["dict", "classic" if case == "mixed" else "dict", "dict"]
+    ((bases, desc, table, out),) = calls
+    joined = dec.dict_join_chunks_plain(bases, desc, table, torch.zeros_like(out))
+    per_chunk = [dec.dict_join_plain(bases[b].reshape(-1)[start : start + plan.chunks[ci].n],
+                                     torch.from_numpy(plan.chunks[ci].dict_table))
+                 for ci, (b, start) in zip(plan.dict_chunks, desc[:, :2].tolist())]
+    assert torch.equal(torch.cat([joined[plan.offsets[ci] : plan.offsets[ci + 1]] for ci in plan.dict_chunks]),
+                       torch.cat(per_chunk))
+
+
 @pytest.mark.parametrize("order", [1, 4, 6])
 def test_conv1_plain_matches_host_decoder(order):
     """Exact against the host's serial conv1 decode of one page."""
@@ -149,6 +201,77 @@ def test_dict_join_matches_plain_on_card(D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared_walk", "shared_tile", "global"])
+def test_dict_join_chunks_matches_plain_on_card(route, monkeypatch):
+    """Exact: one K4 launch joins chunks from a 2-D source, the same
+    tensor read at an offset and in part, a view, a one-number chunk and an
+    empty one into a buffer with gaps (the other chunks of a mixed
+    container, which it leaves as they were), the concatenated table in
+    shared memory (blocks walking tiles, or a block a tile) or in global
+    memory."""
+    _need_card()
+    monkeypatch.setattr(kernels, "DICT_WALK_ENTRIES", 1 << 62 if route == "shared_tile" else 0)
+    limit = kernels.dict_join_smem_entries("cuda")
+    D = [4, limit, 1, 7, 5] if route == "global" else [4, 3000, 1, 7, 5]
+    table = torch.from_numpy(RNG.integers(0, 2**64, sum(D), dtype=np.uint64).view(np.int64)).cuda()
+    assert (table.shape[0] <= limit) == (route != "global")
+    big = torch.from_numpy(RNG.integers(0, 4000, 9000)).cuda()
+    big[::97] |= 5 << 32
+    bases = [big[:3072].view(3, 1024), big, big[8100:]]
+    base, start = [0, 1, 2, 0, 1], [0, 3072, 0, 5, 0]
+    n = [3000, 4999, 900, 1, 0]
+    off = [0, 3100, 8200, 9100, 9101]
+    toff = np.cumsum(D) - D
+    desc = np.stack([base, start, n, off, toff, D], 1)
+    out = torch.full((9200,), -77, dtype=torch.int64, device="cuda")
+    before = kernels.LAUNCHES["dict_join"]
+    got = dec.dict_join_chunks(bases, desc, table, out.clone())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dict_join"] == before + 1
+    assert torch.equal(got, dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
+    bad = desc.copy()
+    bad[2, 2] = 901  # one number past its base
+    with pytest.raises(RuntimeError, match="dict_join kernel launch failed"):
+        dec.dict_join_chunks(bases, bad, table, out.clone())
+    assert int((got == -77).sum()) == 9200 - sum(n)
+
+
+@pytest.mark.gpu
+def test_dict_join_counts_each_kernel_on_card():
+    """Exact: past the 96 chunks one launch carries, K4's call launches a
+    kernel for each 96 and counts each of them."""
+    _need_card()
+    C = 200
+    table = torch.from_numpy(RNG.integers(0, 2**64, 3 * C, dtype=np.uint64).view(np.int64)).cuda()
+    src = torch.from_numpy(RNG.integers(0, 5, 10 * C)).cuda()
+    desc = np.array([[0, 10 * c, 10, 10 * c, 3 * c, 3] for c in range(C)])
+    before = kernels.LAUNCHES["dict_join"]
+    got = dec.dict_join_chunks([src], desc, table, torch.empty_like(src))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dict_join"] == before + 3
+    assert torch.equal(got, dec.dict_join_chunks_plain([src], desc, table, torch.empty_like(src)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dict", "consecutive", "mixed"])
+def test_dict_container_decode_one_launch_on_card(case):
+    """Exact: a multi-chunk Dict container (all Dict, under a delta, or
+    mixed with a Classic chunk) decodes on the card to its source with one
+    K4 launch, which equals its plain version on the call's inputs."""
+    _need_card()
+    nums, cfg = dict_container(case)
+    data = pt.container_compress(nums, cfg, page_n=256, chunk_n=3000)
+    before = kernels.LAUNCHES["dict_join"]
+    plan, got, calls = _dict_join_calls(data, "cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dict_join"] == before + 1
+    assert np.array_equal(got.cpu().numpy(), nums)
+    ((bases, desc, table, out),) = calls
+    assert torch.equal(got, dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
+    assert len(plan.dict_chunks) == (2 if case == "mixed" else 3)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["lookback", "dict_100k", "float_mult_f32"])
 def test_breadth_decode_on_card(case):
     """Exact: containers that run K3, K4 (table in global memory) and the
@@ -172,3 +295,5 @@ def test_breadth_decode_on_card(case):
     name = {"lookback": "lookback_recon", "dict_100k": "dict_join"}.get(case)
     if name:
         assert kernels.LAUNCHES[name] > before[name]
+    if case == "dict_100k":  # one launch a container
+        assert kernels.LAUNCHES[name] == before[name] + 1

@@ -116,6 +116,44 @@ def _sort_rows(span, rows, m):
     return x + np.uint64(5 << 40) if span == "u32" else x
 
 
+def _span_rows(kind, rows, m):
+    """(rows, m) uint64 keys whose largest row span is set by `kind`: all
+    equal, exactly 2^32 - 1 or 2^32 (the boundary of the two key widths),
+    the full 64 bits, or keys at the largest u64; ties in every row."""
+    if kind == "all_equal":
+        return np.full((rows, m), 0xDEADBEEF12345678, np.uint64)
+    if kind == "largest_u64":
+        x = np.full((rows, m), 2**64 - 1, np.uint64)
+        x[:, ::7] = RNG.integers(2**63, 2**64 - 1, x[:, ::7].shape, dtype=np.uint64)
+        return x
+    top = {"span_2^32-1": 2**32 - 1, "span_2^32": 2**32, "full_64": 2**64 - 1}[kind]
+    base = np.uint64(0 if kind == "full_64" else 3 << 50)
+    x = RNG.integers(0, top, (rows, m), dtype=np.uint64, endpoint=True)
+    x[:, : m // 3] = x[:, :1]
+    x[0, 0], x[0, -1] = 0, top  # the span is reached in row 0
+    return x + base
+
+
+RADIX_CASES = [(kind, 3, m) for kind in ("full_64", "span_2^32-1") for m in (1, 3, 1000, 42_200)] + [
+    (kind, 2, 5000) for kind in ("all_equal", "span_2^32", "largest_u64")]
+
+
+@pytest.mark.parametrize("kind,rows,m", RADIX_CASES)
+def test_row_sort_radix_plain_is_numpy_sort(kind, rows, m):
+    """Exact: K8's steps in plain torch (span, key width, passes, per-digit
+    stable scatter) equal row_sort_plain and numpy's sort, on rows of 1 to
+    42,200 keys, on both sides of the u32/u64 boundary, full 64-bit spans
+    and the largest u64."""
+    x = _span_rows(kind, rows, m)
+    t = torch.from_numpy(x.view(np.int64))
+    got = rs.row_sort_radix_plain(t)
+    assert np.array_equal(got.numpy().view(np.uint64), np.sort(x, 1))
+    assert torch.equal(got, rs.row_sort_plain(t))
+    want = {"all_equal": (4, 0), "span_2^32-1": (4, 4), "span_2^32": (8, 5), "full_64": (8, 8)}.get(kind)
+    if want and m > 1:  # a row of one key spans nothing
+        assert rs.radix_plan(int((x.max(1) - x.min(1)).max())) == want
+
+
 @pytest.mark.parametrize("span", ["u32", "u64"])
 def test_row_sort_on_cpu_is_numpy_sort(span):
     """Exact: on the CPU, K8's wrapper and sort_latents return numpy's sort
@@ -185,7 +223,7 @@ def test_kernels_match_plain_versions_on_card(case):
 @pytest.mark.parametrize("span", ["u32", "u64"])
 def test_row_sort_matches_plain_version_on_card(span, m):
     """Exact: K8 on the card equals its plain version, from one tile to rows
-    that take the global passes, on keys of either width."""
+    of many tiles, on keys of either width."""
     _need_card()
     x = torch.from_numpy(_sort_rows(span, 3, m).view(np.int64)).cuda()
     before = kernels.LAUNCHES["row_sort"]
@@ -193,6 +231,28 @@ def test_row_sort_matches_plain_version_on_card(span, m):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["row_sort"] == before + 1
     assert torch.equal(got, rs.row_sort_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,m", RADIX_CASES + [("span_2^32-1", 96, 42_200), ("full_64", 2, (1 << 20) + 3),
+                                                       ("span_2^32", 5, 4097), ("all_equal", 1, 2)])
+def test_radix_row_sort_matches_plain_on_card(kind, rows, m):
+    """Exact: the radix K8 on the card, one counted span call and one
+    counted sort call, equals
+    row_sort_plain and its own steps in plain torch: both key widths, the
+    boundary spans, rows of any length (not powers of two, one key, the
+    stage-1 sample rows of 42,200, past 2^20) and equal keys (no pass)."""
+    _need_card()
+    x = torch.from_numpy(_span_rows(kind, rows, m).view(np.int64)).cuda()
+    keep = x.clone()
+    before = dict(kernels.LAUNCHES)
+    got = rs.row_sort(x)
+    torch.cuda.synchronize()
+    for name in ("row_sort", "row_sort_span"):  # the span's kernels, then the passes'
+        assert kernels.LAUNCHES[name] == before[name] + (m > 1)
+    assert torch.equal(got, rs.row_sort_plain(x))
+    assert torch.equal(got.cpu(), rs.row_sort_radix_plain(x.cpu()))
+    assert torch.equal(x, keep)
 
 
 @pytest.mark.gpu
