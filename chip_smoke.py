@@ -44,7 +44,9 @@ Phases, one line each (numbers beside the card's name and power limit):
                   decode  the container decoded on the card through K1 and
                           K2 by decode_container_tensor, compared with the
                           source; K1 and K2 held against their plain versions
-                          at the main path's shapes; timed with CUDA events
+                          at the main path's shapes; timed with CUDA events,
+                          K2 also on the card alone, beside the inputs of
+                          its accounting (ts, staging words, coded bits)
                   encode  the same numbers encoded to a file image on the
                           card by encode_container_image_device: training on
                           the card (plan_encode_device: K8 sorts every
@@ -52,7 +54,9 @@ Phases, one line each (numbers beside the card's name and power limit):
                           then K5, K6 and K7; compared byte for byte with the
                           decode phase's container; K5-K9 held against their
                           plain versions at these shapes (K8 and K9 on the
-                          calls the encode made); the device part, the
+                          calls the encode made); K5 also timed on the card
+                          alone, beside ts, b_pad and the ANS and offset
+                          bits a number; the device part, the
                           training and each step timed with CUDA events, K8
                           three ways: as called, its sort launch alone on
                           prepared keys, and torch.sort, and one call's
@@ -61,9 +65,10 @@ Phases, one line each (numbers beside the card's name and power limit):
                   delta) with 2M-number chunks, as bench.py encodes them:
                   trained on the card (stage-1 candidate sorts and walks,
                   then each chunk's), the image compared with the port's
-                  container_compress bytes, every K8 and K9 call held
-                  against its plain version and each K8 call timed three
-                  ways as in phase 5, the chosen deltas printed
+                  container_compress bytes, every K8 and K9 call and K5,
+                  K6 and K7 on the encode's launch held against their plain
+                  versions, each K8 call timed three ways as in phase 5,
+                  the chosen deltas printed
   5b. breadth at full size
                   the PCT inputs of bench_matrix.py's make_configs (seed
                   1234, regenerated here): wrapped_lookback_multipage (32M
@@ -73,9 +78,10 @@ Phases, one line each (numbers beside the card's name and power limit):
                   K1, K2, K4 with the table in shared memory), each encoded by the
                   host container_compress, decoded on the card by
                   decode_container_tensor, compared with the source and
-                  timed; K3 and K4 held against their plain versions on
-                  every call the decode made, and timed a call and on the
-                  card alone; K4 makes one launch a decode, timed beside one
+                  timed; K1 and K2 on every launch and K3 and K4 on every
+                  call the decode made held against their plain versions,
+                  K3 and K4 timed a call and on the card alone; K4 makes
+                  one launch a decode, timed beside one
                   torch.take over the container's concatenated table (its
                   library_ms) and beside a torch.take a chunk. Two more
                   Dict containers (16M i64, seed 1235) put K4 where its
@@ -107,6 +113,9 @@ Phases, one line each (numbers beside the card's name and power limit):
   7. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
+     K2's and K5's rows add `device_ms` (the card alone) and the label
+     `"status": "redesigned"`; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
+     (torch.gather on the card alone).
 
 Launch counts are set to 0 just before each main-path run, and before
 phase 6's runs at the experiments' shapes, and read just after. Any
@@ -265,6 +274,18 @@ def capturing(mod, names=("lookback_recon", "dict_join_chunks")):
     finally:
         for k, fn in saved.items():
             setattr(mod, k, fn)
+
+
+def check_launches(cd, plan, arrays) -> None:
+    """K1 and K2 against their plain versions on every launch of an
+    uploaded plan."""
+    for lkey, cp in plan.launches.items():
+        a = arrays.launches[lkey]
+        stg = cd.section_gather(arrays.words, a["word0"], cp.stage_words)
+        check_equal(stg, cd.section_gather_plain(arrays.words, a["word0"], cp.stage_words))
+        args = (stg, a["word0"], a["curs"], a["states0"], a["body_n"], a["table_id"],
+                a["node"], a["lower"], a["moment0"], cp.page_n, cp.fuse)
+        check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args))
 
 
 def check_breadth_calls(dec, calls) -> float:
@@ -723,13 +744,7 @@ def main() -> int:
         data = pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
         plan = cd.plan_container(data)
         arrays = cd.upload_plan(plan, dev)
-        for lkey, cp in plan.launches.items():
-            a = arrays.launches[lkey]
-            stg = cd.section_gather(arrays.words, a["word0"], cp.stage_words)
-            check_equal(stg, cd.section_gather_plain(arrays.words, a["word0"], cp.stage_words))
-            args = (stg, a["word0"], a["curs"], a["states0"], a["body_n"], a["table_id"],
-                    a["node"], a["lower"], a["moment0"], cp.page_n, cp.fuse)
-            check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args))
+        check_launches(cd, plan, arrays)
         got = cd.to_numbers(cd.decode_plan(plan, arrays), plan.nt)
         if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
             raise AssertionError(f"{case}: decode differs from the source")
@@ -753,6 +768,7 @@ def main() -> int:
         if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
             raise AssertionError(f"{case} p{page_n}: decode differs from the source")
         check_breadth_calls(dops, calls)
+        check_launches(cd, plan, arrays)
         ch = plan.chunks[0]
         want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join_chunks": ch.mode_kind == "dict"}
         for k, expected in want.items():
@@ -763,7 +779,7 @@ def main() -> int:
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
-              f"{sorted(routes) or 'no K3/K4'} == plain", flush=True)
+              f"K1, K2 and {sorted(routes) or 'no K3/K4'} == plain", flush=True)
     if len(seen) != 4:
         raise AssertionError(f"phase 3b did not run both routes of K3 and of K4: {sorted(seen)}")
     rng = np.random.default_rng(SEED + 4)
@@ -895,6 +911,7 @@ def main() -> int:
     dec = time_ms(lambda: cd.decode_plan(plan, arrays))
     k1 = time_ms(lambda: cd.section_gather(words, a["word0"], W))
     k2 = time_ms(lambda: cd.chain_decode(*args))
+    k2_alone = time_ms(lambda: cd.chain_decode(*args), hold=True)[0]
     k1_plain = time_ms(lambda: cd.section_gather_plain(words, a["word0"], W), runs=3, warmup=1)
     k2_plain = time_ms(lambda: cd.chain_decode_plain(*args), runs=3, warmup=1)
     # yardstick for K1: one torch.take over a precomputed index (the index is not timed)
@@ -922,8 +939,11 @@ def main() -> int:
     print(f"main: K1 section_gather {k1[0]:.4f} ms (min {k1[1]:.4f}, max {k1[2]:.4f}), "
           f"plain {k1_plain[0]:.3f} ms, torch.take {k1_lib[0]:.4f} ms, bound {k1_bound:.4f} ms "
           f"[{card}]", flush=True)
-    print(f"main: K2 chain_decode {k2[0]:.4f} ms (min {k2[1]:.4f}, max {k2[2]:.4f}), "
-          f"plain {k2_plain[0]:.1f} ms, bound {k2_bound:.4f} ms [{card}]", flush=True)
+    print(f"main: K2 chain_decode {k2[0]:.4f} ms (min {k2[1]:.4f}, max {k2[2]:.4f}; card alone {k2_alone:.4f}), "
+          f"plain {k2_plain[0]:.1f} ms, bound {k2_bound:.4f} ms [{card}]",
+          flush=True)
+    print(f"main: K2's accounting inputs: ts {a['node'].shape[1]}, stage_words {W}, {n_chains} chains of "
+          f"{cp.page_n} numbers, {len(data) * 8 / N:.3f} container bits a number [{card}]", flush=True)
     del arrays, a, words, stg, args, idx, words_ext, col
     torch.cuda.empty_cache()
 
@@ -1013,6 +1033,7 @@ def main() -> int:
 
     enc = time_ms(lambda: asm.run_image(iplan, ia))
     k5 = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)))
+    k5_alone = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)), hold=True)[0]
     glue = time_ms(lambda: ce.section_cursors(st["p1"]))
     k6 = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], st["curs"], L.sec_words))
     prep_t = time_ms(lambda: asm.prepare_image(iplan, ia, st["sections"], st["states"],
@@ -1071,8 +1092,12 @@ def main() -> int:
     print(f"main: encode device part (K5, glue, K6, prep, K7) {enc[0]:.3f} ms median "
           f"(min {enc[1]:.3f}, max {enc[2]:.3f}, {RUNS} runs), {enc_gbps:.2f} GB/s of input, "
           f"byte bound {enc_bound:.4f} ms = {enc_bound / enc[0]:.1%} [{card}]", flush=True)
-    print(f"main: K5 bin_ans_encode {k5[0]:.4f} ms (min {k5[1]:.4f}, max {k5[2]:.4f}), "
-          f"plain {k5_plain[0]:.1f} ms, bound {k5_bound:.4f} ms [{card}]", flush=True)
+    print(f"main: K5 bin_ans_encode {k5[0]:.4f} ms (min {k5[1]:.4f}, max {k5[2]:.4f}; card alone {k5_alone:.4f}), "
+          f"plain {k5_plain[0]:.1f} ms, bound {k5_bound:.4f} ms [{card}]",
+          flush=True)
+    print(f"main: K5's accounting inputs: ts {L.nexts.shape[1]}, b_pad {b_pad}, {syms} coded numbers, "
+          f"{int(st['ans_len'].sum()) / syms:.3f} ANS bits and {int(st['off_len'].sum()) / syms:.3f} offset bits "
+          f"a number [{card}]", flush=True)
     print(f"main: glue section_cursors {glue[0]:.4f} ms (min {glue[1]:.4f}, max {glue[2]:.4f}) "
           f"[{card}]", flush=True)
     print(f"main: K6 section_pack {k6[0]:.4f} ms (min {k6[1]:.4f}, max {k6[2]:.4f}), "
@@ -1122,6 +1147,7 @@ def main() -> int:
         dec5 = time_ms(lambda: cd.decode_plan(plan5, arrays5))
         k12 = time_ms(lambda: [cd.run_launch(cp, arrays5.words, arrays5.launches[lk])
                                       for lk, cp in plan5.launches.items()])
+        check_launches(cd, plan5, arrays5)  # after the timings: the plain K2 precedes no measurement
         kern = getattr(dops, kname)
         plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_chunks_plain
         k_t = time_ms(lambda: [kern(*a) for a in kcalls])
@@ -1203,13 +1229,17 @@ def main() -> int:
     t_plan_c = time.time() - t0
     if plan_c.trained_on != "device":
         raise AssertionError(f"the ChunkConfig() encode trained on the {plan_c.trained_on}")
+    ca = asm.upload_image(plan_c, dev)
+    check_encode_steps(ce, asm, plan_c, ca)
+    del ca
     deltas_c = {}
     for job in plan_c.enc.jobs:
         de = job.cc.meta.delta_encoding
         key = f"{job.cc.meta.mode.kind}/{de.kind}" + (f" {de.order}" if de.order else "")
         deltas_c[key] = deltas_c.get(key, 0) + 1
     print(f"auto: {N} taxi-like i64 at ChunkConfig(), 2M-number chunks: {len(data_c)} bytes, host encode "
-          f"{t_enc_c:.1f} s; image == container_compress bytes; launches {launches_c}; chunks {deltas_c}; "
+          f"{t_enc_c:.1f} s; image == container_compress bytes; K5, K6, K7 == plain; launches {launches_c}; "
+          f"chunks {deltas_c}; "
           f"encode_container_image_device {t_img_c:.1f} s, plan_image {t_plan_c:.3f} s (host clock, "
           f"training included) [{card}]", flush=True)
     print(f"auto: K8 calls {sorts_c}, K9 calls {walks_c} == plain; K9 "
@@ -1243,11 +1273,11 @@ def main() -> int:
         {"name": "chain_decode", "route": "cuda", "source": "pcodec_tpu_torch/csrc/chain_decode.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:222", "launches": dec_launches["chain_decode"],
          "max_abs_err": k2_err, "ms": k2[0], "plain_ms": k2_plain[0], "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None, "device_ms": k2_alone, "status": "redesigned"},
         {"name": "bin_ans_encode", "route": "cuda", "source": "pcodec_tpu_torch/csrc/bin_ans_encode.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:142", "launches": enc_launches["bin_ans_encode"],
          "max_abs_err": st["err"]["bin_ans_encode"], "ms": k5[0], "plain_ms": k5_plain[0], "bound_ms": k5_bound,
-         "bound_by": k5_by, "library_ms": None},
+         "bound_by": k5_by, "library_ms": None, "device_ms": k5_alone, "status": "redesigned"},
         {"name": "section_pack", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_pack.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:268", "launches": enc_launches["section_pack"],
          "max_abs_err": st["err"]["section_pack"], "ms": k6[0], "plain_ms": k6_plain[0], "bound_ms": k6_bound,
@@ -1278,7 +1308,8 @@ def main() -> int:
                      "replaces": replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"][0], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-                     "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name]})
+                     "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name],
+                     **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

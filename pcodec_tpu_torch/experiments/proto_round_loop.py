@@ -125,7 +125,8 @@ def taa_inputs(device):
 
 def check_taa(device="cuda") -> dict:
     """Check A on the card: route gather_row against its plain version and
-    numpy's take_along_axis, and timed beside torch.gather."""
+    numpy's take_along_axis, and timed beside torch.gather (a call and
+    the card alone)."""
     dev = common.cuda_device(device)
     n0 = kernels.LAUNCHES["gather_row"]
     tbl, idx = taa_inputs(dev)
@@ -137,10 +138,11 @@ def check_taa(device="cuda") -> dict:
     t = common.kernel_ms(lambda: micro_gather.row_gather(tbl, idx))
     plain = common.time_plain_ms(lambda: micro_gather.row_gather_plain(tbl, idx))
     idx64 = idx.long()
-    lib = common.time_ms(lambda: torch.gather(tbl, 1, idx64))
+    lib, lib_alone = common.kernel_ms(lambda: torch.gather(tbl, 1, idx64))
     return common.row("gather_row", "(8, 128)", kernels.LAUNCHES["gather_row"] - n0, t, plain[0], lib[0],
                       common.bound(common.nbytes(tbl, idx, out)),
-                      "take_along_axis semantics OK (per-row lane gather)")
+                      f"take_along_axis semantics OK (per-row lane gather); torch.gather card alone {lib_alone:.4f} ms",
+                      library_device_ms=lib_alone)
 
 
 def measure(with_emit: bool, n_tiles: int, device="cuda", rounds: int = ROUNDS) -> dict:

@@ -12,8 +12,10 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      sections out of the container into a chain-major
                      staging buffer
     chain_decode     K2, CUDA (csrc/chain_decode.cu): one thread per chain,
-                     4-stream tANS + offsets + lower; in its fused form it also
-                     applies the order-1 delta and the Classic join
+                     4-stream tANS + offsets + lower, each batch's ANS and
+                     offset sections read as two in-order bit streams; in its
+                     fused form it also applies the order-1 delta and the
+                     Classic join
     post             per chunk: the `delta` var first, then `primary` and
                      `secondary`; delta reconstruction (consecutive and conv1
                      in plain torch, lookback through K3), then each

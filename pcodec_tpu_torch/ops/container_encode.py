@@ -404,6 +404,49 @@ def bin_ans_encode_plain(latents, body_n, table_id, states0, nexts, lowers, t1, 
     return p1, offsets, st
 
 
+def bin_ans_encode_tiled_plain(latents, body_n, table_id, states0, nexts, lowers, t1, t2,
+                               tile_rounds: int = kernels.K5_TILE_ROUNDS):
+    """K5's steps in plain torch, for the CPU tests: tiles of tile_rounds
+    rounds from the last to the first, each a search step (every symbol's
+    bin and offset at once) and then the walk of each (chain, stream) back
+    through the tile's symbols of its stream, the states carried from tile
+    to tile. Arguments and result as bin_ans_encode_plain."""
+    dev = latents.device
+    i64 = torch.int64
+    n, page_n = latents.shape
+    ts, b_pad = nexts.shape[1], lowers.shape[1]
+    tile = 4 * tile_rounds
+    valid = torch.arange(page_n, device=dev)[None, :] < body_n[:, None]
+    low_x = (lowers ^ _MIN64).reshape(-1)
+    base = (table_id * b_pad)[:, None]
+    nexts_f = nexts.reshape(-1).to(i64)
+    nbase = (table_id * ts)[:, None]
+    st = states0[:, None].expand(n, 4).clone()
+    p1 = torch.empty((n, page_n), dtype=torch.int32, device=dev)
+    offsets = torch.empty((n, page_n), dtype=i64, device=dev)
+    for t in range(page_n // tile - 1, -1, -1):
+        cols = slice(t * tile, (t + 1) * tile)
+        lat = latents[:, cols]
+        v = valid[:, cols]
+        sym = torch.zeros_like(lat)  # search: the last bin with lower <= latent
+        step = b_pad >> 1
+        while step:
+            sym = torch.where(low_x[base + sym + step] <= lat ^ _MIN64, sym + step, sym)
+            step >>= 1
+        offsets[:, cols] = torch.where(v, lat - lowers.reshape(-1)[base + sym], 0)
+        a = t1.reshape(-1).to(i64)[base + sym]
+        b2 = t2.reshape(-1).to(i64)[base + sym]
+        for r in range(tile_rounds - 1, -1, -1):  # walk: the 4 streams of every chain
+            q = slice(4 * r, 4 * r + 4)
+            ren = (a[:, q] & 15) + (st >= a[:, q] >> 11).to(i64)
+            val = st & ((1 << ren) - 1)
+            nx = nexts_f[nbase + (b2[:, q] + (st >> ren)).clamp(0, ts - 1)]
+            p1[:, t * tile + 4 * r : t * tile + 4 * r + 4] = torch.where(
+                v[:, q], val | (ren << 15) | (((a[:, q] >> 4) & 127) << 19), 0).to(torch.int32)
+            st = torch.where(v[:, q], nx, st)
+    return p1, offsets, st
+
+
 def bin_ans_encode(latents, body_n, table_id, states0, nexts, lowers, t1, t2):
     """K5: dissect every chain of a launch; arguments as
     bin_ans_encode_plain. Each block of CHAINS_PER_BLOCK chains must share

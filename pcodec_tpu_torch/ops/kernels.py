@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 CHAINS_PER_BLOCK = 128  # must match csrc/chain_decode.cu and csrc/bin_ans_encode.cu
+K5_TILE_ROUNDS = 8  # rounds a chain K5 searches, then walks, at a time; must match csrc/bin_ans_encode.cu
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")

@@ -154,6 +154,22 @@ def test_launch_matches_jax_launch(name):
     assert compared == {ci for ci, job in enumerate(plan.jobs) if not job.trivial} != set()
 
 
+@pytest.mark.parametrize("name", ["i64_o1_ragged_multichunk", "i64_64bit_offsets", "one_bin_with_offsets"])
+def test_tiled_plain_k5_matches_plain_on_jax_launch(name):
+    """Exact: on the JAX package's own launches (`_build_launch_args`,
+    carried over by enc_launch_from_jax), K5's steps in plain torch (tiles
+    of 8 rounds, and of 1 and 64) equal the plain version."""
+    nums, order, mode, level, page_n, chunk_n = CASES[name]
+    groups = pe._plan_encode(nums, _configs(order, mode, level)[1], page_n, chunk_n)[4]
+    for schema, _, dev_args in pe._build_launch_args(groups):
+        a = ce.upload_launch(ce.enc_launch_from_jax(schema, [np.asarray(x) for x in dev_args]), "cpu")
+        args = (a["latents"], a["body_n"], a["table_id"], a["states0"], a["nexts"], a["lowers"], a["t1"], a["t2"])
+        want = ce.bin_ans_encode_plain(*args)
+        for rounds in (8, 1, 64):
+            for got, w in zip(ce.bin_ans_encode_tiled_plain(*args, tile_rounds=rounds), want):
+                assert torch.equal(got, w)
+
+
 def _launch_outputs(nums, cfg, page_n, chunk_n):
     plan = ce.plan_encode(nums, cfg, page_n, chunk_n, "cpu")
     L = ce.build_encode_launch(plan)

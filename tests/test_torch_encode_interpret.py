@@ -5,7 +5,8 @@ One small launch: 700 i64 numbers at page_n 256 (the input of
 tests/test_pallas_encode.py::TestEncodeInterpret::test_smoke_interpret).
 JAX runs `_run_launch_device` as its two halves, `_run_launch_eb` and
 `_run_launch_ec` with the same cursor glue in between, so that p1 and the
-offsets can be compared too. Every comparison is exact. The file stands
+offsets can be compared too; K5's steps in plain torch are held to the
+same bits. Every comparison is exact. The file stands
 alone so that a worker of its own can run it (interpret mode is slow).
 """
 
@@ -53,3 +54,9 @@ def test_plain_encode_matches_jax_pallas_kernels_in_interpret_mode():
     assert np.array_equal(total_bits.numpy(), np.asarray(start[:, -1] + total[:, -1]))
     assert np.array_equal(secs.numpy(), np.asarray(sections).reshape(T * 256, -1))
     assert int(total_bits.sum()) > 0
+    # K5's steps in plain torch (tiles of 8 rounds) give JAX's bits too
+    t1, t_off, t_st = ce.bin_ans_encode_tiled_plain(a["latents"], a["body_n"], a["table_id"], a["states0"],
+                                                    a["nexts"], a["lowers"], a["t1"], a["t2"])
+    assert np.array_equal(t1.numpy(), ce._from_round_layout(np.asarray(p1)))
+    assert np.array_equal(t_off.numpy().view(np.uint64), lo | (hi << np.uint64(32)))
+    assert np.array_equal(t_st.numpy(), st4)

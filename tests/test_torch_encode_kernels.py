@@ -184,6 +184,59 @@ def _big_table_launch(device):
     return L, ce.upload_launch(L, device)
 
 
+def _random_k5_launch(case, device):
+    """A launch of random latents around bins of the case's offset widths
+    (0, 33 and 64 bits among them), bins padded to a power of two with
+    copies of the last, ragged body lengths (0, 1, 3, 255, 257, not
+    multiples of 4 or of 256) and two tables, a group of 128 chains each.
+    The largest table (2^14 states, 2^14 bins) takes K5's global-memory
+    route, the others its shared-memory one."""
+    n_bins, ans_log = {"ob_0_33_64": (3, 2), "bins_256": (256, 10), "bins_4096": (4096, 12),
+                       "bins_16384_global": (1 << 14, 14)}[case]
+    rng = np.random.default_rng(n_bins)
+    n, page_n = 256, 512
+    tables = []
+    for t in range(2):
+        obs = np.resize(np.array([0, 33, 64, 5, 20], np.uint32), n_bins)
+        lowers = np.sort(rng.choice(2**62, n_bins, replace=False)).astype(np.uint64) << np.uint64(1)
+        lowers[0] = 0
+        weights = np.ones(n_bins, np.uint32)
+        weights[0] += (1 << ans_log) - n_bins
+        nexts, lo, t1, t2, ts = ce.build_enc_tables(ChunkLatentVarMeta(ans_log, Bins(U64, weights, lowers, obs)))
+        b_pad = 1 << (n_bins - 1).bit_length()
+        pad = lambda x: np.concatenate([x, np.repeat(x[-1:], b_pad - n_bins)])
+        tables.append((nexts.astype(np.int32), pad(lo), pad(t1).astype(np.int32), pad(t2).astype(np.int32), lowers))
+    lat = np.empty((n, page_n), np.uint64)
+    for c in range(n):
+        lowers = tables[c // 128][4]
+        lat[c] = lowers[rng.integers(0, n_bins, page_n)] + rng.integers(0, 2**33, page_n, dtype=np.uint64)
+    body_n = rng.integers(0, page_n + 1, n)
+    body_n[:8] = [0, 1, 3, 255, 257, 4 * 77 + 2, page_n, page_n - 1]
+    L = ce.EncodeLaunch(
+        page_n=page_n, latents=lat, body_n=body_n.astype(np.int64), table_id=np.repeat(np.arange(2), 128),
+        states0=rng.integers(ts, 2 * ts, n).astype(np.int64), nexts=np.stack([t[0] for t in tables]),
+        lowers=np.stack([t[1] for t in tables]), t1=np.stack([t[2] for t in tables]),
+        t2=np.stack([t[3] for t in tables]), sec_words=page_n * 80 // 32 + 8,
+    )
+    return ce.upload_launch(L, device)
+
+
+K5_CASES = ["ob_0_33_64", "bins_256", "bins_4096", "bins_16384_global"]
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_bin_ans_encode_tiled_plain_matches_plain(case):
+    """Exact: K5's steps in plain torch (tiles of 8 rounds from the last,
+    each a search step and a walk of every stream) equal the plain version
+    on random launches: offsets of 0, 33 and 64 bits, ragged body lengths,
+    two tables, up to the largest table."""
+    a = _random_k5_launch(case, "cpu")
+    want = ce.bin_ans_encode_plain(*_k5_args(a))
+    for got, w in zip(ce.bin_ans_encode_tiled_plain(*_k5_args(a)), want):
+        assert torch.equal(got, w)
+    assert int(((want[0] >> 19) & 127).max()) == 64 and bool((want[0] == 0).any())
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -275,3 +328,22 @@ def test_encode_wrappers_refuse_wrong_arguments_on_card():
     a["table_id"][5] = 1  # a block of chains that does not share one table
     with pytest.raises(ValueError, match="share one table"):
         ce.bin_ans_encode(*_k5_args(a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K5_CASES)
+def test_bin_ans_encode_matches_plain_on_random_launch_on_card(case):
+    """Exact: K5 on the card (one counted launch) equals its plain version
+    and its steps in plain torch on random launches: offsets of 0, 33 and
+    64 bits, ragged body lengths and empty chains, two tables, tables in
+    shared memory up to 2^12 states and the largest one in global memory."""
+    _need_card()
+    a = _random_k5_launch(case, "cuda")
+    before = kernels.LAUNCHES["bin_ans_encode"]
+    got = ce.bin_ans_encode(*_k5_args(a))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bin_ans_encode"] == before + 1
+    for x, y in zip(got, ce.bin_ans_encode_plain(*_k5_args(a))):
+        assert torch.equal(x, y)
+    for x, y in zip(got, ce.bin_ans_encode_tiled_plain(*_k5_args(a))):
+        assert torch.equal(x, y)

@@ -81,6 +81,55 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert kernels.LAUNCHES == before  # plain versions launch nothing
 
 
+def _random_chains(ts, fuse, device):
+    """A synthetic K2 launch: random staging words and two random tables of
+    ts states (ANS widths 0-15, offset widths 0, 1, 33, 63 and 64, and 65
+    and 127 at states 0 and 1: wider than the 64 bits an offset keeps),
+    start states in and past the table, ragged body lengths (0, 1, 3, 255,
+    257, not multiples of 4 or of 256: the chains past them inert), and
+    cursors anywhere in the row: chain 0's sections start at its last bit
+    and chain 1's at its last word, so their reads run past the row's end;
+    chains 8 and 9 have every directory cursor past +-2^30 bits."""
+    rng = np.random.default_rng(ts + 7 * fuse)
+    n, page_n, W = 256, 512, 48
+    B = page_n // 256
+    stg = rng.integers(-(2**31), 2**31, (n, W)).astype(np.int32)
+    word0 = rng.integers(0, 5000, n)
+    rel = rng.integers(0, W * 32, (n, 2 * B))
+    rel[0], rel[1] = W * 32 - 1, (W - 1) * 32
+    rel[8] = [2**31 + 13, -(2**31) - 5, 2**40 + 7, -(2**35) + 3]
+    rel[9] = [-(2**30) - 1, 2**30 + 33, -(2**44) - 30, 2**33 + 31]
+    obs = np.array([0, 1, 33, 63, 64])[rng.integers(0, 5, (2, ts))]
+    obs[:, :2] = [65, 127]
+    node = rng.integers(0, 16, (2, ts)) | (obs << 4) | (rng.integers(0, ts, (2, ts)) << 11)
+    body_n = rng.integers(0, page_n + 1, n)
+    body_n[:10] = [page_n, page_n - 1, 0, 1, 3, 255, 257, 4 * 77 + 2, page_n, page_n]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (t(stg), t(word0), t(rel + (word0 << 5)[:, None]), t(rng.integers(0, ts + 3, (n, 4))), t(body_n),
+            t(np.repeat(np.arange(2), 128)), t(node.astype(np.uint32).view(np.int32)),
+            t(rng.integers(-(2**63), 2**63 - 1, (2, ts))), t(rng.integers(-(2**63), 2**63 - 1, n)), page_n, fuse)
+
+
+RANDOM_CHAINS = [(ts, fuse) for ts in (16, 1024, 1 << 14) for fuse in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("fuse", [0, 1, 2])
+def test_far_cursors_decode_as_at_their_clamped_bits(fuse):
+    """Exact: chain_decode_plain decodes chains whose directory cursors lie
+    past +-2^30 bits as it decodes them with each such cursor moved to
+    +-2^30 keeping its low 5 bits, which is how K2 keeps its bit positions
+    in 32 bits: a batch read from there reads only the row's last or first
+    word, at the same shift."""
+    args = list(_random_chains(16, fuse, "cpu"))
+    base = (args[1] << 5)[:, None]
+    rel, far = args[2] - base, 1 << 30
+    moved = torch.where(rel > far, far + (rel & 31), torch.where(rel < -far, -far + (rel & 31), rel))
+    assert int((moved != rel).sum()) == 8
+    want = cd.chain_decode_plain(*args)
+    args[2] = moved + base
+    assert torch.equal(cd.chain_decode_plain(*args), want)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -118,3 +167,21 @@ def test_kernel_wrappers_refuse_wrong_arguments_on_card():
     word0 = torch.zeros(8, dtype=torch.int64, device="cuda")
     with pytest.raises(ValueError):
         cd.section_gather(words, word0, 8)  # words must be int32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,fuse", RANDOM_CHAINS)
+def test_chain_decode_matches_plain_on_random_chains_on_card(ts, fuse):
+    """Exact: K2 on the card (one counted launch) equals its plain version
+    on synthetic chains: FUSE 0, 1 and 2, offsets of 0 to 64 bits and
+    wider widths (65, 127) that reload the offset reader, ragged and inert
+    chains, sections that end at the row's last word, directory cursors
+    past +-2^30 bits, and tables up to 2^14 states, the largest K2 holds in
+    shared memory."""
+    _need_card()
+    args = _random_chains(ts, fuse, "cuda")
+    before = kernels.LAUNCHES["chain_decode"]
+    got = cd.chain_decode(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chain_decode"] == before + 1
+    assert torch.equal(got, cd.chain_decode_plain(*args))
