@@ -2,6 +2,13 @@
 """Build the port's CUDA kernels and drive its main path on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the root of the repository)
+    python3 chip_smoke.py --lookback-decode
+                                   only the 32M lookback decode of phase 5b:
+                                   a call's and the card's time and the CUDA
+                                   kernels and copies torch.profiler counts in
+                                   one decode (through the package beside
+                                   the script, so a copy of the script in
+                                   another tree measures that tree)
 
 Phases, one line each (numbers beside the card's name and power limit):
   1. card         nvidia-smi name and power limit, torch's device name
@@ -18,9 +25,11 @@ Phases, one line each (numbers beside the card's name and power limit):
                   page, plus a lookback container whose pages are too long
                   for shared memory: the decode equals the source, and every
                   K3 and K4 call it makes equals the plain version bit for
-                  bit, K3 in shared and in global memory, K4 (one call a
-                  decode, every Dict chunk of the container) with its table
-                  in shared and in global memory; the FloatMult joins on the
+                  bit, K3 in shared memory (one call a decode, every lookback
+                  var of the container) and in global memory (a call a
+                  chunk), K4 (one call a decode, every Dict chunk of the
+                  container) with its table in shared and in global memory;
+                  the FloatMult joins on the
                   card equal the CPU's on NaN, inf and subnormal multipliers
                   and bases for f16, f32 and f64, and where the card's
                   native f16/f32 multiply differs from the CPU's is printed
@@ -54,9 +63,11 @@ Phases, one line each (numbers beside the card's name and power limit):
                           then K5, K6 and K7; compared byte for byte with the
                           decode phase's container; K5-K9 held against their
                           plain versions at these shapes (K8 and K9 on the
-                          calls the encode made); K5 also timed on the card
-                          alone, beside ts, b_pad and the ANS and offset
-                          bits a number; the device part, the
+                          calls the encode made); K5 and K6 also timed on the
+                          card alone, beside ts, b_pad and the ANS and offset
+                          bits a number, K6 at each block size of its sweep,
+                          the plain section_cursors (the glue K6 took in)
+                          timed beside it; the device part, the
                           training and each step timed with CUDA events, K8
                           three ways: as called, its sort launch alone on
                           prepared keys, and torch.sort, and one call's
@@ -80,8 +91,12 @@ Phases, one line each (numbers beside the card's name and power limit):
                   decode_container_tensor, compared with the source and
                   timed; K1 and K2 on every launch and K3 and K4 on every
                   call the decode made held against their plain versions,
-                  K3 and K4 timed a call and on the card alone; K4 makes
-                  one launch a decode, timed beside one
+                  K3 and K4 timed a call and on the card alone; K3 and K4
+                  each make one launch a decode (K3's blocks swept over
+                  128 to 1,024 threads, its time split into loads, rounds
+                  and stores, and torch.profiler's count of the CUDA
+                  kernels one lookback decode launches printed); K4 is
+                  timed beside one
                   torch.take over the container's concatenated table (its
                   library_ms) and beside a torch.take a chunk. Two more
                   Dict containers (16M i64, seed 1235) put K4 where its
@@ -113,8 +128,8 @@ Phases, one line each (numbers beside the card's name and power limit):
   7. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
-     K2's and K5's rows add `device_ms` (the card alone) and the label
-     `"status": "redesigned"`; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
+     The rows of K2, K3, K5 and K6 add `device_ms` (the card alone) and the
+     label `"status": "redesigned"`; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
      (torch.gather on the card alone).
 
 Launch counts are set to 0 just before each main-path run, and before
@@ -253,7 +268,7 @@ def breadth_cases(pt):
 
 
 @contextlib.contextmanager
-def capturing(mod, names=("lookback_recon", "dict_join_chunks")):
+def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_chunks")):
     """Record the arguments of every call of the named kernel wrappers of
     `mod` (K3 and K4 of a decode, K8 and K9 of device training), so the
     kernels can be held against their plain versions at exactly those
@@ -289,10 +304,19 @@ def check_launches(cd, plan, arrays) -> None:
 
 
 def check_breadth_calls(dec, calls) -> float:
-    """K3 and K4 against their plain versions on every recorded call (K4
-    into copies of the output the decode gave it)."""
+    """K3 and K4 against their plain versions on every recorded call (K3's
+    container call and K4 into copies of the outputs the decode gave
+    them)."""
     for args in calls["lookback_recon"]:
         check_equal(dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
+    for bases, desc, desc_dev in calls["lookback_recon_chunks"]:
+        written = set(desc[:, dec.LB_COLS.index("out_base")].tolist())
+        got = [b.clone() if i in written else b for i, b in enumerate(bases)]
+        want = [b.clone() if i in written else b for i, b in enumerate(bases)]
+        dec.lookback_recon_chunks(got, desc, desc_dev)
+        dec.lookback_recon_chunks_plain(want, desc)
+        for i in written:
+            check_equal(got[i], want[i])
     for bases, desc, table, out in calls["dict_join_chunks"]:
         check_equal(dec.dict_join_chunks(bases, desc, table, out.clone()),
                     dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
@@ -301,6 +325,8 @@ def check_breadth_calls(dec, calls) -> float:
 
 def kernel_route(kernels, name, args, smem_entries) -> str:
     """Which route of K3 or K4 a recorded call took."""
+    if name == "lookback_recon_chunks":
+        return "K3 shared memory"
     if name == "lookback_recon":
         return "K3 shared memory" if args[0].shape[1] <= kernels.LB_SMEM_MAX_N else "K3 global memory"
     return "K4 table in shared memory" if args[2].shape[0] <= smem_entries else "K4 table in global memory"
@@ -342,7 +368,7 @@ def matrix_inputs(pt):
     dict100k = big_vals[rng.integers(0, 100_000, n4)]
     lb_cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_LOOKBACK))
     dict_cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(pt.ModeSpec.TRY_DICT))
-    return [("wrapped_lookback_multipage", lookback, lb_cfg, "lookback_recon"),
+    return [("wrapped_lookback_multipage", lookback, lb_cfg, "lookback_recon_chunks"),
             ("dict_i64_100k", dict100k, dict_cfg, "dict_join_chunks"),
             ("dict_i64", dict4, dict_cfg, "dict_join_chunks")]
 
@@ -365,26 +391,33 @@ DICT_SIZE_ROUTES = {"dict_i64_1500": "K4 table in shared memory", "dict_i64_10k"
 K4_SWEEP_N = 16 << 20
 
 
-def k4_grids(kernels, fn, check) -> dict:
-    """fn (K4 calls) timed on the card alone under each grid of K4's
-    shared-memory route, interleaved walk, tile, tile, walk: "walk", blocks
-    that fill the card each walking tiles, and "tile", a block a tile.
-    check() runs once under each grid first. Returns {grid: [ms, ms]}."""
-    keep = kernels.DICT_WALK_ENTRIES
-    got = {"walk": [], "tile": []}
+def sweep(kernels, knob, values, check, fn, hold=True) -> dict:
+    """fn timed under each value of the kernels module's attribute `knob`,
+    in turns up the values and down again (on the card alone with hold,
+    else a call), check() first under each: {value: [ms, ms]}."""
+    keep = getattr(kernels, knob)
+    got = {v: [] for v in values}
     try:
-        for grid in ("walk", "tile", "tile", "walk"):
-            kernels.DICT_WALK_ENTRIES = 0 if grid == "walk" else 1 << 62
-            if not got[grid]:
+        for v in values + values[::-1]:
+            setattr(kernels, knob, v)
+            if not got[v]:
                 check()
-            got[grid].append(time_ms(fn, hold=True)[0])
+            got[v].append(time_ms(fn, hold=hold)[0])
     finally:
-        kernels.DICT_WALK_ENTRIES = keep
+        setattr(kernels, knob, keep)
     return got
 
 
-def grid_line(got) -> str:
-    return ", ".join(f"{g} {' '.join(f'{t:.4f}' for t in ts)} ms" for g, ts in got.items())
+def turns_line(got) -> str:
+    return ", ".join(f"{k} {' '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in got.items())
+
+
+def k4_grids(kernels, fn, check) -> dict:
+    """fn (K4 calls) on the card alone under each grid of K4's
+    shared-memory route: "walk", blocks that fill the card each walking
+    tiles, and "tile", a block a tile. {grid: [ms, ms]}, as sweep."""
+    got = sweep(kernels, "DICT_WALK_ENTRIES", (0, 1 << 62), check, fn)
+    return {"walk": got[0], "tile": got[1 << 62]}
 
 
 def k4_grid_sweep(torch, kernels, dops, dev, smem_entries) -> str:
@@ -399,28 +432,26 @@ def k4_grid_sweep(torch, kernels, dops, dev, smem_entries) -> str:
         want = dops.dict_join_plain(prim, table)
         got = k4_grids(kernels, lambda: dops.dict_join(prim, table),
                        lambda: check_equal(dops.dict_join(prim, table), want))
-        parts.append(f"{D} entries: {grid_line(got)}")
+        parts.append(f"{D} entries: {turns_line(got)}")
     return "; ".join(parts)
 
 
 def stream_accessors(torch, kernels, fn) -> dict:
     """fn's median a call with the binding's stream accessor
     (kernels._stream, through a torch Stream object) and with torch's
-    private raw-handle accessor, interleaved object, raw, raw, object.
-    Returns {accessor: [ms, ms]}."""
-    obj = kernels._stream
-    got = {"object": [], "raw": []}
-    try:
-        for acc in ("object", "raw", "raw", "object"):
-            kernels._stream = obj if acc == "object" else torch._C._cuda_getCurrentRawStream
-            got[acc].append(time_ms(fn)[0])
-    finally:
-        kernels._stream = obj
-    return got
+    private raw-handle accessor: {accessor: [ms, ms]}, as sweep."""
+    obj, raw = kernels._stream, torch._C._cuda_getCurrentRawStream
+    got = sweep(kernels, "_stream", (obj, raw), lambda: None, fn, hold=False)
+    return {"object": got[obj], "raw": got[raw]}
 
 
-def accessor_line(got) -> str:
-    return ", ".join(f"{a} {' '.join(f'{t:.4f}' for t in ts)} ms" for a, ts in got.items())
+def lookback_bytes(dec, desc) -> int:
+    """Bytes K3's function must move for a table: each row's valid numbers'
+    latents and lookbacks (none for a trivial var) and output at 8 B, and
+    its pages' stored state."""
+    c = {k: dec.LB_COLS.index(k) for k in ("lat_base", "lb_base", "n_valid", "n_pages", "state_n")}
+    return sum(8 * r[c["n_valid"]] * (1 + (r[c["lat_base"]] >= 0) + (r[c["lb_base"]] >= 0))
+               + 8 * r[c["n_pages"]] * r[c["state_n"]] for r in desc.tolist())
 
 
 def breadth_kernel_numbers(torch, dec, name, calls):
@@ -429,8 +460,8 @@ def breadth_kernel_numbers(torch, dec, name, calls):
     K4 one torch.take over the concatenated table with each number's global
     index (the yardstick), and one torch.take a chunk (the calls of a join
     launched chunk by chunk), both over indices prepared untimed."""
-    if name == "lookback_recon":  # latents, lookbacks and output at 8 B, and the state
-        return sum(3 * nbytes(a[0]) + nbytes(a[2]) for a in calls), None, None
+    if name == "lookback_recon_chunks":
+        return sum(lookback_bytes(dec, a[1]) for a in calls), None, None
     # 8 B of index in and 8 B of bits out per number, and the table once
     ((bases, desc, table, out),) = calls
     rows = desc.tolist()  # base, start, n, output offset, table offset, D
@@ -476,9 +507,11 @@ def ptxas_lines(reports):
                 name = m.group(1)
                 fuse = re.search(r"ILi(\d)E", name)
                 smem = re.search(r"ILb(\d)E", name)
-                ept = re.search(r"lb_smem_kernelILi(\d+)E", name)
+                ept = re.search(r"lb_chunks_kernelILi(\d+)E", name)
                 sort = re.search(r"(minmax|span|hist|scan|scatter)_kernel(?:I([yj]+)((?:Lb\dE)*))?", name)
                 entry = (f"shared memory, {ept.group(1)} per thread" if ept else
+                         ("row in shared memory" if smem.group(1) == "1" else "row in device memory")
+                         if smem and "section_pack" in name else
                          "global route, prologue" if "lb_init_kernel" in name else
                          "global route, one round" if "lb_round_kernel" in name else
                          f"fuse {fuse.group(1)}" if fuse else
@@ -617,6 +650,105 @@ def kernel_split(torch, fn) -> str:
     return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
 
 
+def profiled_kernels(torch, fn, calls=3):
+    """What one call of fn runs on the card, from torch.profiler's CUDA
+    activity over `calls` calls, after a warm-up step that the profiler
+    traces and drops (without it, a profile taken after an earlier one in
+    the process missed the first call's kernels): (kernels, copies and
+    memsets, their device ms, {name: count} of the kernels), each a call's
+    share, and the kernels a call that key_averages() counts (entries with
+    device time), as a cross-check."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in range(2):
+            for _ in range(calls if step else 1):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    n_kernels = n_copies = 0
+    dev_ms, names = 0.0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_ms += e.time_range.elapsed_us() / 1e3
+        if e.name.startswith(("Memcpy", "Memset")):
+            n_copies += 1
+            continue
+        n_kernels += 1
+        name = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
+        names[name] = names.get(name, 0) + 1
+    averaged = sum(e.count for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+                   and not e.key.startswith(("Memcpy", "Memset")))
+    return (n_kernels / calls, n_copies / calls, dev_ms / calls, {k: v / calls for k, v in names.items()},
+            averaged / calls)
+
+
+def kernels_line(counted) -> str:
+    n_kernels, n_copies, dev_ms, names, averaged = counted
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return (f"{n_kernels:g} CUDA kernels and {n_copies:g} copies or memsets, {dev_ms:.4f} ms of device time "
+            f"(by name: {', '.join(f'{k} x{v:g}' for k, v in top)}; key_averages counts {averaged:g} kernels)")
+
+
+SWEEP_K6_WARPS = (1, 2, 4, 8, 16)
+SWEEP_K3_THREADS = (128, 256, 512, 1024)
+
+
+def k6_warps_sweep(kernels, ce, st, W) -> dict:
+    """K6 at 1 to 16 chains (warps) a block, each held against the plain
+    version first."""
+    want = ce.section_pack_plain(st["p1"], st["offsets"], W)
+
+    def check():
+        for x, y in zip(ce.section_pack(st["p1"], st["offsets"], W), want):
+            check_equal(x, y)
+
+    return sweep(kernels, "K6_WARPS", SWEEP_K6_WARPS, check, lambda: ce.section_pack(st["p1"], st["offsets"], W))
+
+
+def k3_threads_sweep(kernels, dec, calls) -> dict:
+    """K3's recorded container calls at blocks of 128 to 1,024 threads,
+    each held against the plain version first."""
+    return sweep(kernels, "K3_THREADS", SWEEP_K3_THREADS, lambda: check_breadth_calls(dec, calls),
+                 lambda: [dec.lookback_recon_chunks(*a) for a in calls["lookback_recon_chunks"]])
+
+
+def k3_split(torch, dec, call) -> str:
+    """Where K3's time goes on one recorded container call: the card alone
+    as the decode makes it, with no lookback loaded (each row's lookbacks a
+    constant past its pages: one round) and with nothing loaded (its
+    latents a constant too), each into copies of the outputs; and how many
+    of the rounds the pages of its first row run with a pointer left."""
+    bases, desc, _ = call
+    c = {k: dec.LB_COLS.index(k) for k in dec.LB_COLS}
+    written = set(desc[:, c["out_base"]].tolist())
+    scratch = [b.clone() if i in written else b for i, b in enumerate(bases)]
+    no_lb = desc.copy()
+    no_lb[:, c["lb_base"]], no_lb[:, c["lb_start"]] = -1, 1 << 40
+    no_loads = no_lb.copy()
+    no_loads[:, c["lat_base"]], no_loads[:, c["lat_start"]] = -1, 5
+    times = {}
+    for name, d in (("as decoded", desc), ("no lookbacks loaded, one round", no_lb),
+                    ("nothing loaded, one round", no_loads)):
+        dd = torch.from_numpy(d).to(bases[0].device)
+        times[name] = time_ms(lambda: dec.lookback_recon_chunks(scratch, d, dd), hold=True)[0]
+    r = desc[0].tolist()
+    P, N, sn, wn = r[c["n_pages"]], r[c["page_n"]], r[c["state_n"]], r[c["window_n"]]
+    lb = bases[r[c["lb_base"]]].reshape(-1)[r[c["lb_start"]] :][: P * N].view(P, N)
+    pos = torch.arange(sn, N, device=lb.device)[None, :]
+    ptr = torch.cat([torch.full((P, sn), -1, dtype=torch.int64, device=lb.device),
+                     torch.clamp(pos - torch.clamp(lb[:, : N - sn], 1, wn), min=-1)], 1)
+    moving = torch.zeros(P, dtype=torch.int64, device=lb.device)
+    for _ in range(dec.lookback_rounds(N)):
+        moving += (ptr >= 0).any(1)
+        ptr = torch.where(ptr >= 0, torch.gather(ptr, 1, ptr.clamp(min=0)), ptr)
+    counts = torch.bincount(moving).tolist()
+    return (", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+            + f"; pages of its first row by rounds with a pointer left: "
+            + ", ".join(f"{k}: {n}" for k, n in enumerate(counts) if n))
+
+
 def k8_line(ways, plan) -> str:
     (w, wh), (k, kh), (t, th) = ways
     return (f"key bytes {plan[0]}, {plan[1]} passes: as called {w[0]:.4f} ms (min {w[1]:.4f}, max {w[2]:.4f}; "
@@ -635,10 +767,11 @@ def check_encode_steps(ce, asm, plan, a):
     err = {"bin_ans_encode": max(check_equal(x, y)
                                  for x, y in zip(outs, ce.bin_ans_encode_plain(*k5_args(a))))}
     p1, offsets, states = outs
-    ans_len, off_len, curs, total_bits = ce.section_cursors(p1)
     W = plan.launch.sec_words
-    sections = ce.section_pack(p1, offsets, curs, W)
-    err["section_pack"] = check_equal(sections, ce.section_pack_plain(p1, offsets, curs, W))
+    k6 = ce.section_pack(p1, offsets, W)
+    err["section_pack"] = max(check_equal(x, y) for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)))
+    sections, ans_len, off_len, total_bits = k6
+    curs = ce.section_cursors(p1)[2]
     prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
     nw = -(-int(prep["sizes"][0]) // 4)
     body = asm.image_stitch(*stitch_args(prep), nw)
@@ -770,12 +903,14 @@ def main() -> int:
         check_breadth_calls(dops, calls)
         check_launches(cd, plan, arrays)
         ch = plan.chunks[0]
-        want = {"lookback_recon": ch.delta.kind == "lookback", "dict_join_chunks": ch.mode_kind == "dict"}
-        for k, expected in want.items():
-            if bool(calls[k]) != expected:
-                raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, expected them: {expected}")
-        if len(calls["dict_join_chunks"]) > 1:
-            raise AssertionError(f"{case} p{page_n}: {len(calls['dict_join_chunks'])} K4 calls, not one a decode")
+        made = {"K3": bool(calls["lookback_recon"] or calls["lookback_recon_chunks"]),
+                "K4": bool(calls["dict_join_chunks"])}
+        want = {"K3": ch.delta.kind == "lookback", "K4": ch.mode_kind == "dict"}
+        if made != want:
+            raise AssertionError(f"{case} p{page_n}: K3 and K4 called {made}, expected {want}")
+        for k in ("lookback_recon_chunks", "dict_join_chunks"):
+            if len(calls[k]) > 1:
+                raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, not one a decode")
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
@@ -1029,19 +1164,20 @@ def main() -> int:
           f"{nb9} bins ({steps9} steps), one lane alone {k9_lane[0]:.4f} ms, plain {k9_plain[0]:.2f} ms "
           f"[{card}]", flush=True)
     k9_acc = stream_accessors(torch, kernels, lambda: dt.walk_bins(*k9_args))
-    print(f"main: K9 a call by stream accessor: {accessor_line(k9_acc)} [{card}]", flush=True)
+    print(f"main: K9 a call by stream accessor: {turns_line(k9_acc)} [{card}]", flush=True)
 
     enc = time_ms(lambda: asm.run_image(iplan, ia))
     k5 = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)))
     k5_alone = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)), hold=True)[0]
     glue = time_ms(lambda: ce.section_cursors(st["p1"]))
-    k6 = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], st["curs"], L.sec_words))
+    k6 = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], L.sec_words))
+    k6_alone = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], L.sec_words), hold=True)[0]
+    k6_sweep = k6_warps_sweep(kernels, ce, st, L.sec_words)
     prep_t = time_ms(lambda: asm.prepare_image(iplan, ia, st["sections"], st["states"],
                                                       st["ans_len"], st["off_len"], st["total_bits"]))
     k7 = time_ms(lambda: asm.image_stitch(*stitch_args(prep), nw))
     k5_plain = time_ms(lambda: ce.bin_ans_encode_plain(*k5_args(ia)), runs=3, warmup=1)
-    k6_plain = time_ms(lambda: ce.section_pack_plain(st["p1"], st["offsets"], st["curs"],
-                                                            L.sec_words), runs=3, warmup=1)
+    k6_plain = time_ms(lambda: ce.section_pack_plain(st["p1"], st["offsets"], L.sec_words), runs=3, warmup=1)
     k7_plain = time_ms(lambda: asm.image_stitch_plain(*stitch_args(prep), nw), runs=3, warmup=1)
     # yardstick for K7: one index_add_ of the row words over a precomputed
     # flat index (the index and the int64 words are not timed)
@@ -1066,8 +1202,9 @@ def main() -> int:
 
     # bytes the functions need: each coded symbol's latent in, its p1 word
     # and its offset (4 bytes unless some bin has over 32 offset bits) out;
-    # K6 writes the payload words only, the rows' zero tails are the
-    # wrapper's memset
+    # K6 reads them, and writes every row whole (its zero tail included) and
+    # the section lengths; its bound before it took the cursors in counted
+    # the cursors read and only the payload words written
     syms = int(L.body_n.sum())
     b_pad = L.lowers.shape[1]
     off_b = 8 if int(((ia["t1"] >> 4) & 127).max()) > 32 else 4
@@ -1076,8 +1213,10 @@ def main() -> int:
                 + nbytes(st["states"]))
     k5_bound, k5_by = bound(k5_bytes, syms * (K5_OPS_PER_SYMBOL + K5_OPS_PER_STEP * int(math.log2(b_pad))))
     payload_words = int(((st["total_bits"] + 31) >> 5).sum())
-    k6_bytes = syms * (4 + off_b) + nbytes(st["curs"]) + payload_words * 4
+    k6_bytes_old = syms * (4 + off_b) + nbytes(st["curs"]) + payload_words * 4
+    k6_bytes = (syms * (4 + off_b) + nbytes(st["sections"], st["ans_len"], st["off_len"], st["total_bits"]))
     k6_bound, k6_by = bound(k6_bytes, syms * K6_OPS_PER_SYMBOL)
+    k6_bound_old = bound(k6_bytes_old, syms * K6_OPS_PER_SYMBOL)[0]
     row_words = int(prep["lenA"].sum()) + int(prep["lenC"].sum())
     k7_bytes = row_words * 4 + nbytes(prep["F0A"], prep["lenA"], prep["F0C"], prep["lenC"]) + nw * 4
     k7_bound = bound(k7_bytes)[0]
@@ -1089,7 +1228,7 @@ def main() -> int:
     k9_bound, k9_by = bound(k9_bytes, steps9 * K9_OPS_PER_STEP)
     enc_bound = bound(N * 8 + len(data))[0]
     enc_gbps = N * 8 / (enc[0] * 1e-3) / 1e9
-    print(f"main: encode device part (K5, glue, K6, prep, K7) {enc[0]:.3f} ms median "
+    print(f"main: encode device part (K5, K6, prep, K7) {enc[0]:.3f} ms median "
           f"(min {enc[1]:.3f}, max {enc[2]:.3f}, {RUNS} runs), {enc_gbps:.2f} GB/s of input, "
           f"byte bound {enc_bound:.4f} ms = {enc_bound / enc[0]:.1%} [{card}]", flush=True)
     print(f"main: K5 bin_ans_encode {k5[0]:.4f} ms (min {k5[1]:.4f}, max {k5[2]:.4f}; card alone {k5_alone:.4f}), "
@@ -1098,17 +1237,21 @@ def main() -> int:
     print(f"main: K5's accounting inputs: ts {L.nexts.shape[1]}, b_pad {b_pad}, {syms} coded numbers, "
           f"{int(st['ans_len'].sum()) / syms:.3f} ANS bits and {int(st['off_len'].sum()) / syms:.3f} offset bits "
           f"a number [{card}]", flush=True)
-    print(f"main: glue section_cursors {glue[0]:.4f} ms (min {glue[1]:.4f}, max {glue[2]:.4f}) "
-          f"[{card}]", flush=True)
-    print(f"main: K6 section_pack {k6[0]:.4f} ms (min {k6[1]:.4f}, max {k6[2]:.4f}), "
-          f"plain {k6_plain[0]:.1f} ms, bound {k6_bound:.4f} ms [{card}]", flush=True)
+    print(f"main: K6 section_pack {k6[0]:.4f} ms (min {k6[1]:.4f}, max {k6[2]:.4f}; card alone {k6_alone:.4f}), "
+          f"plain {k6_plain[0]:.1f} ms, bound {k6_bound:.4f} ms (rows whole and lengths written; "
+          f"{k6_bound_old:.4f} ms counting payload words and cursors read, as before the cursors moved in); "
+          f"the plain section_cursors (the glue K6 took in) {glue[0]:.4f} ms (min {glue[1]:.4f}, "
+          f"max {glue[2]:.4f}) [{card}]", flush=True)
+    print(f"main: K6 card alone by chains a block, in turns (each == plain): {turns_line(k6_sweep)}; "
+          f"{kernels.K6_WARPS} used [{card}]", flush=True)
     print(f"main: prep prepare_image {prep_t[0]:.4f} ms (min {prep_t[1]:.4f}, max {prep_t[2]:.4f}) "
           f"[{card}]", flush=True)
     print(f"main: K7 image_stitch {k7[0]:.4f} ms (min {k7[1]:.4f}, max {k7[2]:.4f}), "
           f"plain {k7_plain[0]:.3f} ms, index_add_ {k7_lib[0]:.4f} ms, bound {k7_bound:.4f} ms "
           f"[{card}]", flush=True)
     print(f"main: K8 bound {k8_bound:.4f} ms, K9 bound {k9_bound:.6f} ms; bytes counted: K5 {k5_bytes}, "
-          f"K6 {k6_bytes} ({payload_words} payload words, offsets at {off_b} bytes), K8 {k8_bytes}, "
+          f"K6 {k6_bytes} ({L.n_chains} rows of {L.sec_words} words, {payload_words} payload words, offsets at "
+          f"{off_b} bytes; before: {k6_bytes_old}), K8 {k8_bytes}, "
           f"K9 {k9_bytes} [{card}]", flush=True)
 
     del ia, prep, flat_idx, flat_val, body64, x8, k9_args, k9_one
@@ -1136,11 +1279,12 @@ def main() -> int:
         if not torch.equal(res, src):
             raise AssertionError(f"{case}: decode differs at {int((res != src).sum())} of {len(nums5)} numbers")
         del res, src
-        lname = "dict_join" if kname == "dict_join_chunks" else kname
+        lname = {"dict_join_chunks": "dict_join", "lookback_recon_chunks": "lookback_recon"}[kname]
         if launches5[lname] == 0 or (plan5.launches and launches5["chain_decode"] == 0):
             raise AssertionError(f"{case}: a kernel of its decode path was not launched: {launches5}")
-        if lname == "dict_join" and launches5[lname] != 1:
-            raise AssertionError(f"{case}: {launches5[lname]} K4 launches, not one a decode")
+        if launches5[lname] != 1 or len(calls[kname]) != 1:
+            raise AssertionError(f"{case}: {launches5[lname]} {lname} launches in {len(calls[kname])} calls, "
+                                 f"not one a decode")
         kcalls = calls[kname]
         err5 = check_breadth_calls(dops, calls)
         arrays5 = cd.upload_plan(plan5, dev)
@@ -1149,7 +1293,7 @@ def main() -> int:
                                       for lk, cp in plan5.launches.items()])
         check_launches(cd, plan5, arrays5)  # after the timings: the plain K2 precedes no measurement
         kern = getattr(dops, kname)
-        plain = dops.lookback_decode_pages_plain if kname == "lookback_recon" else dops.dict_join_chunks_plain
+        plain = dops.lookback_recon_chunks_plain if kname == "lookback_recon_chunks" else dops.dict_join_chunks_plain
         k_t = time_ms(lambda: [kern(*a) for a in kcalls])
         k_alone = time_ms(lambda: [kern(*a) for a in kcalls], hold=True)[0]
         k_plain = time_ms(lambda: [plain(*a) for a in kcalls], runs=3, warmup=1)
@@ -1183,15 +1327,24 @@ def main() -> int:
               f"({k_bytes} bytes) [{card}]", flush=True)
         if routes == ["K4 table in shared memory"]:
             grids = k4_grids(kernels, lambda: [kern(*a) for a in kcalls], lambda: check_breadth_calls(dops, calls))
-            print(f"breadth: {case}: K4 card alone by grid (each == plain): {grid_line(grids)} [{card}]", flush=True)
-        if kname == "lookback_recon":
+            print(f"breadth: {case}: K4 card alone by grid (each == plain): {turns_line(grids)} [{card}]", flush=True)
+        if kname == "lookback_recon_chunks":
             acc = stream_accessors(torch, kernels, lambda: [kern(*a) for a in kcalls])
-            print(f"breadth: {case}: K3 a call ({len(kcalls)} calls) by stream accessor: {accessor_line(acc)} "
+            print(f"breadth: {case}: K3 a call ({len(kcalls)} calls) by stream accessor: {turns_line(acc)} "
                   f"[{card}]", flush=True)
+            print(f"breadth: {case}: K3 card alone by threads a block, in turns (each == plain): "
+                  f"{turns_line(k3_threads_sweep(kernels, dops, calls))}; {kernels.K3_THREADS} used [{card}]",
+                  flush=True)
+            print(f"breadth: {case}: K3's time split, card alone: {k3_split(torch, dops, kcalls[0])} [{card}]",
+                  flush=True)
+            dec5_alone = time_ms(lambda: cd.decode_plan(plan5, arrays5), hold=True)[0]
+            print(f"breadth: {case}: one decode_plan runs "
+                  f"{kernels_line(profiled_kernels(torch, lambda: cd.decode_plan(plan5, arrays5)))}; "
+                  f"decode card alone (hold) {dec5_alone:.4f} ms [{card}]", flush=True)
         if lname not in breadth_rows:
             breadth_rows[lname] = {"launches": launches5[lname], "max_abs_err": err5, "ms": k_t[0],
                                    "plain_ms": k_plain[0], "bound_ms": k_bound, "bound_by": "bytes",
-                                   "library_ms": k_lib[0][0] if k_lib else None}
+                                   "library_ms": k_lib[0][0] if k_lib else None, "device_ms": k_alone}
         del calls, kcalls, arrays5, plan5, data5, nums5
         torch.cuda.empty_cache()
 
@@ -1281,7 +1434,7 @@ def main() -> int:
         {"name": "section_pack", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_pack.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:268", "launches": enc_launches["section_pack"],
          "max_abs_err": st["err"]["section_pack"], "ms": k6[0], "plain_ms": k6_plain[0], "bound_ms": k6_bound,
-         "bound_by": k6_by, "library_ms": None},
+         "bound_by": k6_by, "library_ms": None, "device_ms": k6_alone, "status": "redesigned"},
         {"name": "image_stitch", "route": "cuda", "source": "pcodec_tpu_torch/csrc/image_stitch.cu",
          "replaces": "pcodec_tpu/ops/assemble.py:495", "launches": enc_launches["image_stitch"],
          "max_abs_err": st["err"]["image_stitch"], "ms": k7[0], "plain_ms": k7_plain[0], "bound_ms": k7_bound,
@@ -1295,7 +1448,8 @@ def main() -> int:
          "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,
          "bound_by": k9_by, "library_ms": None},
         {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
-         "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"]},
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"],
+         "status": "redesigned"},
         {"name": "dict_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/dict_join.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1450", **breadth_rows["dict_join"]},
     ]
@@ -1316,5 +1470,43 @@ def main() -> int:
     return 0
 
 
+def lookback_decode_only() -> int:
+    """The 32M lookback decode of phase 5b alone, through the entry points
+    every tree of the port has (container_compress, plan_container,
+    upload_plan, decode_plan): compared with the source, then a call's and
+    the card's time and what torch.profiler counts in one decode."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.ops import container_decode as cd
+    from pcodec_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    card = card_line()
+    case, nums, cfg, _ = matrix_inputs(pt)[0]
+    data = pt.container_compress(nums, cfg)
+    plan = cd.plan_container(data)
+    arrays = cd.upload_plan(plan, dev)
+    src = torch.from_numpy(nums).to(dev)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    res = cd.decode_plan(plan, arrays)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if not torch.equal(res, src):
+        raise AssertionError(f"{case}: decode differs at {int((res != src).sum())} of {len(nums)} numbers")
+    del res, src
+    t = time_ms(lambda: cd.decode_plan(plan, arrays))
+    alone = time_ms(lambda: cd.decode_plan(plan, arrays), hold=True)[0]
+    counted = profiled_kernels(torch, lambda: cd.decode_plan(plan, arrays))
+    print(f"lookback-decode: {case} ({len(nums)} i64, {len(plan.chunks)} chunks) == source, launches {launches}; "
+          f"decode {t[0]:.3f} ms median (min {t[1]:.3f}, max {t[2]:.3f}, {RUNS} runs), card alone (hold) "
+          f"{alone:.4f} ms; one decode runs {kernels_line(counted)} [{card}]", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(lookback_decode_only() if sys.argv[1:] == ["--lookback-decode"] else main())

@@ -1,122 +1,231 @@
-// K6 section_pack: bit-packs each PCT encode chain's ANS values and
-// offsets into its page body.
+// K6 section_pack: the section cursors and the bit-packing of each PCT
+// encode chain's ANS values and offsets into its page body.
 //
 // Replaces: pcodec_tpu/ops/pallas_encode.py::_ec_impl (launched by _ec_call),
 // the TPU kernel that deposits each round's 4 values into per-quad vreg
 // accumulators, retires words into a circular 128-word window per group and
-// OR-merges the window into the section buffer on a static schedule.
+// OR-merges the window into the section buffer on a static schedule, and the
+// XLA glue before it (encode_container_device) that sums each batch's ANS
+// and offset bits into the section cursors.
 //
-// What bounds it on Hopper: bytes. It reads 12 bytes of K5 output per symbol
-// (p1 and the offset) and writes the packed body, a few bits per symbol; the
-// bit arithmetic per symbol is a handful of 64-bit operations.
+// For each chain c and batch b of 256 symbols, p1's fields give each
+// symbol's ANS value (bits 0-14), its renormalisation bits ren (15-18) and
+// its offset bits ob (19-25). The batch's sections are [its ANS values, ren
+// bits each][its offsets, ob bits each], LSB first, batch after batch from
+// bit 0 of the chain's row; ans_len and off_len are the two sections' bits
+// and total_bits the chain's.
 //
-// What the design does about it: the TPU's window, dump schedule and
-// accumulator vregs exist for VMEM and lane layout and go. One thread per
-// chain walks its page forward, batch by batch: it seeks to the batch's
-// ANS cursor, appends the 256 ANS values (renorm bits each), seeks to the
-// offset cursor and appends the 256 offsets (ob bits each; one above 32
-// bits goes in as two deposits), LSB first, through a 64-bit accumulator
-// that stores each completed 32-bit word. Each word of a row has one
-// writer, so there are no atomics; a word left partial at a seek that
-// skips bits is ORed in, the others are plain stores into the zeroed row.
-// Symbols are read as 16-byte vectors, four at a time.
+// What bounds it on Hopper: bytes. It reads 4 bytes of p1 a symbol and the
+// 8-byte offset of each symbol with offset bits, and writes the row (its
+// zero tail included) and the lengths; the bit arithmetic is a handful of
+// operations a symbol.
+//
+// What the design does about it: one warp packs one chain, so every load
+// and store of a warp is contiguous. For each batch the lanes load its 256
+// p1 words, 8 a lane, as two 16-byte vectors (1 KB a warp); one warp scan of
+// (ANS bits << 16 | offset bits) gives every lane its two bit positions and
+// the batch's lengths, which are the cursors' own numbers (the glue this
+// kernel takes in). Each lane then deposits its 8 ANS values, and its 8
+// offsets (loaded as 16-byte pairs only where a pair has offset bits), as
+// one contiguous run each through a 64-bit accumulator, ORing each retired
+// word into the chain's row staged in shared memory (atomicOr: lanes share
+// only the words at the edges of their runs). The warp zeroes the row
+// first and stores the whole row, its zero tail included, with 16-byte
+// stores at the end, so the output needs no memset. A row too large for the
+// block's opt-in shared memory is zeroed and ORed into device memory by the
+// same warp instead (a route no format input is refused).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+using u64 = unsigned long long;
 constexpr int BATCH = 256;
+constexpr int LANE_SYMS = BATCH / 32;  // symbols a lane deposits a batch
+constexpr int MAX_WARPS = 32;          // chains a block
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-struct BitSink {
+// Bits appended LSB first from a bit position; every retired word is ORed
+// into the row (words past W are dropped).
+struct Run {
   uint32_t* row;
   int W;
-  long long w;             // word of the first pending bit
-  int n;                   // pending bits in acc
-  unsigned long long acc;  // pending bits, LSB first
-  bool merge;              // the word at w holds bits of an earlier section
+  int w;    // word of the first pending bit
+  int n;    // pending bits in acc
+  u64 acc;  // pending bits, LSB first
 
-  __device__ void store(uint32_t v) {
-    if (w < W) row[w] = merge ? (row[w] | v) : v;
-    merge = false;
-    ++w;
-  }
-  __device__ void flush() {
-    if (n > 0) {
-      if (w < W) row[w] |= (uint32_t)acc;
-      merge = true;
-    }
-  }
-  __device__ void seek(long long bit) {
-    if (bit == 32 * w + n) return;
-    flush();
-    w = bit >> 5;
+  __device__ void start(long long bit) {
+    const long long w0 = bit >> 5;
+    w = w0 < W ? (int)w0 : W;
     n = (int)(bit & 31);
     acc = 0ull;
-    merge = n > 0;
+  }
+  __device__ void emit() {
+    if (w < W && (uint32_t)acc) atomicOr(row + w, (uint32_t)acc);
   }
   __device__ void put(uint32_t v, int width) {  // v < 2^width, width <= 32
-    acc |= (unsigned long long)v << n;
+    acc |= (u64)v << n;
     n += width;
     if (n >= 32) {
-      store((uint32_t)acc);
+      emit();
       acc >>= 32;
       n -= 32;
+      ++w;
     }
+  }
+  __device__ void finish() {
+    if (n > 0) emit();
   }
 };
 
-__global__ void __launch_bounds__(THREADS) section_pack_kernel(
-    const int* __restrict__ p1, const unsigned long long* __restrict__ offsets, int page_n,
-    const long long* __restrict__ curs, uint32_t* __restrict__ out, int W, int n_chains) {
-  const long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
+template <bool SMEM>
+__global__ void __launch_bounds__(MAX_WARPS * 32) section_pack_kernel(
+    const int* __restrict__ p1, const u64* __restrict__ offsets, int page_n, uint32_t* __restrict__ out, int W,
+    long long* __restrict__ ans_len, long long* __restrict__ off_len, long long* __restrict__ total_bits,
+    int n_chains) {
+  extern __shared__ uint4 s_rows[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long c = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (c >= n_chains) return;
-  const int* pr = p1 + c * page_n;
-  const unsigned long long* orow = offsets + c * page_n;
-  const long long* cc = curs + c * 2 * (page_n / BATCH);
-  BitSink sink{out + c * W, W, 0, 0, 0ull, false};
-  for (int b = 0; b < page_n / BATCH; ++b) {
-    sink.seek(cc[2 * b]);
-    for (int k = b * BATCH; k < (b + 1) * BATCH; k += 4) {
-      const int4 q = reinterpret_cast<const int4*>(pr + k)[0];
-      const int v[4] = {q.x, q.y, q.z, q.w};
+  uint4* grow = reinterpret_cast<uint4*>(out + c * W);
+  uint4* row4 = SMEM ? s_rows + (long long)warp * (W >> 2) : grow;
+  for (int i = lane; i < (W >> 2); i += 32) row4[i] = make_uint4(0, 0, 0, 0);
+  __syncwarp();
+  Run run{reinterpret_cast<uint32_t*>(row4), W, 0, 0, 0ull};
+  const int B = page_n / BATCH;
+  const int* pc = p1 + c * page_n;
+  const u64* oc = offsets + c * page_n;
+  long long cur = 0;
+  for (int b = 0; b < B; ++b) {
+    const int k0 = b * BATCH + lane * LANE_SYMS;
+    const int4 q0 = reinterpret_cast<const int4*>(pc + k0)[0];
+    const int4 q1 = reinterpret_cast<const int4*>(pc + k0)[1];
+    const int v[LANE_SYMS] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    unsigned a = 0, o = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sink.put((uint32_t)(v[j] & 0x7FFF), (v[j] >> 15) & 15);
+    for (int j = 0; j < LANE_SYMS; ++j) {
+      a += (v[j] >> 15) & 15;
+      o += (v[j] >> 19) & 127;
     }
-    sink.seek(cc[2 * b + 1]);
-    for (int k = b * BATCH; k < (b + 1) * BATCH; k += 4) {
-      const int4 q = reinterpret_cast<const int4*>(pr + k)[0];
-      const int ob[4] = {(q.x >> 19) & 127, (q.y >> 19) & 127, (q.z >> 19) & 127, (q.w >> 19) & 127};
-      if ((ob[0] | ob[1] | ob[2] | ob[3]) == 0) continue;
-      const ulonglong2 o01 = reinterpret_cast<const ulonglong2*>(orow + k)[0];
-      const ulonglong2 o23 = reinterpret_cast<const ulonglong2*>(orow + k)[1];
-      const unsigned long long o[4] = {o01.x, o01.y, o23.x, o23.y};
+    // ANS bits of a batch <= 256 * 15 and offset bits <= 256 * 127: both fit 16 bits
+    const unsigned mine = (a << 16) | o;
+    unsigned incl = mine;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (ob[j] > 32) {
-          sink.put((uint32_t)o[j], 32);
-          sink.put((uint32_t)(o[j] >> 32), ob[j] - 32);
-        } else {
-          sink.put((uint32_t)o[j], ob[j]);
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned t = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const unsigned tot = __shfl_sync(FULL, incl, 31);
+    const unsigned excl = incl - mine;
+    const long long A = tot >> 16, O = tot & 0xFFFF;
+    run.start(cur + (excl >> 16));
+#pragma unroll
+    for (int j = 0; j < LANE_SYMS; ++j) run.put((uint32_t)(v[j] & 0x7FFF), (v[j] >> 15) & 15);
+    run.finish();
+    if (o) {
+      run.start(cur + A + (excl & 0xFFFF));
+#pragma unroll
+      for (int j = 0; j < LANE_SYMS; j += 2) {
+        const int ob0 = (v[j] >> 19) & 127, ob1 = (v[j + 1] >> 19) & 127;
+        if ((ob0 | ob1) == 0) continue;
+        const ulonglong2 op = reinterpret_cast<const ulonglong2*>(oc + k0 + j)[0];
+        const u64 ov[2] = {op.x, op.y};
+        const int obs[2] = {ob0, ob1};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (obs[h] > 32) {
+            run.put((uint32_t)ov[h], 32);
+            run.put((uint32_t)(ov[h] >> 32), obs[h] - 32);
+          } else {
+            run.put((uint32_t)ov[h], obs[h]);
+          }
         }
       }
+      run.finish();
     }
+    if (lane == 0) {
+      ans_len[c * B + b] = A;
+      off_len[c * B + b] = O;
+    }
+    cur += A + O;
   }
-  sink.flush();
+  if (lane == 0) total_bits[c] = cur;
+  if (SMEM) {
+    __syncwarp();
+    for (int i = lane; i < (W >> 2); i += 32) grow[i] = row4[i];
+  }
+}
+
+struct DeviceInfo {
+  bool ready = false;
+  int optin = 0;  // opt-in shared memory of a block, bytes
+};
+
+DeviceInfo g_info[MAX_DEVICES];
+
+cudaError_t device_info(int device, const DeviceInfo** out) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_info[device];
+  if (!d.ready) {
+    cudaError_t err;
+    if ((err = cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != cudaSuccess)
+      return err;
+    if ((err = cudaFuncSetAttribute(section_pack_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    d.optin)) != cudaSuccess)
+      return err;
+    d.ready = true;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
 }
 
 }  // namespace
 
-extern "C" int section_pack(const void* p1, const void* offsets, int page_n, const void* curs,
-                            void* out, int sec_words, int n_chains, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// Longest row (words) the shared-memory route stages on `device`; 0 if the
+// device cannot be read.
+extern "C" long long section_pack_smem_words(int device) {
+  const DeviceInfo* info = nullptr;
+  if (use_device(device) != cudaSuccess || device_info(device, &info) != cudaSuccess) return 0;
+  return info->optin / 4;
+}
+
+// p1 (n_chains, page_n) int32 and offsets (n_chains, page_n) u64 from K5 ->
+// out (n_chains, sec_words) u32 rows, ans_len and off_len (n_chains,
+// page_n / 256) and total_bits (n_chains,) int64. warps: chains a block.
+extern "C" int section_pack(const void* p1, const void* offsets, int page_n, void* out, int sec_words, void* ans_len,
+                            void* off_len, void* total_bits, int n_chains, int warps, int device, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (page_n % BATCH || sec_words < 1) return (int)cudaErrorInvalidValue;
+  const DeviceInfo* info = nullptr;
+  if ((err = device_info(device, &info)) != cudaSuccess) return (int)err;
+  if (page_n < BATCH || page_n % BATCH || sec_words < 4 || sec_words % 4 || sec_words > (1 << 26) ||
+      warps < 1 || warps > MAX_WARPS || n_chains < 0)
+    return (int)cudaErrorInvalidValue;
   if (n_chains == 0) return 0;
-  const int blocks = (n_chains + THREADS - 1) / THREADS;
-  section_pack_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(p1), static_cast<const unsigned long long*>(offsets), page_n,
-      static_cast<const long long*>(curs), static_cast<uint32_t*>(out), sec_words, n_chains);
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long fit = info->optin / (4LL * sec_words);
+  const int per_block = (int)(fit < warps ? (fit < 1 ? warps : fit) : warps);
+  const unsigned blocks = (unsigned)((n_chains + per_block - 1) / per_block);
+  const auto a = static_cast<const int*>(p1);
+  const auto o = static_cast<const u64*>(offsets);
+  auto r = static_cast<uint32_t*>(out);
+  auto al = static_cast<long long*>(ans_len);
+  auto ol = static_cast<long long*>(off_len);
+  auto tb = static_cast<long long*>(total_bits);
+  if (fit >= 1)
+    section_pack_kernel<true><<<blocks, per_block * 32, (size_t)per_block * sec_words * 4, s>>>(
+        a, o, page_n, r, sec_words, al, ol, tb, n_chains);
+  else
+    section_pack_kernel<false><<<blocks, per_block * 32, 0, s>>>(a, o, page_n, r, sec_words, al, ol, tb, n_chains);
   return (int)cudaGetLastError();
 }
 

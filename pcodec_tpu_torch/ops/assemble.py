@@ -24,7 +24,7 @@ does the placement.
                      the host, its sorts on the card), the launch, the chunk
                      prefixes, the head's host part
     upload_image     launch and layout arrays to the card
-    run_image        K5 -> glue -> K6 -> prepare_image (plain torch) -> K7
+    run_image        K5 -> K6 -> prepare_image (plain torch) -> K7
     file_image_to_bytes
                      reads the image back as bytes
 
@@ -404,7 +404,7 @@ def image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body_words: int) -> torch.T
 
 
 def run_image(plan: ImagePlan, a: dict):
-    """K5 -> glue -> K6 -> prep -> K7 from uploaded arrays. Returns
+    """K5 -> K6 -> prep -> K7 from uploaded arrays. Returns
     (head_words, body_words, head_bytes, body_bytes): both word arrays are
     int32 tensors on the arrays' device. The body is sized from its byte
     count, read back before K7 with the end word of the farthest row, which

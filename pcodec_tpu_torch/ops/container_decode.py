@@ -16,11 +16,17 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      offset sections read as two in-order bit streams; in its
                      fused form it also applies the order-1 delta and the
                      Classic join
-    post             per chunk: the `delta` var first, then `primary` and
-                     `secondary`; delta reconstruction (consecutive and conv1
-                     in plain torch, lookback through K3), then each
-                     non-Dict chunk's ragged trim and mode join in plain
-                     torch (ops/decode.py holds all of these)
+    lookback         K3, CUDA (csrc/lookback_recon.cu): every lookback var
+                     of the container in one launch, from the plan's
+                     descriptor table, each Classic chunk trimmed and
+                     joined straight into the output
+    post             per other chunk: the `delta` var first, then
+                     `primary` and `secondary`; delta reconstruction
+                     (consecutive and conv1 in plain torch, lookback pages
+                     too long for shared memory through K3's device-memory
+                     route), then each non-Dict chunk's ragged trim and
+                     mode join in plain torch (ops/decode.py holds all of
+                     these)
     dict join        K4, CUDA (csrc/dict_join.cu): every Dict chunk of the
                      container in one launch, straight into the output
 
@@ -138,6 +144,22 @@ class ContainerPlan:
     dict_bases: List[tuple]
     dict_desc: np.ndarray  # (len(dict_chunks), 6) int64
     dict_table: np.ndarray  # (sum of D,) int64 memory bits
+    # K3's plan: a row (decode.LB_COLS) per lookback var of every chunk whose
+    # pages fit shared memory; the tensors the rows name, ("launch", launch
+    # key), ("out",) the container's output, ("scratch",) the latents of the
+    # non-Classic chunks' rows or ("moments",) every row's stored state back
+    # to back (lookback_moments); where each scratch row starts, by (chunk,
+    # var key), and the scratch's numbers
+    lookback_bases: List[tuple] = field(default_factory=list)
+    lookback_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.LB_DESC_COLS), np.int64))
+    lookback_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
+    lookback_scratch: Dict[tuple, int] = field(default_factory=dict)
+    lookback_scratch_n: int = 0
+
+    @property
+    def lookback_chunks(self) -> set:
+        """Chunks whose lookback vars K3's one launch reconstructs."""
+        return {ci for ci, ch in enumerate(self.chunks) if _k3_chunk(ch)}
 
     @property
     def n(self) -> int:
@@ -318,11 +340,63 @@ def plan_container(data: bytes) -> ContainerPlan:
             dict_bases.append(base)
         rows.append([dict_bases.index(base), start, ch.n, offsets[ci], toff, len(ch.dict_table)])
         toff += len(ch.dict_table)
-    return ContainerPlan(nt=idx.nt, chunks=chunks, launches=launches, words=raw.view(np.uint32), offsets=offsets,
+    plan = ContainerPlan(nt=idx.nt, chunks=chunks, launches=launches, words=raw.view(np.uint32), offsets=offsets,
                          dict_chunks=dict_chunks, dict_bases=dict_bases,
                          dict_desc=np.array(rows, dtype=np.int64).reshape(-1, 6),
                          dict_table=np.concatenate([chunks[ci].dict_table for ci in dict_chunks])
                          if dict_chunks else np.zeros(0, np.int64))
+    _plan_lookback(plan)
+    return plan
+
+
+def _k3_chunk(ch: ChunkPlan) -> bool:
+    """Whether K3's container launch reconstructs a chunk's lookback vars:
+    a lookback chunk with pages that fit shared memory."""
+    return (ch.delta.kind == DeltaEncoding.LOOKBACK and ch.n_pages > 0
+            and ch.page_n <= kernels.LB_SMEM_MAX_N)
+
+
+def _plan_lookback(plan: ContainerPlan) -> None:
+    """K3's descriptor table: a row per lookback var (primary, and secondary
+    where it shares the delta) of each _k3_chunk. A Classic chunk's row
+    joins into the output at the chunk's offset; another chunk's rows leave
+    their latents in the scratch for its mode's join (or K4)."""
+    bases, rows, moments, scratch = [], [], [], {}
+    mom_off = scratch_n = page0 = 0
+
+    def base(key) -> int:
+        if key not in bases:
+            bases.append(key)
+        return bases.index(key)
+
+    def source(vp: VarPlan, ch: ChunkPlan):
+        if vp.trivial:
+            return -1, _i64(vp.const_lower)
+        return base(("launch", vp.launch_key)), vp.chain_start * ch.page_n
+
+    for ci, ch in enumerate(plan.chunks):
+        if not _k3_chunk(ch):
+            continue
+        for key in ("primary", "secondary"):
+            vp = ch.var_plans.get(key)
+            de = ch.delta.for_latent_var(key)
+            if vp is None or de.kind != DeltaEncoding.LOOKBACK:
+                continue
+            if ch.mode_kind == Mode.CLASSIC:
+                out, join = (base(("out",)), int(plan.offsets[ci])), dec.JOIN_OF_KIND[plan.nt.kind]
+            else:
+                out, join = (base(("scratch",)), scratch_n), dec.JOIN_LATENTS
+                scratch[(ci, key)] = scratch_n
+                scratch_n += ch.n
+            rows.append([*source(vp, ch), *source(ch.var_plans["delta"], ch), base(("moments",)), mom_off, *out,
+                         ch.n_pages, ch.page_n, ch.n, de.state_n, de.window_n, vp.bits, join, page0])
+            moments.append(vp.moments.reshape(-1))
+            mom_off += vp.moments.size
+            page0 += ch.n_pages
+    plan.lookback_bases = bases
+    plan.lookback_desc = np.array(rows, np.int64).reshape(-1, dec.LB_DESC_COLS)
+    plan.lookback_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
+    plan.lookback_scratch, plan.lookback_scratch_n = scratch, scratch_n
 
 
 def _dict_from_launch(ch: ChunkPlan) -> bool:
@@ -588,49 +662,79 @@ def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
     return dec.conv1_decode_pages(lat, moments, de.weights, de.quantization, de.bias, de.order, vp.bits)
 
 
+def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays",
+                  scratch: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each var's trimmed latents of chunk ci, its delta undone (a fused
+    launch's primary: its final memory bits): K3's output in `scratch` for a
+    var its container launch reconstructed, else the launch rows (or the
+    trivial var's constant) through reconstruct_var."""
+    cp, arrays = plan.chunks[ci], dev.chunks[ci]
+    k3 = _k3_chunk(cp)
+    rows, flat = {}, {}
+    for key in ("delta", "primary", "secondary"):
+        vp = cp.var_plans.get(key)
+        if vp is None or (key == "delta" and k3):  # K3 read the chunk's lookbacks itself
+            continue
+        at = plan.lookback_scratch.get((ci, key))
+        if at is not None:
+            flat[key] = scratch[at : at + cp.n]
+            continue
+        if vp.trivial:
+            lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
+                             device=dev.words.device)
+        else:
+            lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
+            if plan.launches[vp.launch_key].fuse:
+                flat[key] = trim_pages(lat, cp)
+                continue
+        rows[key] = reconstruct_var(cp, vp, lat, rows.get("delta"), arrays["moments_" + key])
+        flat[key] = trim_pages(rows[key], cp)
+    return flat
+
+
+def chunk_result(plan: ContainerPlan, cp: ChunkPlan, flat: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Memory bits of a non-Dict chunk from its trimmed var latents: the
+    mode join (a fused launch's primary is final already)."""
+    lkey = cp.var_plans["primary"].launch_key
+    if lkey is not None and plan.launches[lkey].fuse:
+        return flat["primary"]
+    return dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, flat["primary"], flat.get("secondary"))
+
+
 def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
     """(n,) int64 memory bits of every number of the container (the JAX
     `_post_chunks` and the concatenation after it). A fused launch's rows
-    are final memory bits already. Every Dict chunk is joined by one K4
-    launch straight into the output, the other chunks' results are copied
-    into it; a container without Dict chunks is concatenated, a view where
-    its chunks lie end to end in one launch output."""
-    results = []
+    are final memory bits already. A container without lookback or Dict
+    chunks is concatenated, a view where its chunks lie end to end in one
+    launch output. Otherwise one K3 launch reconstructs every lookback var
+    whose pages fit shared memory, joining each Classic chunk straight into
+    the output (the others' latents into a scratch); the remaining chunks
+    are joined in torch and copied into the output, and one K4 launch
+    joins every Dict chunk into it."""
+    device = dev.words.device
+    k3_chunks = plan.lookback_chunks
+    if not plan.dict_chunks and not k3_chunks:
+        return _concat([chunk_result(plan, cp, chunk_latents(plan, ci, outs, dev, None))
+                        for ci, cp in enumerate(plan.chunks)], device)
+    out = torch.empty(plan.n, dtype=torch.int64, device=device)
+    scratch = torch.empty(plan.lookback_scratch_n, dtype=torch.int64, device=device)
+    if k3_chunks:
+        named = {("out",): out, ("scratch",): scratch, ("moments",): dev.lookback_moments}
+        bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.lookback_bases]
+        dec.lookback_recon_chunks(bases, plan.lookback_desc, dev.lookback_desc)
     dict_latents = {}  # Dict chunk -> its primary latents made by the post
-    for ci, (cp, arrays) in enumerate(zip(plan.chunks, dev.chunks)):
+    for ci, cp in enumerate(plan.chunks):
         if cp.mode_kind == Mode.DICT and _dict_from_launch(cp):
             continue  # K4 reads the launch's rows
-        var_latents = {}
-        for key in ("delta", "primary", "secondary"):
-            vp = cp.var_plans.get(key)
-            if vp is None:
-                continue
-            if vp.trivial:
-                lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
-                                 device=dev.words.device)
-            else:
-                lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
-                if plan.launches[vp.launch_key].fuse:
-                    var_latents[key] = lat
-                    continue
-            var_latents[key] = reconstruct_var(cp, vp, lat, var_latents.get("delta"), arrays["moments_" + key])
+        if ci in k3_chunks and cp.mode_kind == Mode.CLASSIC:
+            continue  # K3 joined it into the output
+        flat = chunk_latents(plan, ci, outs, dev, scratch)
         if cp.mode_kind == Mode.DICT:
-            dict_latents[ci] = var_latents["primary"]
-            continue
-        primary = trim_pages(var_latents["primary"], cp)
-        lkey = cp.var_plans["primary"].launch_key
-        if lkey is not None and plan.launches[lkey].fuse:
-            results.append(primary)
+            dict_latents[ci] = flat["primary"]
         else:
-            secondary = var_latents.get("secondary")
-            secondary = trim_pages(secondary, cp) if secondary is not None else None
-            results.append(dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, primary, secondary))
+            out[plan.offsets[ci] : plan.offsets[ci + 1]] = chunk_result(plan, cp, flat)
     if not plan.dict_chunks:
-        return _concat(results, dev.words.device)
-    out = torch.empty(plan.n, dtype=torch.int64, device=dev.words.device)
-    is_dict = set(plan.dict_chunks)
-    for ci, res in zip((ci for ci in range(len(plan.chunks)) if ci not in is_dict), results):
-        out[plan.offsets[ci] : plan.offsets[ci + 1]] = res
+        return out
     bases = [outs[key] if kind == "launch" else dict_latents[key] for kind, key in plan.dict_bases]
     return dec.dict_join_chunks(bases, plan.dict_desc, dev.dict_table, out)
 
@@ -673,6 +777,8 @@ class DeviceArrays:
     # per chunk: "moments_<var>" (n_pages, state_n)
     chunks: List[Dict[str, torch.Tensor]] = field(default_factory=list)
     dict_table: Optional[torch.Tensor] = None  # every Dict chunk's table, back to back
+    lookback_desc: Optional[torch.Tensor] = None  # K3's rows (plan.lookback_desc)
+    lookback_moments: Optional[torch.Tensor] = None  # every K3 row's stored state, back to back
 
 
 def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
@@ -682,7 +788,9 @@ def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dev = DeviceArrays(words=t(plan.words.view(np.int32)), dict_table=t(plan.dict_table))
+    dev = DeviceArrays(words=t(plan.words.view(np.int32)), dict_table=t(plan.dict_table),
+                       lookback_desc=t(plan.lookback_desc),
+                       lookback_moments=_u64_to_tensor(plan.lookback_moments, device))
     for lkey, cp in plan.launches.items():
         dev.launches[lkey] = {
             "word0": t(cp.word0),

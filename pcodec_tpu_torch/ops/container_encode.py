@@ -17,10 +17,10 @@ independent encode *chain*:
                          chunks
     bin_ans_encode       K5, CUDA (csrc/bin_ans_encode.cu): bin search,
                          reverse 4-stream tANS walk and offsets per chain
-    section_cursors      plain torch: per-batch section lengths and the bit
-                         cursors of each [ANS bits][offset bits] section
-    section_pack         K6, CUDA (csrc/section_pack.cu): bit-packs each
-                         chain's ANS values and offsets at the cursors
+    section_pack         K6, CUDA (csrc/section_pack.cu): a warp a chain
+                         computes each batch's section lengths and cursors
+                         and bit-packs its ANS values and offsets at them
+                         (section_cursors is that first step in plain torch)
 
 ops/assemble.py stitches the sections into the file image on the card and
 holds the entry points.
@@ -482,16 +482,17 @@ def bin_ans_encode(latents, body_n, table_id, states0, nexts, lowers, t1, t2):
 
 
 # ---------------------------------------------------------------------------
-# glue: plain torch (XLA in the JAX package)
+# K6: section cursors and bit-packing
 # ---------------------------------------------------------------------------
 
 
 def section_cursors(p1: torch.Tensor):
     """Per (chain, batch) ANS and offset bit lengths, the bit cursors of
     each batch's sections in the page body ([ANS bits][offset bits], batch
-    after batch) and each chain's total bits. Returns (ans_len, off_len
-    (n, B), curs (n, 2B) with ANS cursors at even columns, total_bits
-    (n,)), all int64."""
+    after batch) and each chain's total bits: K6's first step in plain
+    torch (XLA glue in the JAX package). Returns (ans_len, off_len (n, B),
+    curs (n, 2B) with ANS cursors at even columns, total_bits (n,)), all
+    int64."""
     n, page_n = p1.shape
     p = p1.view(n, page_n // BATCH, BATCH)
     ans_len = ((p >> 15) & 15).sum(2, dtype=torch.int64)
@@ -502,18 +503,15 @@ def section_cursors(p1: torch.Tensor):
     return ans_len, off_len, curs, start[:, -1] + total[:, -1]
 
 
-# ---------------------------------------------------------------------------
-# K6: section bit-packing
-# ---------------------------------------------------------------------------
-
-
-def section_pack_plain(p1, offsets, curs, sec_words: int) -> torch.Tensor:
+def section_pack_plain(p1, offsets, sec_words: int):
     """Plain version of K6. p1 (n, page_n) int32 and offsets (n, page_n)
-    int64 from K5, curs (n, 2B) int64 from section_cursors. Returns (n,
-    sec_words) int32: batch b's ANS values (renorm bits each) LSB-first from
-    curs[:, 2b], then its offsets (ob bits each) from curs[:, 2b + 1]. Every
-    value lands in at most three words and payload bits never overlap, so
-    an index_add_ on int64 words is an OR."""
+    int64 from K5. Returns (sections (n, sec_words) int32, ans_len, off_len
+    (n, B), total_bits (n,)): section_cursors, then batch b's ANS values
+    (renorm bits each) LSB-first from its ANS cursor and its offsets (ob
+    bits each) from its offset cursor. Every value lands in at most three
+    words and payload bits never overlap, so an index_add_ on int64 words is
+    an OR."""
+    ans_len, off_len, curs, total_bits = section_cursors(p1)
     dev = p1.device
     n, page_n = p1.shape
     B = page_n // BATCH
@@ -521,7 +519,7 @@ def section_pack_plain(p1, offsets, curs, sec_words: int) -> torch.Tensor:
     ren, ob = (p >> 15) & 15, (p >> 19) & 127
     a_pos = curs[:, 0::2, None] + torch.cumsum(ren, 2) - ren
     o_pos = curs[:, 1::2, None] + torch.cumsum(ob, 2) - ob
-    del ren, ob
+    del ren, ob, curs
     W = sec_words + 3  # deposits past the last payload word add zeros
     words = torch.zeros(n * W, dtype=torch.int64, device=dev)
     row = (torch.arange(n, device=dev) * W)[:, None, None]
@@ -536,33 +534,38 @@ def section_pack_plain(p1, offsets, curs, sec_words: int) -> torch.Tensor:
     off = offsets.view(n, B, BATCH)
     deposit(off & M32, o_pos)
     deposit((off >> 32) & M32, o_pos + 32)  # zero unless ob > 32
-    return _to_i32(words.view(n, W)[:, :sec_words])
+    return _to_i32(words.view(n, W)[:, :sec_words]), ans_len, off_len, total_bits
 
 
-def section_pack(p1, offsets, curs, sec_words: int) -> torch.Tensor:
-    """K6: the page body of every chain; arguments as section_pack_plain."""
+def section_pack(p1, offsets, sec_words: int):
+    """K6: the page body of every chain and its section lengths, the
+    cursors computed in the kernel; arguments and results as
+    section_pack_plain. Rows of at most kernels.section_pack_smem_words
+    words are staged in shared memory, longer ones ORed in device memory."""
     if p1.device.type == "cpu":
-        return section_pack_plain(p1, offsets, curs, sec_words)
+        return section_pack_plain(p1, offsets, sec_words)
     n, page_n = p1.shape
-    if page_n % BATCH or sec_words < 4 or sec_words % 4:
+    if page_n < BATCH or page_n % BATCH or sec_words < 4 or sec_words % 4:
         raise ValueError("section_pack needs whole batches and sec_words a multiple of 4")
-    if offsets.shape != p1.shape or curs.shape != (n, 2 * (page_n // BATCH)):
+    if offsets.shape != p1.shape:
         raise ValueError("section_pack: argument shapes do not match the chains")
-    _check_cuda((p1, torch.int32), (offsets, torch.int64), (curs, torch.int64))
-    out = torch.zeros((n, sec_words), dtype=torch.int32, device=p1.device)
-    kernels.launch_section_pack(p1, offsets, curs, out)
-    return out
+    _check_cuda((p1, torch.int32), (offsets, torch.int64))
+    dev = p1.device
+    out = torch.empty((n, sec_words), dtype=torch.int32, device=dev)
+    lens = torch.empty((2, n, page_n // BATCH), dtype=torch.int64, device=dev)
+    total_bits = torch.empty(n, dtype=torch.int64, device=dev)
+    kernels.launch_section_pack(p1, offsets, out, lens[0], lens[1], total_bits)
+    return out, lens[0], lens[1], total_bits
 
 
 def encode_launch(L: EncodeLaunch, a: dict):
-    """K5 -> glue -> K6 for one launch. Returns (sections (n, sec_words)
-    int32, final states (n, 4), ans_len, off_len, total_bits)."""
+    """K5 -> K6 for one launch. Returns (sections (n, sec_words) int32,
+    final states (n, 4), ans_len, off_len, total_bits)."""
     if not L.n_chains:  # every chunk trivial: nothing to launch
         z = a["latents"].new_zeros
         B = L.page_n // BATCH
         return z((0, L.sec_words), dtype=torch.int32), z((0, 4)), z((0, B)), z((0, B)), z(0)
     p1, offsets, states = bin_ans_encode(a["latents"], a["body_n"], a["table_id"], a["states0"],
                                          a["nexts"], a["lowers"], a["t1"], a["t2"])
-    ans_len, off_len, curs, total_bits = section_cursors(p1)
-    sections = section_pack(p1, offsets, curs, L.sec_words)
+    sections, ans_len, off_len, total_bits = section_pack(p1, offsets, L.sec_words)
     return sections, states, ans_len, off_len, total_bits

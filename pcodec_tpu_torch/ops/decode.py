@@ -12,8 +12,12 @@ The counterparts of the XLA helpers in the JAX package's
                       one-chunk case
     consecutive_decode_batched, conv1_decode_pages
                       delta reconstruction in plain torch (XLA in JAX)
-    lookback_recon    K3, CUDA (csrc/lookback_recon.cu): per-page lookback
-                      reconstruction by pointer doubling
+    lookback_recon_chunks
+                      K3, CUDA (csrc/lookback_recon.cu): lookback
+                      reconstruction by pointer doubling of every lookback
+                      var of a container in one launch, from a descriptor
+                      table, the Classic join folded into its store;
+                      lookback_recon is one chunk's pages
 
 u64 values travel as int64 tensors holding the same bits: add, multiply and
 cumsum wrap mod 2^64 exactly; unsigned compares go through `_ult`, logical
@@ -55,17 +59,30 @@ def mask_of(bits: int) -> int:
     return _i64((1 << bits) - 1)
 
 
-def from_latent_ordered(nt: NumberType, lat):
-    """latent -> memory bits of the number (the Classic join)."""
-    bits = nt.latent.bits
+# K3's join kinds: a row's latents out as they are, or the memory bits of an
+# unsigned, signed or float number (must match csrc/lookback_recon.cu)
+JOIN_LATENTS, JOIN_UNSIGNED, JOIN_SIGNED, JOIN_FLOAT = range(4)
+JOIN_OF_KIND = {"unsigned": JOIN_UNSIGNED, "signed": JOIN_SIGNED, "float": JOIN_FLOAT}
+
+
+def ordered_join(join: int, bits: int, lat):
+    """latent -> memory bits of a number of `bits` bits whose kind is the
+    join kind (JOIN_LATENTS: the latents as they are)."""
+    if join == JOIN_LATENTS:
+        return lat
     mask = mask_of(bits)
     lat = lat & mask
-    if nt.kind == "unsigned":
+    if join == JOIN_UNSIGNED:
         return lat
     mid = _i64(1 << (bits - 1))
-    if nt.kind == "signed":
+    if join == JOIN_SIGNED:
         return (lat ^ mid) & mask
     return torch.where((lat & mid) != 0, lat ^ mid, (~lat) & mask)
+
+
+def from_latent_ordered(nt: NumberType, lat):
+    """latent -> memory bits of the number (the Classic join)."""
+    return ordered_join(JOIN_OF_KIND[nt.kind], nt.latent.bits, lat)
 
 
 def from_latent_ordered_int(nt: NumberType, lat: int) -> int:
@@ -212,11 +229,69 @@ def lookback_decode_pages_plain(latents, lookbacks, moments, window_n: int, stat
     return add
 
 
+# K3's descriptor table: one row per lookback var of a chunk, DESC_COLS
+# int64 columns (must match csrc/lookback_recon.cu). A base is an index into
+# the call's `bases`; a lat or lb base of -1 is a trivial var whose every
+# latent is its start. Page p of the row reads latents and lookbacks at
+# start + p * page_n and its state at mom_start + p * state_n; number i <
+# n_valid of the row (its pages' numbers, in order) goes to out_start + i
+# after its join. page0 is the row's first page in the launch (the sum of the rows'
+# pages before it).
+LB_COLS = ("lat_base", "lat_start", "lb_base", "lb_start", "mom_base", "mom_start", "out_base", "out_start",
+           "n_pages", "page_n", "n_valid", "state_n", "window_n", "bits", "join", "page0")
+LB_DESC_COLS = len(LB_COLS)
+
+
+def lookback_recon_chunks_plain(bases, desc: np.ndarray, desc_dev=None):
+    """Plain version of K3 over a container's lookback table: for each row,
+    lookback_decode_pages_plain of its pages, the first n_valid numbers, each
+    through the row's join, written into its output base. desc_dev (the
+    rows on the kernel's device) is not read. Returns nothing; the output
+    bases are written in place."""
+    c = {name: i for i, name in enumerate(LB_COLS)}
+    for r in np.asarray(desc, np.int64).reshape(-1, LB_DESC_COLS).tolist():
+        P, N, n, state_n = r[c["n_pages"]], r[c["page_n"]], r[c["n_valid"]], r[c["state_n"]]
+
+        def pages(base, start):
+            if base < 0:
+                return torch.full((P, N), start, dtype=torch.int64, device=bases[r[c["out_base"]]].device)
+            flat = bases[base].reshape(-1)[start : start + n]
+            return torch.cat([flat, flat.new_zeros(P * N - n)]).view(P, N)
+
+        mom = bases[r[c["mom_base"]]].reshape(-1)[r[c["mom_start"]] :][: P * state_n].view(P, state_n)
+        add = lookback_decode_pages_plain(pages(r[c["lat_base"]], r[c["lat_start"]]),
+                                          pages(r[c["lb_base"]], r[c["lb_start"]]), mom, r[c["window_n"]],
+                                          state_n, r[c["bits"]])
+        out = bases[r[c["out_base"]]].reshape(-1)
+        out[r[c["out_start"]] : r[c["out_start"]] + n] = ordered_join(r[c["join"]], r[c["bits"]],
+                                                                      add.reshape(-1)[:n])
+
+
+def lookback_recon_chunks(bases, desc: np.ndarray, desc_dev=None):
+    """K3: every row of a container's lookback table (pages of at most
+    kernels.LB_SMEM_MAX_N numbers) reconstructed by one launch, straight
+    into the rows' outputs; arguments as lookback_recon_chunks_plain,
+    desc_dev the rows on the card (uploaded here when None)."""
+    if all(b.device.type == "cpu" for b in bases):
+        return lookback_recon_chunks_plain(bases, desc)
+    desc = np.ascontiguousarray(desc, dtype=np.int64).reshape(-1, LB_DESC_COLS)
+    if len(bases) > kernels.LB_MAX_BASES:
+        raise ValueError(f"lookback_recon_chunks reads at most {kernels.LB_MAX_BASES} tensors a launch")
+    _check_cuda(*((b, torch.int64) for b in bases))
+    dev = bases[0].device
+    if desc_dev is None:
+        desc_dev = torch.from_numpy(desc).to(dev)
+    _check_cuda((desc_dev, torch.int64))
+    if desc_dev.device != dev or tuple(desc_dev.shape) != desc.shape:
+        raise ValueError("lookback_recon_chunks: desc_dev must hold desc's rows on the bases' device")
+    kernels.launch_lookback_chunks(bases, desc, desc_dev)
+
+
 def lookback_recon(latents, lookbacks, moments, window_n: int, state_n: int, bits: int):
-    """K3: per-page lookback reconstruction; arguments as
-    lookback_decode_pages_plain. Pages of at most kernels.LB_SMEM_MAX_N
-    numbers run in shared memory, one block per page; longer pages run the
-    same rounds in global memory, one launch per round."""
+    """K3 on one chunk's pages; arguments as lookback_decode_pages_plain.
+    Pages of at most kernels.LB_SMEM_MAX_N numbers run as a one-row table
+    of lookback_recon_chunks, a block a page in shared memory; longer pages
+    run the same rounds in device memory, one launch a round."""
     if latents.device.type == "cpu":
         return lookback_decode_pages_plain(latents, lookbacks, moments, window_n, state_n, bits)
     P, N = latents.shape
@@ -224,11 +299,13 @@ def lookback_recon(latents, lookbacks, moments, window_n: int, state_n: int, bit
         raise ValueError("lookback_recon: argument shapes do not match the pages")
     _check_cuda((latents, torch.int64), (lookbacks, torch.int64), (moments, torch.int64))
     out = torch.empty_like(latents)
-    scratch = None
-    if N > kernels.LB_SMEM_MAX_N:
-        scratch = (torch.empty_like(latents), torch.empty((2, P, N), dtype=torch.int32, device=latents.device))
-    kernels.launch_lookback_recon(latents, lookbacks, moments, out, window_n, state_n,
-                                  _i64(1 << (bits - 1)), lookback_rounds(N), scratch)
+    if N <= kernels.LB_SMEM_MAX_N:
+        row = [0, 0, 1, 0, 2, 0, 3, 0, P, N, P * N, state_n, window_n, bits, JOIN_LATENTS, 0]
+        lookback_recon_chunks([latents, lookbacks, moments, out], np.array([row], np.int64))
+        return out
+    kernels.launch_lookback_recon(latents, lookbacks, moments, out, window_n, state_n, _i64(1 << (bits - 1)),
+                                  lookback_rounds(N), torch.empty_like(latents),
+                                  torch.empty((2, P, N), dtype=torch.int32, device=latents.device))
     return out
 
 

@@ -33,6 +33,7 @@ SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "
 # micro_gather's four routes (its `route` argument), each counted on its own
 GATHER_ROUTES = ("gather_take", "gather_taa", "gather_lane", "gather_row")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
+LB_MAX_BASES = 68  # tensors one K3 launch reads and writes; must match csrc/lookback_recon.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,10 +44,19 @@ NVCC_FLAGS = (
 # grid sweep has a block a tile ahead up to 8,192 entries, walking from 16,384
 DICT_WALK_ENTRIES = 8192
 
+# K3's threads a block (a page a block; more where a page needs over 16
+# positions a thread), from chip_smoke.py's sweep
+K3_THREADS = 128
+
+# K6's chains (warps) a block, from chip_smoke.py's sweep; fewer where a
+# block's rows do not fit its shared memory
+K6_WARPS = 1
+
 # C calls that launched kernels, by name; dict_join's counts its kernels
 LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES + ("row_sort_span",) if name != "micro_gather"}
 _LIBS = {}
 _DICT_SMEM_ENTRIES = {}
+_K6_SMEM_WORDS = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,16 +70,17 @@ _ARGTYPES = {
     # latents, page_n, body_n, table_id, states0, nexts, ts, lowers, t1, t2,
     # b_pad, p1, offsets, states, n_chains, device, stream
     "bin_ans_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
-    # p1, offsets, page_n, curs, out, sec_words, n_chains, device, stream
-    "section_pack": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # p1, offsets, page_n, out, sec_words, ans_len, off_len, total_bits,
+    # n_chains, warps, device, stream
+    "section_pack": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     # rowsA, WA, F0A, lenA, RA, rowsC, WC, F0C, lenC, RC, body, body_words,
     # device, stream
     "image_stitch": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _L, _I, _P],
     # in, out, rows, m, in_bytes, key_bytes, passes, mm, keys, hist, device, stream
     "row_sort": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _I, _P],
     # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
-    # ptr_scratch, device, stream
-    "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _I, _P],
+    # ptr_scratch, launched, device, stream
+    "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _P, _I, _P],
     # bases, numels, n_bases, desc, n_chunks, table, n_table, out, n_out, smem, walk, launched,
     # device, stream
     "dict_join": [_P, _P, _I, _P, _I, _P, _L, _P, _L, _I, _I, _P, _I, _P],
@@ -91,6 +102,8 @@ _ARGTYPES = {
 _MORE_FUNCS = {
     # in, rows, m, in_bytes, mm, device, stream
     "row_sort_span": ("row_sort", [_P, _I, _L, _I, _P, _I, _P]),
+    # bases, numels, n_bases, desc, desc_dev, n_rows, threads, launched, device, stream
+    "lookback_chunks": ("lookback_recon", [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P]),
 }
 
 
@@ -191,9 +204,20 @@ def launch_bin_ans_encode(latents, body_n, table_id, states0, nexts, lowers, t1,
           offsets.data_ptr(), states.data_ptr(), latents.shape[0])
 
 
-def launch_section_pack(p1, offsets, curs, out) -> None:
-    _call("section_pack", p1, p1.data_ptr(), offsets.data_ptr(), p1.shape[1], curs.data_ptr(),
-          out.data_ptr(), out.shape[1], out.shape[0])
+def section_pack_smem_words(device) -> int:
+    """Longest row, in words, that K6 stages in shared memory on `device`."""
+    index = torch.device(device).index or 0
+    if index not in _K6_SMEM_WORDS:
+        fn = _lib("section_pack").section_pack_smem_words
+        fn.argtypes = [_I]
+        fn.restype = _L
+        _K6_SMEM_WORDS[index] = fn(index)
+    return _K6_SMEM_WORDS[index]
+
+
+def launch_section_pack(p1, offsets, out, ans_len, off_len, total_bits) -> None:
+    _call("section_pack", p1, p1.data_ptr(), offsets.data_ptr(), p1.shape[1], out.data_ptr(), out.shape[1],
+          ans_len.data_ptr(), off_len.data_ptr(), total_bits.data_ptr(), p1.shape[0], K6_WARPS)
 
 
 def launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body) -> None:
@@ -214,12 +238,25 @@ def launch_row_sort(x, out, mm, keys, hist, key_bytes: int, passes: int) -> None
 
 
 def launch_lookback_recon(lat, lb, mom, out, window_n: int, state_n: int, mid: int, rounds: int,
-                          scratch=None) -> None:
-    """scratch: (add (P, N) int64, ptr (2, P, N) int32) for pages longer
-    than LB_SMEM_MAX_N, else None."""
-    add_s, ptr_s = (scratch[0].data_ptr(), scratch[1].data_ptr()) if scratch else (None, None)
+                          add_scratch, ptr_scratch) -> None:
+    """K3's device-memory route for one chunk's pages: add_scratch (P, N)
+    int64 and ptr_scratch (2, P, N) int32. Counts its kernels."""
+    launched = ctypes.c_int(0)
     _call("lookback_recon", lat, lat.data_ptr(), lb.data_ptr(), mom.data_ptr(), out.data_ptr(),
-          lat.shape[0], lat.shape[1], state_n, window_n, mid, rounds, add_s, ptr_s)
+          lat.shape[0], lat.shape[1], state_n, window_n, mid, rounds, add_scratch.data_ptr(),
+          ptr_scratch.data_ptr(), ctypes.byref(launched), launched=launched)
+
+
+def launch_lookback_chunks(bases, desc, desc_dev) -> None:
+    """bases: the int64 tensors the rows name; desc (R, DESC_COLS) int64
+    numpy rows, desc_dev the same rows on the card. The C side checks every
+    row against its bases. Counts its kernel under lookback_recon."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64)
+    B = len(bases)
+    launched = ctypes.c_int(0)
+    _call("lookback_chunks", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
+          (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
+          desc.shape[0], K3_THREADS, ctypes.byref(launched), count="lookback_recon", launched=launched)
 
 
 def dict_join_smem_entries(device) -> int:

@@ -227,6 +227,11 @@ def test_lookback_plain_matches_jax(P, N, state_n, window_n, bits):
     assert np.array_equal(_u(out), np.asarray(ref))
     assert torch.equal(dec.lookback_recon(_t(latents), _t(lbs), _t(states[:, :state_n]), window_n, state_n,
                                           bits), out)
+    # the container-level plain K3 on a one-row table of the same pages
+    table = torch.zeros(P * N, dtype=torch.int64)
+    row = [0, 0, 1, 0, 2, 0, 3, 0, P, N, P * N, state_n, window_n, bits, dec.JOIN_LATENTS, 0]
+    dec.lookback_recon_chunks_plain([_t(latents), _t(lbs), _t(states[:, :state_n]), table], np.array([row]))
+    assert np.array_equal(_u(table).reshape(P, N), np.asarray(ref))
 
 
 @pytest.mark.parametrize("order,bits", [(1, 32), (3, 16), (6, 32), (2, 8)])

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import pcodec_tpu_torch as pt
+from pcodec_tpu_torch.codec import compress as port_compress
 from pcodec_tpu_torch.delta import conv1_decode_in_place
 from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME as TYPES
 from pcodec_tpu_torch.format.metadata import DeltaEncoding
@@ -85,22 +86,23 @@ def dict_container(case):
     return np.concatenate([four, middle, forty]).astype(np.int64), cfg
 
 
-def _dict_join_calls(data, device):
+def _dict_join_calls(data, device, name="dict_join_chunks"):
     """Decode on `device`, recording the arguments of every container-level
-    K4 call; returns (plan, decoded bits, calls)."""
+    K4 call (or of the wrapper `name` of ops/decode.py); returns (plan,
+    decoded bits, calls)."""
     plan = cd.plan_container(data)
     calls = []
-    saved = dec.dict_join_chunks
+    saved = getattr(dec, name)
 
     def record(*args):
         calls.append(args)
         return saved(*args)
 
-    dec.dict_join_chunks = record
+    setattr(dec, name, record)
     try:
         got = cd.decode_container_tensor(data, device, plan)
     finally:
-        dec.dict_join_chunks = saved
+        setattr(dec, name, saved)
     return plan, got, calls
 
 
@@ -121,6 +123,136 @@ def test_dict_join_chunks_plain_is_the_per_chunk_join(case):
                  for ci, (b, start) in zip(plan.dict_chunks, desc[:, :2].tolist())]
     assert torch.equal(torch.cat([joined[plan.offsets[ci] : plan.offsets[ci + 1]] for ci in plan.dict_chunks]),
                        torch.cat(per_chunk))
+
+
+LB_CASES = ["i64_p1024", "i32_p256", "u16_p256", "f32_p1024", "i64_state_n_4", "int_mult", "dict"]
+
+
+def lookback_container(case, monkeypatch):
+    """Numbers and bytes of a TRY_LOOKBACK container of 7,000 numbers in
+    chunks of 3,000 (three chunks, the last page of each ragged): Classic
+    i64, i32, u16 and f32 (state_n 1, as the encoder makes it), i64 with a
+    stored state of 4 latents (state_n_log 2, the encoder's new_lookback
+    monkeypatched), and IntMult and Dict chunks under lookback."""
+    rng = np.random.default_rng(LB_CASES.index(case) + 90)
+    n = 7000
+    pattern = rng.integers(0, 50_000, 61)
+    reps = np.tile(pattern, n // 61 + 1)[:n] + rng.integers(0, 2, n)
+    mode = ("classic", 0.0)
+    if case == "i64_state_n_4":
+        monkeypatch.setattr(port_compress, "new_lookback",
+                            lambda k: DeltaEncoding.lookback(max(6, (k - 1).bit_length()), 2))
+    if case == "int_mult":
+        nums, mode = (reps * 1000 + rng.integers(0, 3, n)).astype(np.int64), ("try_int_mult", 1000.0)
+    elif case == "dict":
+        nums = np.array([3, 99, 1234567, -5, 77], np.int64)[np.tile(rng.integers(0, 5, 61), n // 61 + 1)[:n]]
+        mode = ("try_dict", 0.0)
+    else:
+        dtype = {"i64": np.int64, "i32": np.int32, "u16": np.uint16, "f32": np.float32}[case.split("_")[0]]
+        nums = (reps * 0.5).astype(dtype) if dtype == np.float32 else reps.astype(dtype)
+    cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(*mode), delta_spec=pt.DeltaSpec("try_lookback"))
+    page_n = 256 if "p256" in case or case in ("int_mult", "dict") else 1024
+    return nums, pt.container_compress(nums, cfg, page_n=page_n, chunk_n=3000)
+
+
+@pytest.mark.parametrize("case", LB_CASES)
+def test_lookback_recon_chunks_plain_is_the_per_chunk_join(case, monkeypatch):
+    """Exact: the container-level plain K3 (one call a decode) equals, for
+    each lookback chunk, lookback_decode_pages_plain on its launch rows,
+    then trim_pages and, for a Classic chunk, the Classic join into the
+    output at the chunk's offset (other chunks' latents in the scratch);
+    the decode equals the host container_decompress and the source."""
+    nums, data = lookback_container(case, monkeypatch)
+    plan, got, calls = _dict_join_calls(data, "cpu", "lookback_recon_chunks")
+    ((bases, desc, _),) = calls
+    assert np.array_equal(cd.to_numbers(got, plan.nt).view(np.uint8), nums.view(np.uint8))
+    assert np.array_equal(pt.container_decompress(data).view(np.uint8), nums.view(np.uint8))
+    named = dict(zip(plan.lookback_bases, bases))
+    assert len(plan.chunks) == 3 and plan.lookback_chunks == {0, 1, 2} and len(desc) == 3
+
+    def rows_of(vp, cp):
+        if vp.trivial:
+            return torch.full((cp.n_pages, cp.page_n), dec._i64(vp.const_lower), dtype=torch.int64)
+        return named[("launch", vp.launch_key)][vp.chain_start : vp.chain_start + cp.n_pages]
+
+    for ci in sorted(plan.lookback_chunks):
+        cp = plan.chunks[ci]
+        assert cp.page_ns[-1] < cp.page_n  # a ragged last page
+        vp, de = cp.var_plans["primary"], cp.delta
+        assert de.state_n == (4 if case == "i64_state_n_4" else 1)
+        rec = dec.lookback_decode_pages_plain(rows_of(vp, cp), rows_of(cp.var_plans["delta"], cp),
+                                              torch.from_numpy(vp.moments.view(np.int64)), de.window_n,
+                                              de.state_n, vp.bits)
+        lat = cd.trim_pages(rec, cp)
+        if cp.mode_kind == "classic":
+            assert torch.equal(got[plan.offsets[ci] : plan.offsets[ci + 1]],
+                               dec.join_mem(plan.nt, "classic", 0, lat, None))
+        else:
+            at = plan.lookback_scratch[(ci, "primary")]
+            assert torch.equal(named[("scratch",)][at : at + cp.n], lat)
+    assert max(plan.chunks[ci].n_pages for ci in plan.lookback_chunks) > 1
+    assert {plan.chunks[ci].mode_kind for ci in plan.lookback_chunks} == {
+        {"int_mult": "int_mult", "dict": "dict"}.get(case, "classic")}
+
+
+def _random_lookback_table(seed):
+    """A random K3 table over five tensors (latents, lookbacks with some 0
+    and past the window, stored states, an output and a scratch, both
+    filled with -77): Classic rows (unsigned, signed and float joins) and
+    latent rows, ragged last pages, rows starting at odd numbers (no 16-byte
+    loads), trivial latents and lookbacks, state_n 0 to 40 (past the page),
+    latent bits 8 to 64, page lengths 1 to 16,384. Returns (bases, desc)."""
+    rng = np.random.default_rng(seed)
+    specs = [  # P, N, n, state_n, window_n, bits, join, lat trivial, lb trivial
+        (3, 1024, 3000, 1, 1024, 64, 2, False, False), (2, 256, 300, 4, 64, 32, 0, False, False),
+        (4, 1000, 3999, 40, 5000, 16, 3, False, False), (1, 256, 77, 0, 256, 8, 1, False, True),
+        (2, 512, 1024, 2, 512, 64, 0, True, False), (1, 30, 30, 64, 30, 32, 2, False, False),
+        (5, 256, 1201, 1, 10, 64, 3, True, True), (1, 1, 1, 1, 1, 64, 1, False, False),
+        (2, 16384, 20000, 8, 30000, 64, 2, False, False),
+    ]
+    n_lat = sum(p * n for p, n, *_ in specs) + 2 * len(specs)
+    lat = torch.from_numpy(rng.integers(0, 2**64, n_lat, dtype=np.uint64).view(np.int64))
+    lbs = rng.integers(1, 1025, n_lat)
+    lbs[::13] = 0
+    lbs[5::31] = 10**6
+    mom = torch.from_numpy(rng.integers(0, 2**64, sum(p * s for p, _, _, s, *_ in specs), dtype=np.uint64)
+                           .view(np.int64))
+    out = torch.full((sum(s[2] for s in specs if s[6]),), -77, dtype=torch.int64)
+    scratch = torch.full((sum(s[2] for s in specs if not s[6]),), -77, dtype=torch.int64)
+    rows, at, mo, oo, so, page0 = [], 0, 0, 0, 0, 0
+    for i, (P, N, nv, sn, wn, bits, join, lat_t, lb_t) in enumerate(specs):
+        at += i % 2  # every other row starts at an odd number
+        src_lat = (-1, int(rng.integers(-(2**63), 2**63))) if lat_t else (0, at)
+        src_lb = (-1, int(rng.integers(0, 2 * wn))) if lb_t else (1, at)
+        dst = (3, oo) if join else (4, so)
+        rows.append([*src_lat, *src_lb, 2, mo, *dst, P, N, nv, sn, wn, bits, join, page0])
+        at, mo, page0 = at + P * N, mo + P * sn, page0 + P
+        oo, so = (oo + nv, so) if join else (oo, so + nv)
+    return [lat, torch.from_numpy(lbs), mom, out, scratch], np.array(rows, np.int64)
+
+
+def test_lookback_recon_chunks_plain_matches_per_row_pages():
+    """Exact: on a random table, the plain K3 writes each row's first n
+    numbers of lookback_decode_pages_plain over its pages, joined, at its
+    output offset, and nothing else of the output or the scratch."""
+    bases, desc = _random_lookback_table(7)
+    before = dict(kernels.LAUNCHES)
+    got = [b.clone() for b in bases]
+    dec.lookback_recon_chunks(got, desc)
+    assert kernels.LAUNCHES == before  # the plain version on the CPU
+    written = [torch.zeros(b.shape, dtype=torch.bool) for b in bases]
+    for r in desc.tolist():
+        (lb_, ls, bb, bs_, mb, ms, ob, os_, P, N, nv, sn, wn, bits, join, _) = r
+        lat = torch.full((P * N,), ls) if lb_ < 0 else torch.cat([bases[0][ls : ls + nv], torch.zeros(P * N - nv,
+                                                                   dtype=torch.int64)])
+        lb = torch.full((P * N,), bs_) if bb < 0 else torch.cat([bases[1][bs_ : bs_ + nv],
+                                                                 torch.zeros(P * N - nv, dtype=torch.int64)])
+        rec = dec.lookback_decode_pages_plain(lat.view(P, N), lb.view(P, N), bases[2][ms : ms + P * sn].view(P, sn),
+                                              wn, sn, bits).reshape(-1)[:nv]
+        assert torch.equal(got[ob][os_ : os_ + nv], dec.ordered_join(join, bits, rec))
+        written[ob][os_ : os_ + nv] = True
+    for i in (3, 4):
+        assert bool(written[i].all()) and torch.equal(got[i][~written[i]], bases[i][~written[i]])
 
 
 @pytest.mark.parametrize("order", [1, 4, 6])
@@ -181,9 +313,88 @@ def test_lookback_recon_matches_plain_on_card(P, N, state_n, window_n, bits):
     before = kernels.LAUNCHES["lookback_recon"]
     got = dec.lookback_recon(*args, window_n, state_n, bits)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["lookback_recon"] == before + 1
+    # a one-row table in shared memory, or the device-memory route's prologue and rounds
+    kernels_n = 1 if N <= kernels.LB_SMEM_MAX_N else 1 + dec.lookback_rounds(N)
+    assert kernels.LAUNCHES["lookback_recon"] == before + kernels_n
     assert (N > kernels.LB_SMEM_MAX_N) == (N == 20000)
     assert torch.equal(got, dec.lookback_decode_pages_plain(*args, window_n, state_n, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,threads", [(7, 256), (8, 128), (9, 1024)])
+def test_lookback_recon_chunks_matches_plain_on_card(seed, threads, monkeypatch):
+    """Exact: one counted K3 launch on a random table (Classic and latent
+    rows, ragged pages, odd starts, trivial vars, state_n past the page,
+    pages of 1 to 16,384 numbers) equals the plain version in both
+    outputs, at blocks of 128, 256 and 1,024 threads."""
+    _need_card()
+    monkeypatch.setattr(kernels, "K3_THREADS", threads)
+    bases, desc = _random_lookback_table(seed)
+    bases = [b.cuda() for b in bases]
+    want = bases[:3] + [b.clone() for b in bases[3:]]
+    got = bases[:3] + [b.clone() for b in bases[3:]]
+    before = kernels.LAUNCHES["lookback_recon"]
+    dec.lookback_recon_chunks(got, desc, torch.from_numpy(desc).cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lookback_recon"] == before + 1
+    dec.lookback_recon_chunks_plain(want, desc)
+    for i in (3, 4):
+        assert torch.equal(got[i], want[i])
+        assert not bool((got[i] == -77).any())
+
+
+@pytest.mark.gpu
+def test_lookback_recon_chunks_refuses_wrong_arguments_on_card():
+    """A row past its base, a page longer than shared memory holds, rows
+    that do not follow each other, a base that is not int64, more bases
+    than a launch carries and rows on the card that are not the table's
+    are refused, and nothing is launched."""
+    _need_card()
+    bases, desc = _random_lookback_table(7)
+    bases = [b.cuda() for b in bases]
+    before = kernels.LAUNCHES["lookback_recon"]
+    bad_rows = []
+    for col, value in ((2, 7), (9, kernels.LB_SMEM_MAX_N + 256), (15, 1)):  # lb base, page_n, page0 of row 0
+        bad = desc.copy()
+        bad[0, col] = value
+        bad_rows.append(bad)
+    past = desc.copy()
+    past[1, 10] = past[1, 8] * past[1, 9] + 1  # more numbers than its pages hold
+    bad_rows.append(past)
+    for bad in bad_rows:
+        with pytest.raises(RuntimeError, match="lookback_recon kernel launch failed"):
+            dec.lookback_recon_chunks(bases, bad)
+    with pytest.raises(ValueError):
+        dec.lookback_recon_chunks(bases[:3] + [bases[3].to(torch.int32)] + bases[4:], desc)
+    with pytest.raises(ValueError):
+        dec.lookback_recon_chunks(bases + [bases[0]] * kernels.LB_MAX_BASES, desc)
+    with pytest.raises(ValueError):
+        dec.lookback_recon_chunks(bases, desc, torch.from_numpy(desc[:-1]).cuda())
+    assert kernels.LAUNCHES["lookback_recon"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LB_CASES)
+def test_lookback_container_decode_one_launch_on_card(case, monkeypatch):
+    """Exact: a multi-chunk lookback container (Classic of four number
+    types, state_n 4, IntMult, Dict) decodes on the card to its source with
+    exactly one K3 launch, which equals its plain version on the call's
+    inputs."""
+    _need_card()
+    nums, data = lookback_container(case, monkeypatch)
+    before = kernels.LAUNCHES["lookback_recon"]
+    plan, got, calls = _dict_join_calls(data, "cuda", "lookback_recon_chunks")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lookback_recon"] == before + 1
+    assert np.array_equal(cd.to_numbers(got, plan.nt).view(np.uint8), nums.view(np.uint8))
+    ((bases, desc, desc_dev),) = calls
+    outs = [i for i, key in enumerate(plan.lookback_bases) if key in (("out",), ("scratch",))]
+    kern = [b.clone() if i in outs else b for i, b in enumerate(bases)]
+    plain = [b.clone() if i in outs else b for i, b in enumerate(bases)]
+    dec.lookback_recon_chunks(kern, desc, desc_dev)
+    dec.lookback_recon_chunks_plain(plain, desc)
+    for i in outs:
+        assert torch.equal(kern[i], plain[i])
 
 
 @pytest.mark.gpu

@@ -176,8 +176,7 @@ def _launch_outputs(nums, cfg, page_n, chunk_n):
     a = ce.upload_launch(L, "cpu")
     p1, offsets, states = ce.bin_ans_encode(a["latents"], a["body_n"], a["table_id"], a["states0"],
                                             a["nexts"], a["lowers"], a["t1"], a["t2"])
-    ans_len, off_len, curs, total_bits = ce.section_cursors(p1)
-    sections = ce.section_pack(p1, offsets, curs, L.sec_words)
+    sections, ans_len, off_len, total_bits = ce.section_pack(p1, offsets, L.sec_words)
     return plan, L, [x.numpy() for x in (p1, offsets, states, ans_len, off_len, total_bits, sections)]
 
 

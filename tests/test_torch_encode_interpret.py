@@ -11,6 +11,7 @@ alone so that a worker of its own can run it (interpret mode is slow).
 """
 
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 
@@ -40,7 +41,7 @@ def test_plain_encode_matches_jax_pallas_kernels_in_interpret_mode():
     q1, offsets, states = ce.bin_ans_encode(a["latents"], a["body_n"], a["table_id"], a["states0"],
                                             a["nexts"], a["lowers"], a["t1"], a["t2"])
     q_ans, q_off, curs, total_bits = ce.section_cursors(q1)
-    secs = ce.section_pack(q1, offsets, curs, L.sec_words)
+    secs, k6_ans, k6_off, k6_total = ce.section_pack(q1, offsets, L.sec_words)
 
     lo = ce._from_round_layout(np.asarray(offlo)).astype(np.uint32).astype(np.uint64)
     hi = ce._from_round_layout(np.asarray(offhi)).astype(np.uint32).astype(np.uint64)
@@ -53,6 +54,7 @@ def test_plain_encode_matches_jax_pallas_kernels_in_interpret_mode():
     assert np.array_equal(curs.numpy(), np.asarray(curs_cols))
     assert np.array_equal(total_bits.numpy(), np.asarray(start[:, -1] + total[:, -1]))
     assert np.array_equal(secs.numpy(), np.asarray(sections).reshape(T * 256, -1))
+    assert torch.equal(k6_ans, q_ans) and torch.equal(k6_off, q_off) and torch.equal(k6_total, total_bits)
     assert int(total_bits.sum()) > 0
     # K5's steps in plain torch (tiles of 8 rounds) give JAX's bits too
     t1, t_off, t_st = ce.bin_ans_encode_tiled_plain(a["latents"], a["body_n"], a["table_id"], a["states0"],

@@ -61,15 +61,29 @@ def test_wrappers_take_plain_versions_on_cpu():
     for x, y in zip(outs, ce.bin_ans_encode_plain(*_k5_args(a))):
         assert torch.equal(x, y)
     p1, offsets, _ = outs
-    _, _, curs, _ = ce.section_cursors(p1)
     W = plan.launch.sec_words
-    assert torch.equal(ce.section_pack(p1, offsets, curs, W), ce.section_pack_plain(p1, offsets, curs, W))
+    for x, y in zip(ce.section_pack(p1, offsets, W), ce.section_pack_plain(p1, offsets, W)):
+        assert torch.equal(x, y)
     assert kernels.LAUNCHES == before
+
+
+def _bit_writer_rows(val, ren, off, ob):
+    """Each chain's page body as BitWriter writes it: per batch of 256, the
+    ANS values (ren bits each), then the offsets (ob bits each)."""
+    rows = []
+    for c in range(val.shape[0]):
+        w = BitWriter()
+        for b in range(val.shape[1] // 256):
+            sl = slice(256 * b, 256 * (b + 1))
+            w.write_batch(val[c, sl].astype(np.uint64), ren[c, sl])
+            w.write_batch(off[c, sl], ob[c, sl])
+        rows.append(np.frombuffer(w.to_bytes(), np.uint8))
+    return rows
 
 
 def test_section_pack_plain_matches_bit_writer():
     """Exact: random ANS values (0-15 bits) and offsets (0-64 bits) packed
-    at the glue's cursors equal BitWriter's stream of the same batches."""
+    at the cursors equal BitWriter's stream of the same batches."""
     n, page_n = 3, 512
     ren = RNG.integers(0, 16, (n, page_n))
     ob = RNG.integers(0, 65, (n, page_n))
@@ -78,16 +92,54 @@ def test_section_pack_plain_matches_bit_writer():
     off = np.where(ob >= 64, off, off & ((np.uint64(1) << ob.astype(np.uint64)) - np.uint64(1)))
     p1 = torch.from_numpy((val | (ren << 15) | (ob << 19)).astype(np.int32))
     offsets = torch.from_numpy(off.view(np.int64))
-    _, _, curs, total_bits = ce.section_cursors(p1)
-    W = -(-int(total_bits.max()) // 128) * 4 + 4
-    got = ce.section_pack_plain(p1, offsets, curs, W).numpy().view(np.uint8)
-    for c in range(n):
-        w = BitWriter()
-        for b in range(page_n // 256):
-            sl = slice(256 * b, 256 * (b + 1))
-            w.write_batch(val[c, sl].astype(np.uint64), ren[c, sl])
-            w.write_batch(off[c, sl], ob[c, sl])
-        want = np.frombuffer(w.to_bytes(), np.uint8)
+    total_bits = int((ren + ob).sum(1).max())
+    W = -(-total_bits // 128) * 4 + 4
+    got, _, _, total = ce.section_pack_plain(p1, offsets, W)
+    got = got.numpy().view(np.uint8)
+    for c, want in enumerate(_bit_writer_rows(val, ren, off, ob)):
+        assert int(total[c]) == int(ren[c].sum() + ob[c].sum())
+        assert np.array_equal(got[c, : len(want)], want) and not got[c, len(want):].any()
+
+
+K6_CASES = ["ob_0", "ob_1_32", "ob_33", "ob_64", "mixed"]
+
+
+def _random_k6_launch(case, n=6, page_n=768):
+    """K5-like outputs of n chains: random ANS values (0-15 bits) and
+    offsets of the case's widths (none, 1-32, 33, 64 bits, or a mix of
+    0-64), ragged body lengths (0, 1, 255, 257, the page, the page less 3:
+    K5 leaves p1 and the offset 0 past them), and sec_words at the encoder's
+    worst-case bound (chunk_job's, rounded up to 4 words as for a launch).
+    Returns (p1, offsets, sec_words, (val, ren, off, ob))."""
+    rng = np.random.default_rng(K6_CASES.index(case) + 60)
+    ren = rng.integers(0, 16, (n, page_n))
+    ob = {"ob_0": np.zeros((n, page_n), np.int64), "ob_1_32": rng.integers(1, 33, (n, page_n)),
+          "ob_33": np.full((n, page_n), 33), "ob_64": np.full((n, page_n), 64),
+          "mixed": rng.choice([0, 1, 17, 32, 33, 50, 63, 64], (n, page_n))}[case]
+    live = np.arange(page_n)[None, :] < np.array([0, 1, 255, 257, page_n, page_n - 3])[:n, None]
+    ren, ob = np.where(live, ren, 0), np.where(live, ob, 0)
+    val = rng.integers(0, 1 << 15, (n, page_n)) & ((1 << ren) - 1)
+    off = rng.integers(0, 2**64, (n, page_n), dtype=np.uint64)
+    off = np.where(ob >= 64, off, off & ((np.uint64(1) << ob.astype(np.uint64)) - np.uint64(1)))
+    worst = 15 + int(ob.max())
+    sec_words = -(-(-(-(page_n * (worst + 1) + 64) // 32)) // 4) * 4
+    p1 = torch.from_numpy((val | (ren << 15) | (ob << 19)).astype(np.int32))
+    return p1, torch.from_numpy(off.view(np.int64)), sec_words, (val, ren, off, ob)
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_section_pack_plain_returns_cursors_lengths_and_deposits(case):
+    """Exact: the plain K6 returns section_cursors' lengths and total bits,
+    and sections equal to BitWriter's stream of the same batches (zero past
+    it), on random launches with offsets of 0, 1-32, 33 and 64 bits, ragged
+    body lengths and sec_words at its worst-case bound."""
+    p1, offsets, W, (val, ren, off, ob) = _random_k6_launch(case)
+    sections, ans_len, off_len, total_bits = ce.section_pack_plain(p1, offsets, W)
+    c_ans, c_off, _, c_total = ce.section_cursors(p1)
+    assert torch.equal(ans_len, c_ans) and torch.equal(off_len, c_off) and torch.equal(total_bits, c_total)
+    assert sections.shape == (p1.shape[0], W)
+    got = sections.numpy().view(np.uint8)
+    for c, want in enumerate(_bit_writer_rows(val, ren, off, ob)):
         assert int(total_bits[c]) == int(ren[c].sum() + ob[c].sum())
         assert np.array_equal(got[c, : len(want)], want) and not got[c, len(want):].any()
 
@@ -256,10 +308,11 @@ def test_kernels_match_plain_versions_on_card(case):
     for x, y in zip(outs, ce.bin_ans_encode_plain(*_k5_args(a))):
         assert torch.equal(x, y)
     p1, offsets, states = outs
-    ans_len, off_len, curs, total_bits = ce.section_cursors(p1)
     W = plan.launch.sec_words
-    sections = ce.section_pack(p1, offsets, curs, W)
-    assert torch.equal(sections, ce.section_pack_plain(p1, offsets, curs, W))
+    k6 = ce.section_pack(p1, offsets, W)
+    for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)):
+        assert torch.equal(x, y)
+    sections, ans_len, off_len, total_bits = k6
     prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
     rows = (prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"])
     nw = -(-int(prep["sizes"][0]) // 4)
@@ -323,7 +376,16 @@ def test_encode_wrappers_refuse_wrong_arguments_on_card():
     _need_card()
     p1 = torch.zeros((4, 256), dtype=torch.int64, device="cuda")
     with pytest.raises(ValueError):
-        ce.section_pack(p1, p1, torch.zeros((4, 2), dtype=torch.int64, device="cuda"), 8)
+        ce.section_pack(p1, p1, 8)  # p1 must be int32
+    p1 = p1.to(torch.int32)
+    offsets = torch.zeros((4, 256), dtype=torch.int64, device="cuda")
+    for bad in (6, 0):  # sec_words not a multiple of 4, or none
+        with pytest.raises(ValueError):
+            ce.section_pack(p1, offsets, bad)
+    with pytest.raises(ValueError):
+        ce.section_pack(p1[:, :200].contiguous(), offsets[:, :200].contiguous(), 8)  # a ragged batch
+    with pytest.raises(ValueError):
+        ce.section_pack(p1, offsets[:3], 8)
     _, a = _big_table_launch("cuda")
     a["table_id"][5] = 1  # a block of chains that does not share one table
     with pytest.raises(ValueError, match="share one table"):
@@ -347,3 +409,26 @@ def test_bin_ans_encode_matches_plain_on_random_launch_on_card(case):
         assert torch.equal(x, y)
     for x, y in zip(got, ce.bin_ans_encode_tiled_plain(*_k5_args(a))):
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K6_CASES + ["smem_limit", "past_smem_limit"])
+def test_section_pack_matches_plain_on_random_launch_on_card(case):
+    """Exact: K6 on the card (one counted launch) equals its plain version
+    in every output (sections, ans_len, off_len, total_bits) on random
+    launches: offsets of 0, 1-32, 33 and 64 bits, ragged body lengths,
+    sec_words at the worst-case bound; rows of exactly the longest the
+    shared-memory route stages (a block of one warp), and 4 words longer
+    (device memory)."""
+    _need_card()
+    p1, offsets, W, _ = _random_k6_launch("mixed" if "smem" in case else case)
+    if "smem" in case:
+        W = kernels.section_pack_smem_words("cuda") // 4 * 4 + (4 if case == "past_smem_limit" else 0)
+    p1, offsets = p1.cuda(), offsets.cuda()
+    before = kernels.LAUNCHES["section_pack"]
+    got = ce.section_pack(p1, offsets, W)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["section_pack"] == before + 1
+    for x, y in zip(got, ce.section_pack_plain(p1, offsets, W)):
+        assert torch.equal(x, y)
+    assert got[0].shape == (p1.shape[0], W)

@@ -10,7 +10,7 @@ import re
 
 import pytest
 
-from pcodec_tpu_torch.ops import kernels, row_sort
+from pcodec_tpu_torch.ops import decode, kernels, row_sort
 
 _CONSTEXPR = re.compile(r"constexpr\s+[\w ]+?\s+(\w+)\s*=\s*([^;]+);")
 
@@ -37,8 +37,22 @@ def _cu_constants(name: str) -> dict:
     ("bin_ans_encode", "CHAINS_PER_GROUP", kernels.CHAINS_PER_BLOCK),
     ("bin_ans_encode", "TILE_ROUNDS", kernels.K5_TILE_ROUNDS),
     ("lookback_recon", "SMEM_MAX_N", kernels.LB_SMEM_MAX_N),
+    ("lookback_recon", "MAX_BASES", kernels.LB_MAX_BASES),
+    ("lookback_recon", "DESC_COLS", decode.LB_DESC_COLS),
+    ("lookback_recon", "JOIN_LATENTS", decode.JOIN_LATENTS),
+    ("lookback_recon", "JOIN_UNSIGNED", decode.JOIN_UNSIGNED),
+    ("lookback_recon", "JOIN_SIGNED", decode.JOIN_SIGNED),
+    ("lookback_recon", "JOIN_FLOAT", decode.JOIN_FLOAT),
     ("row_sort", "TILE", row_sort.RADIX_TILE),
     ("row_sort", "BITS", row_sort.RADIX_BITS),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value
+
+
+def test_k3_descriptor_columns_follow_the_kernel_enum():
+    """K3's descriptor columns (decode.LB_COLS) in the order of
+    csrc/lookback_recon.cu's `enum Col`."""
+    with open(os.path.join(kernels._CSRC, "lookback_recon.cu")) as f:
+        body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
+    assert [name.strip().lower() for name in body.split(",") if name.strip()] == list(decode.LB_COLS)
