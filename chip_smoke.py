@@ -60,18 +60,25 @@ Phases, one line each (numbers beside the card's name and power limit):
                           card by encode_container_image_device: training on
                           the card (plan_encode_device: K8 sorts every
                           chunk's delta'd latents, K9 walks their histograms),
-                          then K5, K6 and K7; compared byte for byte with the
-                          decode phase's container; K5-K9 held against their
+                          then K5, K6 and K7 (the image prep inside); compared
+                          byte for byte with the decode phase's container,
+                          its peak memory printed; K5-K9 held against their
                           plain versions at these shapes (K8 and K9 on the
-                          calls the encode made); K5 and K6 also timed on the
-                          card alone, beside ts, b_pad and the ANS and offset
-                          bits a number, K6 at each block size of its sweep,
-                          the plain section_cursors (the glue K6 took in)
-                          timed beside it; the device part, the
-                          training and each step timed with CUDA events, K8
-                          three ways: as called, its sort launch alone on
-                          prepared keys, and torch.sort, and one call's
-                          device time split over its kernels
+                          calls the encode made); K5, K6, K7 and K9 also timed
+                          on the card alone, beside ts, b_pad and the ANS and
+                          offset bits a number, K6 at each block size of its
+                          sweep, the plain section_cursors (the glue K6 took
+                          in) timed beside it, K7's two passes apart, its
+                          placement at each run of pages a warp of its sweep
+                          and its kernels' device time, the plain prepare_image (the
+                          prep K7 took in) and an index_add_ of its rows (the
+                          placement alone) timed once beside it, K9's longest
+                          lane alone and its time a step; the device part
+                          (with torch.profiler's count of the CUDA kernels one
+                          run_image runs), the training and each step timed
+                          with CUDA events, K8 three ways: as called, its sort
+                          launch alone on prepared keys, and torch.sort, and
+                          one call's device time split over its kernels
   5c. auto config the same 64M numbers at ChunkConfig() (auto mode, auto
                   delta) with 2M-number chunks, as bench.py encodes them:
                   trained on the card (stage-1 candidate sorts and walks,
@@ -128,8 +135,9 @@ Phases, one line each (numbers beside the card's name and power limit):
   7. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
-     The rows of K2, K3, K5 and K6 add `device_ms` (the card alone) and the
-     label `"status": "redesigned"`; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
+     The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
+     and the label `"status": "redesigned"`, K9's also its longest lane's
+     steps and time alone; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
      (torch.gather on the card alone).
 
 Launch counts are set to 0 just before each main-path run, and before
@@ -509,7 +517,10 @@ def ptxas_lines(reports):
                 smem = re.search(r"ILb(\d)E", name)
                 ept = re.search(r"lb_chunks_kernelILi(\d+)E", name)
                 sort = re.search(r"(minmax|span|hist|scan|scatter)_kernel(?:I([yj]+)((?:Lb\dE)*))?", name)
-                entry = (f"shared memory, {ept.group(1)} per thread" if ept else
+                image = re.search(r"image_(sums|blocks|stitch)_kernel", name)
+                entry = ({"sums": "page offsets and head", "blocks": "blocks' scan",
+                          "stitch": "placement"}[image.group(1)] if image else
+                         f"shared memory, {ept.group(1)} per thread" if ept else
                          ("row in shared memory" if smem.group(1) == "1" else "row in device memory")
                          if smem and "section_pack" in name else
                          "global route, prologue" if "lb_init_kernel" in name else
@@ -555,20 +566,21 @@ def walk_tables(torch, dt, lanes, nb_log, dev):
     return (*ext, n, nb_log)
 
 
-def walk_steps(R, n, nb_log: int) -> int:
-    """Steps the walks of one K9 call take, from its R table and counts:
-    a step either ends the lane or moves it to R of its bin."""
+def walk_steps(R, n, nb_log: int) -> list:
+    """Steps each lane's walk of one K9 call takes, from its R table and
+    counts: a step either ends the lane or moves it to R of its bin."""
     R, n = R.cpu().numpy(), n.cpu().numpy()
     nb = 1 << nb_log
-    steps = 0
+    steps = []
     for lane in range(len(n)):
-        pos, ln = 0, int(n[lane])
+        pos, ln, k = 0, int(n[lane]), 0
         while pos < ln:
-            steps += 1
+            k += 1
             j = (pos << nb_log) // ln
             if (((j + 1) * ln + nb - 1) >> nb_log) - pos >= ln - pos:
                 break
             pos = int(R[lane, j])
+        steps.append(k)
     return steps
 
 
@@ -693,6 +705,7 @@ def kernels_line(counted) -> str:
 
 SWEEP_K6_WARPS = (1, 2, 4, 8, 16)
 SWEEP_K3_THREADS = (128, 256, 512, 1024)
+SWEEP_K7_PAGES_PER_WARP = (1, 2, 4, 8, 16)
 
 
 def k6_warps_sweep(kernels, ce, st, W) -> dict:
@@ -756,10 +769,6 @@ def k8_line(ways, plan) -> str:
             f"(card alone {th:.4f}); torch.sort takes {t[0] / w[0]:.2f}x K8's time as called")
 
 
-def stitch_args(prep):
-    return (prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"])
-
-
 def check_encode_steps(ce, asm, plan, a):
     """K5, K6 and K7 against their plain versions on one uploaded plan.
     Returns their errors and the intermediate tensors."""
@@ -772,12 +781,13 @@ def check_encode_steps(ce, asm, plan, a):
     err["section_pack"] = max(check_equal(x, y) for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)))
     sections, ans_len, off_len, total_bits = k6
     curs = ce.section_cursors(p1)[2]
-    prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
-    nw = -(-int(prep["sizes"][0]) // 4)
-    body = asm.image_stitch(*stitch_args(prep), nw)
-    err["image_stitch"] = check_equal(body, asm.image_stitch_plain(*stitch_args(prep), nw))
+    head, body, body_bytes = asm.image_assemble(plan, a, sections, states, ans_len, off_len, total_bits)
+    want = asm.image_assemble_plain(plan, a, sections, states, ans_len, off_len, total_bits)
+    if body_bytes != want[2]:
+        raise AssertionError(f"K7 sized the body at {body_bytes} bytes, its plain version at {want[2]}")
+    err["image_stitch"] = max(check_equal(head, want[0]), check_equal(body, want[1]))
     return dict(err=err, p1=p1, offsets=offsets, states=states, ans_len=ans_len, off_len=off_len, curs=curs,
-                total_bits=total_bits, sections=sections, prep=prep, body_words=nw)
+                total_bits=total_bits, sections=sections, body_words=body.shape[0])
 
 
 def experiment_checks(torch, dev) -> None:
@@ -1119,7 +1129,7 @@ def main() -> int:
     t_up = time.time() - t0
     L = iplan.launch
     st = check_encode_steps(ce, asm, iplan, ia)
-    prep, nw = st["prep"], st["body_words"]
+    nw = st["body_words"]
     print(f"main: plan_image {t_iplan:.3f} s (host clock, training on the card included), upload "
           f"{t_up:.3f} s, {L.n_chains} chains, b_pad {L.lowers.shape[1]}, ts {L.nexts.shape[1]}, "
           f"sec_words {L.sec_words}, page p is chain p: {iplan.identity}; "
@@ -1155,32 +1165,64 @@ def main() -> int:
     print(f"main: K8 row_sort's kernels, one call's device time (torch.profiler): "
           f"{kernel_split(torch, lambda: rs.row_sort(x8))} [{card}]", flush=True)
     k9 = time_ms(lambda: dt.walk_bins(*k9_args))
+    k9_alone = time_ms(lambda: dt.walk_bins(*k9_args), hold=True)[0]
     k9_plain = time_ms(lambda: dt.walk_bins_plain(*k9_args), runs=3, warmup=1)
-    k9_one = tuple(x[:1].contiguous() if torch.is_tensor(x) else x for x in k9_args)
-    k9_lane = time_ms(lambda: dt.walk_bins(*k9_one))
     lanes9, nb9 = k9_args[0].shape
-    steps9 = walk_steps(k9_args[2], k9_args[6], k9_args[7])
-    print(f"main: K9 histogram_walk {k9[0]:.4f} ms (min {k9[1]:.4f}, max {k9[2]:.4f}) for {lanes9} lanes of "
-          f"{nb9} bins ({steps9} steps), one lane alone {k9_lane[0]:.4f} ms, plain {k9_plain[0]:.2f} ms "
-          f"[{card}]", flush=True)
+    lane_steps = walk_steps(k9_args[2], k9_args[6], k9_args[7])
+    steps9, long9 = sum(lane_steps), int(np.argmax(lane_steps))
+    k9_one = tuple(x[long9 : long9 + 1].contiguous() if torch.is_tensor(x) else x for x in k9_args)
+    k9_lane = time_ms(lambda: dt.walk_bins(*k9_one), hold=True)[0]
+    print(f"main: K9 histogram_walk {k9[0]:.4f} ms (min {k9[1]:.4f}, max {k9[2]:.4f}; card alone {k9_alone:.4f}) "
+          f"for {lanes9} lanes of {nb9} bins ({steps9} steps), plain {k9_plain[0]:.2f} ms; its longest lane "
+          f"({lane_steps[long9]} steps) alone on the card {k9_lane:.4f} ms, "
+          f"{k9_lane / lane_steps[long9] * 1e3:.3f} us a step [{card}]", flush=True)
     k9_acc = stream_accessors(torch, kernels, lambda: dt.walk_bins(*k9_args))
     print(f"main: K9 a call by stream accessor: {turns_line(k9_acc)} [{card}]", flush=True)
 
     enc = time_ms(lambda: asm.run_image(iplan, ia))
+    enc_kernels = profiled_kernels(torch, lambda: asm.run_image(iplan, ia))
     k5 = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)))
     k5_alone = time_ms(lambda: ce.bin_ans_encode(*k5_args(ia)), hold=True)[0]
     glue = time_ms(lambda: ce.section_cursors(st["p1"]))
     k6 = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], L.sec_words))
     k6_alone = time_ms(lambda: ce.section_pack(st["p1"], st["offsets"], L.sec_words), hold=True)[0]
     k6_sweep = k6_warps_sweep(kernels, ce, st, L.sec_words)
-    prep_t = time_ms(lambda: asm.prepare_image(iplan, ia, st["sections"], st["states"],
-                                                      st["ans_len"], st["off_len"], st["total_bits"]))
-    k7 = time_ms(lambda: asm.image_stitch(*stitch_args(prep), nw))
+    k7_in = (st["sections"], st["states"], st["ans_len"], st["off_len"], st["total_bits"])
+    k7 = time_ms(lambda: asm.image_assemble(iplan, ia, *k7_in))
+    # K7 on the card alone: its two C calls each held (a call waits on the
+    # body's byte count in between), into the scratch and outputs of a call
+    R7 = iplan.layout.total_pages
+    head7 = torch.empty(iplan.head_bytes // 4, dtype=torch.int32, device=dev)
+    scan_words7, page_words7 = kernels.image_scratch_sizes(R7)
+    scan7 = torch.empty(scan_words7, dtype=torch.int64, device=dev)
+    pages7 = torch.empty(page_words7, dtype=torch.int32, device=dev)
+    body7 = torch.empty(nw, dtype=torch.int32, device=dev)
+    E7 = head7.shape[0] - ia["head_host"].shape[0] - R7
+    k7_offsets = time_ms(lambda: kernels.launch_image_offsets(
+        ia["image_desc"], st["total_bits"], st["ans_len"], st["off_len"], st["sections"], st["states"],
+        ia["moments"], ia["image_pfx"], ia["head_host"], E7, head7, scan7, pages7), hold=True)[0]
+    k7_place = time_ms(lambda: kernels.launch_image_stitch(ia["image_desc"], pages7, scan7, st["sections"],
+                                                           st["states"], ia["moments"], ia["image_pfx"], body7),
+                       hold=True)[0]
+    check_equal(body7, asm.image_assemble(iplan, ia, *k7_in)[1])
+    k7_alone = k7_offsets + k7_place
+    k7_want = asm.image_assemble(iplan, ia, *k7_in)[1]
+    k7_sweep = sweep(kernels, "K7_PAGES_PER_WARP", SWEEP_K7_PAGES_PER_WARP,
+                     lambda: check_equal(asm.image_assemble(iplan, ia, *k7_in)[1], k7_want),
+                     lambda: kernels.launch_image_stitch(ia["image_desc"], pages7, scan7, st["sections"],
+                                                         st["states"], ia["moments"], ia["image_pfx"], body7))
+    del k7_want
+    k7_split = kernel_split(torch, lambda: asm.image_assemble(iplan, ia, *k7_in))
     k5_plain = time_ms(lambda: ce.bin_ans_encode_plain(*k5_args(ia)), runs=3, warmup=1)
     k6_plain = time_ms(lambda: ce.section_pack_plain(st["p1"], st["offsets"], L.sec_words), runs=3, warmup=1)
-    k7_plain = time_ms(lambda: asm.image_stitch_plain(*stitch_args(prep), nw), runs=3, warmup=1)
-    # yardstick for K7: one index_add_ of the row words over a precomputed
-    # flat index (the index and the int64 words are not timed)
+    k7_plain = time_ms(lambda: asm.image_assemble_plain(iplan, ia, *k7_in), runs=3, warmup=1)
+    # the plain steps K7 took in, once: prepare_image's rows (the JAX
+    # package's XLA prep), then the placement yardstick, one index_add_ of
+    # the row words over a precomputed flat index (index and int64 words
+    # not timed), which computes the placement only
+    pa = {**ia, **asm.upload_prep(iplan, dev)}
+    prep_t = time_ms(lambda: asm.prepare_image(iplan, pa, *k7_in))
+    prep = asm.prepare_image(iplan, pa, *k7_in)
     flat_idx, flat_val = [], []
     for rows, F0, lenW in ((prep["rowsA"], prep["F0A"], prep["lenA"]),
                            (prep["rowsC"], prep["F0C"], prep["lenC"])):
@@ -1188,6 +1230,7 @@ def main() -> int:
         ok = w[None, :] < lenW[:, None]
         flat_idx.append((F0[:, None] + w[None, :])[ok])
         flat_val.append((rows.to(torch.int64) & 0xFFFFFFFF)[ok])
+    del prep, pa
     flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
     body64 = torch.zeros(nw, dtype=torch.int64, device=dev)
 
@@ -1196,9 +1239,10 @@ def main() -> int:
         body64.index_add_(0, flat_idx, flat_val)
 
     k7_library()
-    if not torch.equal(ce._to_i32(body64), asm.image_stitch(*stitch_args(prep), nw)):
-        raise AssertionError("K7's index_add_ yardstick computes another function")
+    if not torch.equal(ce._to_i32(body64), body7):
+        raise AssertionError("K7's index_add_ placement yardstick computes another function")
     k7_lib = time_ms(k7_library)
+    del flat_idx, flat_val, body64
 
     # bytes the functions need: each coded symbol's latent in, its p1 word
     # and its offset (4 bytes unless some bin has over 32 offset bits) out;
@@ -1217,8 +1261,12 @@ def main() -> int:
     k6_bytes = (syms * (4 + off_b) + nbytes(st["sections"], st["ans_len"], st["off_len"], st["total_bits"]))
     k6_bound, k6_by = bound(k6_bytes, syms * K6_OPS_PER_SYMBOL)
     k6_bound_old = bound(k6_bytes_old, syms * K6_OPS_PER_SYMBOL)[0]
-    row_words = int(prep["lenA"].sum()) + int(prep["lenC"].sum())
-    k7_bytes = row_words * 4 + nbytes(prep["F0A"], prep["lenA"], prep["F0C"], prep["lenC"]) + nw * 4
+    # K7: each page's payload words, the states, lengths, total bits and
+    # moments read once (the descriptor rows, prefix and head host words
+    # too), each body and head word written once
+    k7_bytes = (payload_words * 4 + nbytes(st["states"], st["ans_len"], st["off_len"], st["total_bits"],
+                                           ia["moments"], ia["image_desc"], ia["image_pfx"], ia["head_host"])
+                + nw * 4 + iplan.head_bytes)
     k7_bound = bound(k7_bytes)[0]
     k8_bytes = 2 * rows8 * m8 * 8  # each u64 latent read once and written once
     k8_bound, k8_by = bound(k8_bytes, rows8 * m8 * math.log2(m8))  # m log2 m compares a row
@@ -1228,9 +1276,10 @@ def main() -> int:
     k9_bound, k9_by = bound(k9_bytes, steps9 * K9_OPS_PER_STEP)
     enc_bound = bound(N * 8 + len(data))[0]
     enc_gbps = N * 8 / (enc[0] * 1e-3) / 1e9
-    print(f"main: encode device part (K5, K6, prep, K7) {enc[0]:.3f} ms median "
+    print(f"main: encode device part (K5, K6, K7) {enc[0]:.3f} ms median "
           f"(min {enc[1]:.3f}, max {enc[2]:.3f}, {RUNS} runs), {enc_gbps:.2f} GB/s of input, "
-          f"byte bound {enc_bound:.4f} ms = {enc_bound / enc[0]:.1%} [{card}]", flush=True)
+          f"byte bound {enc_bound:.4f} ms = {enc_bound / enc[0]:.1%}; one run_image runs "
+          f"{kernels_line(enc_kernels)} [{card}]", flush=True)
     print(f"main: K5 bin_ans_encode {k5[0]:.4f} ms (min {k5[1]:.4f}, max {k5[2]:.4f}; card alone {k5_alone:.4f}), "
           f"plain {k5_plain[0]:.1f} ms, bound {k5_bound:.4f} ms [{card}]",
           flush=True)
@@ -1244,17 +1293,20 @@ def main() -> int:
           f"max {glue[2]:.4f}) [{card}]", flush=True)
     print(f"main: K6 card alone by chains a block, in turns (each == plain): {turns_line(k6_sweep)}; "
           f"{kernels.K6_WARPS} used [{card}]", flush=True)
-    print(f"main: prep prepare_image {prep_t[0]:.4f} ms (min {prep_t[1]:.4f}, max {prep_t[2]:.4f}) "
-          f"[{card}]", flush=True)
-    print(f"main: K7 image_stitch {k7[0]:.4f} ms (min {k7[1]:.4f}, max {k7[2]:.4f}), "
-          f"plain {k7_plain[0]:.3f} ms, index_add_ {k7_lib[0]:.4f} ms, bound {k7_bound:.4f} ms "
-          f"[{card}]", flush=True)
+    print(f"main: K7 image_assemble {k7[0]:.4f} ms (min {k7[1]:.4f}, max {k7[2]:.4f}; card alone {k7_alone:.4f}: "
+          f"offsets pass {k7_offsets:.4f}, placement {k7_place:.4f}), plain {k7_plain[0]:.3f} ms, bound "
+          f"{k7_bound:.4f} ms ({k7_bytes} bytes: {payload_words} payload words read, {nw} body words and "
+          f"{iplan.head_bytes} head bytes written); its kernels' device time (torch.profiler): {k7_split}; "
+          f"the plain steps it took in: prepare_image {prep_t[0]:.4f} ms (min {prep_t[1]:.4f}, max "
+          f"{prep_t[2]:.4f}), the placement alone as one index_add_ {k7_lib[0]:.4f} ms [{card}]", flush=True)
+    print(f"main: K7 placement card alone by pages a warp, in turns (each == plain): {turns_line(k7_sweep)}; "
+          f"{kernels.K7_PAGES_PER_WARP} used [{card}]", flush=True)
     print(f"main: K8 bound {k8_bound:.4f} ms, K9 bound {k9_bound:.6f} ms; bytes counted: K5 {k5_bytes}, "
           f"K6 {k6_bytes} ({L.n_chains} rows of {L.sec_words} words, {payload_words} payload words, offsets at "
           f"{off_b} bytes; before: {k6_bytes_old}), K8 {k8_bytes}, "
           f"K9 {k9_bytes} [{card}]", flush=True)
 
-    del ia, prep, flat_idx, flat_val, body64, x8, k9_args, k9_one
+    del ia, head7, scan7, pages7, body7, x8, k9_args, k9_one
     torch.cuda.empty_cache()
 
     # 5b. breadth at full size
@@ -1438,7 +1490,7 @@ def main() -> int:
         {"name": "image_stitch", "route": "cuda", "source": "pcodec_tpu_torch/csrc/image_stitch.cu",
          "replaces": "pcodec_tpu/ops/assemble.py:495", "launches": enc_launches["image_stitch"],
          "max_abs_err": st["err"]["image_stitch"], "ms": k7[0], "plain_ms": k7_plain[0], "bound_ms": k7_bound,
-         "bound_by": "bytes", "library_ms": k7_lib[0]},
+         "bound_by": "bytes", "library_ms": None, "device_ms": k7_alone, "status": "redesigned"},
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
@@ -1446,7 +1498,8 @@ def main() -> int:
         {"name": "histogram_walk", "route": "cuda", "source": "pcodec_tpu_torch/csrc/histogram_walk.cu",
          "replaces": "pcodec_tpu/ops/pallas_walk.py:40", "launches": enc_launches["histogram_walk"],
          "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,
-         "bound_by": k9_by, "library_ms": None},
+         "bound_by": k9_by, "library_ms": None, "device_ms": k9_alone, "status": "redesigned",
+         "longest_lane_steps": lane_steps[long9], "longest_lane_ms": k9_lane},
         {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"],
          "status": "redesigned"},

@@ -4,27 +4,28 @@ package's `pcodec_tpu/ops/assemble.py`, single-latent-var path only.
 The encode's sections (ops/container_encode.py, K5 and K6) stay on the card
 and are stitched there, with the page metas and the container directory,
 into the byte-exact `.pct` file image. The head (PCT header + directory) is
-dense and word-aligned, so it is a plain concat. The body is the wrapped
-pco stream: per chunk [prefix: wrapped header (chunk 0) + chunk meta, host
-bytes], then per page [page meta | section bytes]. Pages land at arbitrary
-byte offsets, so the body is built from two row streams:
+dense and word-aligned. The body is the wrapped pco stream: per chunk
+[prefix: wrapped header (chunk 0) + chunk meta, host bytes], then per page
+[page meta | section bytes], at arbitrary byte offsets.
 
-  A: one row per page, [page meta | sections], packed in plain torch from
-     the final tANS states and the delta moments
-  C: one row per chunk, its prefix bytes
-
-Each row is pre-shifted by its destination offset mod 4 bytes, after which
-placement is a word-level OR: rows share at most their boundary words, and
-out-of-payload bits are zero. K7 (`image_stitch`, csrc/image_stitch.cu)
-does the placement.
+K7 (`image_assemble`, csrc/image_stitch.cu) builds both from the launch's
+outputs (sections, final tANS states, section lengths) and the page
+moments, reading a descriptor row a chunk (`image_desc`): the page offsets
+by a scan, the head's words, then every body word once, each from the
+sources of the page that holds its first byte. Its plain version
+(`image_assemble_plain`) is the JAX package's two steps: `prepare_image`
+packs every page into a row [page meta | sections] and every chunk prefix
+into a row, each pre-shifted by its destination offset mod 4 bytes (rows
+share at most their boundary words, out-of-payload bits are zero), and
+`image_stitch_plain` ORs the rows into the body.
 
     plan_image       training (on the card through
                      device_train.plan_encode_device where it covers the
                      configuration, else container_encode.plan_encode on
                      the host, its sorts on the card), the launch, the chunk
                      prefixes, the head's host part
-    upload_image     launch and layout arrays to the card
-    run_image        K5 -> K6 -> prepare_image (plain torch) -> K7
+    upload_image     the launch and K7's tables to the card
+    run_image        K5 -> K6 -> K7
     file_image_to_bytes
                      reads the image back as bytes
 
@@ -210,9 +211,62 @@ def plan_image(nums: np.ndarray, config=None, page_n: int = 1024, chunk_n: int =
                      head_bytes=len(head_host) + 4 * R + 4 * E)
 
 
+# K7's descriptor table, a row a chunk, in the order of csrc/image_stitch.cu's
+# `enum Col`: its pages (the first and the count), its var's first chain (-1
+# for a trivial var, which has no chain), the page meta's layout (delta
+# order, latent bits, ANS size log, table size), the meta's and the chunk
+# prefix's bytes, the prefix's first word in the run of prefix words, the
+# chunk's first directory entry, and the batches of a full page and of its
+# last page
+IMAGE_COLS = ("first_page", "n_pages", "chain0", "order", "bits", "sl", "ts", "meta_bytes", "pfx_bytes",
+              "pfx_word", "first_entry", "batches", "last_batches")
+
+
+def image_desc(plan: ImagePlan):
+    """K7's descriptor rows (n_chunks, len(IMAGE_COLS)) int64 and the chunk
+    prefixes as one run of u32 words (uint32), each chunk's from a word
+    boundary, zero-padded to it."""
+    lay = plan.layout
+    nb = lambda ln: -(-ln // BATCH)
+    pfx_words = [-(-len(p) // 4) for p in plan.prefixes]
+    pfx_word = np.cumsum([0] + pfx_words[:-1])
+    entries = [nf * nb(lay.page_n) + nb(rem) for nf, rem in lay.pages_per_chunk]
+    first_entry = np.cumsum([0] + entries[:-1])
+    desc = np.array([
+        (p0, npg, plan.launch.chain_start[ci], lay.orders[ci], lay.bits[ci], lay.sls[ci], lay.ts[ci],
+         lay.meta_bytes[ci], lay.pfx_bytes[ci], pfx_word[ci], first_entry[ci], nb(lay.page_n),
+         nb(rem) if rem else nb(lay.page_n))
+        for ci, (p0, npg, (_, rem)) in enumerate(zip(lay.page0_of_chunk(), lay.n_pages, lay.pages_per_chunk))
+    ], np.int64).reshape(-1, len(IMAGE_COLS))
+    pfx = np.zeros(4 * sum(pfx_words), np.uint8)
+    for w0, p in zip(pfx_word, plan.prefixes):
+        pfx[4 * w0 : 4 * w0 + len(p)] = np.frombuffer(p, np.uint8)
+    return desc, pfx.view(np.uint32)
+
+
 def upload_image(plan: ImagePlan, device="cuda") -> dict:
-    """The launch arrays and the layout arrays that prep reads, on `device`."""
+    """The launch arrays and what K7 reads besides the launch's outputs (its
+    descriptor rows, the prefix words, the head's host words, the page
+    moments), on `device`."""
     device = _resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    desc, pfx = image_desc(plan)
+    a = upload_launch(plan.launch, device)
+    a.update({
+        "image_desc": t(desc),
+        "image_pfx": t(pfx.view(np.int32)),
+        "head_host": t(np.frombuffer(plan.head_host, np.int32).copy()),
+        "moments": plan.moments.to(device),
+    })
+    return a
+
+
+def upload_prep(plan: ImagePlan, device) -> dict:
+    """The layout arrays prepare_image reads besides upload_image's, on
+    `device`."""
     lay = plan.layout
 
     def t(a):
@@ -229,8 +283,7 @@ def upload_image(plan: ImagePlan, device="cuda") -> dict:
         groups.setdefault(key, []).append(ci)
     pfx_row = np.zeros(lay.total_pages, np.int64)
     pfx_row[lay.page0_of_chunk()] = lay.pfx_bytes
-    a = upload_launch(plan.launch, device)
-    a.update({
+    return {
         "chain_of_page": t(plan.chain_of_page),
         "ts_row": t(np.asarray(lay.ts, np.int64)[cofp]),
         "meta_bytes_row": t(np.asarray(lay.meta_bytes, np.int64)[cofp]),
@@ -238,13 +291,11 @@ def upload_image(plan: ImagePlan, device="cuda") -> dict:
         "page0": t(lay.page0_of_chunk()),
         "pfx_bytes": t(np.asarray(lay.pfx_bytes, np.int64)),
         "pfx_words": t(pfx.view(np.uint32).astype(np.int64)),
-        "moments": plan.moments.to(device),
         "entry_page": t(ep),
         "entry_batch": t(eb),
         "head_host_words": t(np.frombuffer(plan.head_host, np.uint32).astype(np.int64)),
         "meta_groups": {key: t(np.nonzero(np.isin(cofp, cis))[0]) for key, cis in groups.items()},
-    })
-    return a
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +416,7 @@ def prepare_image(plan: ImagePlan, a: dict, sections, states, ans_len, off_len, 
 
 
 # ---------------------------------------------------------------------------
-# K7: image stitch
+# K7: the file image
 # ---------------------------------------------------------------------------
 
 
@@ -382,20 +433,54 @@ def image_stitch_plain(rowsA, F0A, lenA, rowsC, F0C, lenC, body_words: int) -> t
     return _to_i32(out)
 
 
-def image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body_words: int) -> torch.Tensor:
-    """K7: the file body from the pre-shifted row streams A and C;
-    arguments as image_stitch_plain. A word placed outside the body stops
-    the kernel with a device error (run_image checks the rows first)."""
-    if rowsA.device.type == "cpu":
-        return image_stitch_plain(rowsA, F0A, lenA, rowsC, F0C, lenC, body_words)
-    if any(rows.dim() != 2 or F0.shape != (rows.shape[0],) or lenW.shape != F0.shape
-           for rows, F0, lenW in ((rowsA, F0A, lenA), (rowsC, F0C, lenC))):
-        raise ValueError("image_stitch: argument shapes do not match the rows")
-    _check_cuda((rowsA, torch.int32), (F0A, i64), (lenA, i64), (rowsC, torch.int32),
-                (F0C, i64), (lenC, i64))
-    body = torch.zeros(body_words, dtype=torch.int32, device=rowsA.device)
-    kernels.launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body)
-    return body
+def image_assemble_plain(plan: ImagePlan, a: dict, sections, states, ans_len, off_len, total_bits):
+    """Plain version of K7: prepare_image's row streams, placed by
+    image_stitch_plain. Arguments: the plan, upload_image's arrays and the
+    launch's outputs (encode_launch). Returns (head_words, body_words)
+    int32 tensors and the body's byte count."""
+    prep = prepare_image(plan, {**a, **upload_prep(plan, sections.device)}, sections, states, ans_len, off_len,
+                         total_bits)
+    body_bytes, row_end = prep["sizes"].tolist()
+    body_words = -(-body_bytes // 4)
+    if row_end > body_words:
+        raise RuntimeError(f"prep placed a row up to word {row_end} of a {body_words}-word body")
+    body = image_stitch_plain(prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"],
+                              body_words)
+    return prep["head_words"], body, body_bytes
+
+
+def image_assemble(plan: ImagePlan, a: dict, sections, states, ans_len, off_len, total_bits):
+    """K7: the file image's head words and body from the launch's outputs;
+    arguments and results as image_assemble_plain. Two C calls: the head
+    and the page offsets, then (after the body's byte count is read back,
+    the one host sync) the body, each word written once."""
+    if sections.device.type == "cpu":
+        return image_assemble_plain(plan, a, sections, states, ans_len, off_len, total_bits)
+    lay, L = plan.layout, plan.launch
+    R, dev = lay.total_pages, sections.device
+    B = ans_len.shape[1] if ans_len.dim() == 2 else -1
+    if (sections.shape != (L.n_chains, L.sec_words) or states.shape != (L.n_chains, 4)
+            or ans_len.shape != off_len.shape or ans_len.shape[0] != L.n_chains or B < -(-L.page_n // BATCH)
+            or total_bits.shape != (L.n_chains,) or a["moments"].shape != (R, lay.max_order)
+            or a["image_desc"].shape != (lay.n_chunks, len(IMAGE_COLS))):
+        raise ValueError("image_assemble: the launch's outputs do not match the plan")
+    _check_cuda((sections, torch.int32), (states, i64), (ans_len, i64), (off_len, i64), (total_bits, i64),
+                (a["moments"], i64), (a["image_desc"], i64), (a["image_pfx"], torch.int32),
+                (a["head_host"], torch.int32))
+    if max(o * b + 4 * sl for o, b, sl in zip(lay.orders, lay.bits, lay.sls)) > 32 * 32:
+        raise ValueError("image_assemble: K7 packs page metas of at most 32 words")
+    n_head = plan.head_bytes // 4
+    E = n_head - a["head_host"].shape[0] - R
+    head = torch.empty(n_head, dtype=torch.int32, device=dev)
+    scan_words, page_words = kernels.image_scratch_sizes(R)
+    scan = torch.empty(scan_words, dtype=i64, device=dev)
+    pages = torch.empty(page_words, dtype=torch.int32, device=dev)
+    kernels.launch_image_offsets(a["image_desc"], total_bits, ans_len, off_len, sections, states, a["moments"],
+                                 a["image_pfx"], a["head_host"], E, head, scan, pages)
+    body_bytes = int(scan[R + -(-R // kernels.K7_SCAN_PAGES)])
+    body = torch.empty(-(-body_bytes // 4), dtype=torch.int32, device=dev)
+    kernels.launch_image_stitch(a["image_desc"], pages, scan, sections, states, a["moments"], a["image_pfx"], body)
+    return head, body, body_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -404,21 +489,11 @@ def image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body_words: int) -> torch.T
 
 
 def run_image(plan: ImagePlan, a: dict):
-    """K5 -> K6 -> prep -> K7 from uploaded arrays. Returns
-    (head_words, body_words, head_bytes, body_bytes): both word arrays are
-    int32 tensors on the arrays' device. The body is sized from its byte
-    count, read back before K7 with the end word of the farthest row, which
-    must lie inside it."""
-    out = encode_launch(plan.launch, a)
-    prep = prepare_image(plan, a, *out)
-    del out
-    body_bytes, row_end = prep["sizes"].tolist()
-    body_words = -(-body_bytes // 4)
-    if row_end > body_words:
-        raise RuntimeError(f"prep placed a row up to word {row_end} of a {body_words}-word body")
-    body = image_stitch(prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"],
-                        prep["lenC"], body_words)
-    return prep["head_words"], body, plan.head_bytes, body_bytes
+    """K5 -> K6 -> K7 from uploaded arrays. Returns (head_words,
+    body_words, head_bytes, body_bytes): both word arrays are int32 tensors
+    on the arrays' device."""
+    head, body, body_bytes = image_assemble(plan, a, *encode_launch(plan.launch, a))
+    return head, body, plan.head_bytes, body_bytes
 
 
 def file_image_to_bytes(head_words, body_words, head_bytes: int, body_bytes: int) -> bytes:

@@ -20,7 +20,8 @@ so the bins, the tables and the file equal the host's.
                       stored latents as one row sorted by K8, its quantile
                       extracts
     walk_bins         K9, CUDA (csrc/histogram_walk.cu): the histogram walk
-                      over the extracts, one thread per row
+                      over the extracts, a warp per row, its tables in
+                      shared memory
     (host)            bins -> trained chunk compressor and encoder table
 
 Every sort is K8 (ops/row_sort.py), every walk K9. The JAX module's layout
@@ -159,6 +160,12 @@ def sorted_extracts(vals: torch.Tensor, live: torch.Tensor, n_stored: torch.Tens
 # K9: the histogram walk
 # ---------------------------------------------------------------------------
 
+WALK_NB_LOG_MAX = 24  # largest nb_log K9 takes; must match csrc/histogram_walk.cu
+WALK_X_BITS = 63  # K9 takes a lane of n < 2^(WALK_X_BITS - nb_log); must match csrc/histogram_walk.cu
+# K9 walks a lane with (n + 1) << nb_log <= 2^WALK_NARROW_BITS in 32-bit
+# arithmetic; must match csrc/histogram_walk.cu
+WALK_NARROW_BITS = 32
+
 
 def walk_bins_plain(V, L, R, SL1, SR, s0, n, nb_log: int):
     """Plain version of K9: the JAX `_walk_bins_device` scan, one step of
@@ -247,15 +254,42 @@ def walk_bins_plain(V, L, R, SL1, SR, s0, n, nb_log: int):
     return out[0], out[1], out[2], nout.clamp(max=nb)
 
 
+def _umulhi(a: np.ndarray, b: np.ndarray, bits: int) -> np.ndarray:
+    """High `bits` bits of the products of uint64 arrays a and b < 2^bits
+    (bits 32 or 64)."""
+    if bits == 32:
+        return (a * b) >> np.uint64(32)
+    m32 = np.uint64(0xFFFFFFFF)
+    a0, a1, b0, b1 = a & m32, a >> np.uint64(32), b & m32, b >> np.uint64(32)
+    lo, p01, p10 = a0 * b0, a0 * b1, a1 * b0
+    mid = (lo >> np.uint64(32)) + (p01 & m32) + (p10 & m32)
+    return a1 * b1 + (p01 >> np.uint64(32)) + (p10 >> np.uint64(32)) + (mid >> np.uint64(32))
+
+
+def walk_bin_idx_plain(c: np.ndarray, n: int, nb_log: int, bits: int = 64) -> np.ndarray:
+    """K9's bin index (c << nb_log) // n of positions c (uint64) in a lane
+    of n, as the kernel divides in `bits`-bit arithmetic (32 or 64): by a
+    multiply with m = floor((2^bits - 1) / n), then one correction. Needs
+    n < 2^(WALK_X_BITS - nb_log), c < n, and for 32 bits (n + 1) << nb_log
+    <= 2^32."""
+    x = np.asarray(c, np.uint64) << np.uint64(nb_log)
+    nn = np.uint64(n)
+    q = _umulhi(x, np.full_like(x, (2**bits - 1) // n), bits)
+    return q + (x - q * nn >= nn).astype(np.uint64)
+
+
 def walk_bins(V, L, R, SL1, SR, s0, n, nb_log: int):
     """K9: the histogram walk of every lane; arguments and results as
-    walk_bins_plain."""
+    walk_bins_plain, with 0 <= nb_log <= WALK_NB_LOG_MAX and each lane's n
+    below 2^(WALK_X_BITS - nb_log) (on the card a lane past it stops the
+    kernel with a device error)."""
     if V.device.type == "cpu":
         return walk_bins_plain(V, L, R, SL1, SR, s0, n, nb_log)
     lanes, nb = V.shape
-    if nb != 1 << nb_log or any(t.shape != V.shape for t in (L, R, SL1, SR)) or \
-            s0.shape != (lanes,) or n.shape != (lanes,):
-        raise ValueError("walk_bins: the tables must be (lanes, 2^nb_log) and s0, n (lanes,)")
+    if not 0 <= nb_log <= WALK_NB_LOG_MAX or nb != 1 << nb_log or any(t.shape != V.shape for t in (L, R, SL1, SR)) \
+            or s0.shape != (lanes,) or n.shape != (lanes,):
+        raise ValueError("walk_bins: the tables must be (lanes, 2^nb_log) with nb_log <= "
+                         f"{WALK_NB_LOG_MAX} and s0, n (lanes,)")
     _check_cuda(*((t, i64) for t in (V, L, R, SL1, SR, s0, n)))
     counts, lowers, uppers = (torch.empty_like(V) for _ in range(3))
     n_bins = torch.empty(lanes, dtype=i64, device=V.device)
@@ -264,10 +298,12 @@ def walk_bins(V, L, R, SL1, SR, s0, n, nb_log: int):
 
 
 def bins_to_host(counts, lowers, uppers, n_bins):
-    """The walked bins, read back once: per lane, (counts, lowers, uppers)
-    uint64 arrays of its n_bins bins."""
-    co, lo, up = (t.cpu().numpy().view(np.uint64) for t in (counts, lowers, uppers))
-    return [(co[i, :k], lo[i, :k], up[i, :k]) for i, k in enumerate(n_bins.tolist())]
+    """The walked bins, read back in one copy: per lane, (counts, lowers,
+    uppers) uint64 arrays of its n_bins bins."""
+    nb = counts.shape[1]
+    host = torch.cat([counts, lowers, uppers, n_bins[:, None]], 1).cpu().numpy()
+    co, lo, up = (host[:, k * nb : (k + 1) * nb].view(np.uint64) for k in range(3))
+    return [(co[i, :k], lo[i, :k], up[i, :k]) for i, k in enumerate(host[:, 3 * nb].tolist())]
 
 
 def delta_candidates(delta_s: torch.Tensor, starts: np.ndarray, lens: np.ndarray, min_order: int,

@@ -52,6 +52,11 @@ K3_THREADS = 128
 # block's rows do not fit its shared memory
 K6_WARPS = 1
 
+K7_SCAN_PAGES = 256  # pages a block of K7's offsets pass scans; must match csrc/image_stitch.cu
+
+# consecutive pages a warp of K7's placement places, from chip_smoke.py's sweep
+K7_PAGES_PER_WARP = 4
+
 # C calls that launched kernels, by name; dict_join's counts its kernels
 LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES + ("row_sort_span",) if name != "micro_gather"}
 _LIBS = {}
@@ -73,9 +78,9 @@ _ARGTYPES = {
     # p1, offsets, page_n, out, sec_words, ans_len, off_len, total_bits,
     # n_chains, warps, device, stream
     "section_pack": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    # rowsA, WA, F0A, lenA, RA, rowsC, WC, F0C, lenC, RC, body, body_words,
-    # device, stream
-    "image_stitch": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _L, _I, _P],
+    # desc, pages, scan, R, sections, W, states, moments, MO, pfx_words, body,
+    # body_words, pages a warp, device, stream
+    "image_stitch": [_P, _P, _P, _L, _P, _I, _P, _P, _I, _P, _P, _L, _I, _I, _P],
     # in, out, rows, m, in_bytes, key_bytes, passes, mm, keys, hist, device, stream
     "row_sort": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _I, _P],
     # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
@@ -104,6 +109,10 @@ _MORE_FUNCS = {
     "row_sort_span": ("row_sort", [_P, _I, _L, _I, _P, _I, _P]),
     # bases, numels, n_bases, desc, desc_dev, n_rows, threads, launched, device, stream
     "lookback_chunks": ("lookback_recon", [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P]),
+    # desc, n_chunks, total_bits, ans_len, off_len, B, sections, W, states,
+    # moments, MO, pfx_words, head_host, H, R, E, head, scan, pages, device, stream
+    "image_offsets": ("image_stitch", [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _L, _L, _P, _P, _P,
+                                       _I, _P]),
 }
 
 
@@ -220,10 +229,32 @@ def launch_section_pack(p1, offsets, out, ans_len, off_len, total_bits) -> None:
           ans_len.data_ptr(), off_len.data_ptr(), total_bits.data_ptr(), p1.shape[0], K6_WARPS)
 
 
-def launch_image_stitch(rowsA, F0A, lenA, rowsC, F0C, lenC, body) -> None:
-    _call("image_stitch", body, rowsA.data_ptr(), rowsA.shape[1], F0A.data_ptr(), lenA.data_ptr(),
-          rowsA.shape[0], rowsC.data_ptr(), rowsC.shape[1], F0C.data_ptr(), lenC.data_ptr(),
-          rowsC.shape[0], body.data_ptr(), body.shape[0])
+def image_scratch_sizes(R: int):
+    """K7's scratch for R pages: the scan's int64 words (page offsets within
+    their blocks, the blocks' first bytes, the body's byte count at index
+    R + ceil(R / K7_SCAN_PAGES), the blocks' sums) and the pages' int32
+    words (a 4-word record, then the row's first 4 bytes, a page)."""
+    nblk = -(-R // K7_SCAN_PAGES)
+    return R + 2 * nblk + 1, 5 * R
+
+
+def launch_image_offsets(desc, total_bits, ans_len, off_len, sections, states, moments, pfx_words, head_host,
+                         E: int, head, scan, pages) -> None:
+    """K7's first C call (two kernels): the head's words, the pages' records
+    and first bytes, and the scan of the pages' byte lengths. Counted
+    under image_stitch."""
+    R = pages.shape[0] // 5
+    _call("image_offsets", desc, desc.data_ptr(), desc.shape[0], total_bits.data_ptr(), ans_len.data_ptr(),
+          off_len.data_ptr(), ans_len.shape[1], sections.data_ptr(), sections.shape[1], states.data_ptr(),
+          moments.data_ptr(), moments.shape[1], pfx_words.data_ptr(), head_host.data_ptr(), head_host.shape[0], R,
+          E, head.data_ptr(), scan.data_ptr(), pages.data_ptr(), count="image_stitch")
+
+
+def launch_image_stitch(desc, pages, scan, sections, states, moments, pfx_words, body) -> None:
+    """K7's placement: every body word from the pages' sources."""
+    _call("image_stitch", body, desc.data_ptr(), pages.data_ptr(), scan.data_ptr(), pages.shape[0] // 5,
+          sections.data_ptr(), sections.shape[1], states.data_ptr(), moments.data_ptr(), moments.shape[1],
+          pfx_words.data_ptr(), body.data_ptr(), body.shape[0], K7_PAGES_PER_WARP)
 
 
 def launch_row_sort_span(x, mm) -> None:

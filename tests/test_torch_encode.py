@@ -218,23 +218,36 @@ def test_plain_encode_matches_host_dissection_and_page_bodies(name):
     assert pages > 1
 
 
-@pytest.mark.parametrize("name", ["i64_o1_ragged_multichunk", "constant_chunk_then_walk", "tiny_7"])
+@pytest.mark.parametrize("name", ["i64_o1_ragged_multichunk", "constant_chunk_then_walk", "i64_o3_p256", "tiny_7"])
 def test_prep_rows_through_plain_stitch_match_jax_stitch_xla(name):
-    """Exact: the port's row streams A and C, placed by the plain K7, equal
-    JAX's gather-based `_stitch_xla` placing the same rows."""
+    """Exact: the port's row streams A and C, placed by the plain K7 step,
+    equal JAX's gather-based `_stitch_xla` placing the same rows; the fused
+    K7's plain version gives those body words and prep's head words, and
+    head and body are pcodec_tpu's container_compress bytes (a ragged last
+    chunk, a trivial chunk beside a coded one in two meta groups, order 3,
+    one page of 7 numbers)."""
     nums, order, mode, level, page_n, chunk_n = CASES[name]
-    plan = asm.plan_image(nums, _configs(order, mode, level)[0], page_n, chunk_n, "cpu")
+    cfg, ref_cfg = _configs(order, mode, level)
+    plan = asm.plan_image(nums, cfg, page_n, chunk_n, "cpu")
     a = asm.upload_image(plan, "cpu")
-    prep = asm.prepare_image(plan, a, *ce.encode_launch(plan.launch, a)[:5])
+    out = ce.encode_launch(plan.launch, a)
+    prep = asm.prepare_image(plan, {**a, **asm.upload_prep(plan, "cpu")}, *out)
     nw = -(-int(prep["sizes"][0]) // 4)
     rows = [prep[k] for k in ("rowsA", "F0A", "lenA", "rowsC", "F0C", "lenC")]
-    got = asm.image_stitch(*rows, nw).numpy().view(np.uint32)
+    got = asm.image_stitch_plain(*rows, nw).numpy().view(np.uint32)
     F0A = rows[1].numpy()
     assert np.max(np.unique(F0A, return_counts=True)[1]) < 8  # within the XLA stitch's K
     j = [jnp.asarray(x.numpy().view(np.uint32) if x.dtype == torch.int32 else x.numpy().astype(np.int32))
          for x in rows]
     want = np.asarray(ja._stitch_xla(*j, W_pad=nw, K=8))
     assert np.array_equal(got, want)
+    head, body, body_bytes = asm.image_assemble_plain(plan, a, *out)
+    assert np.array_equal(body.numpy().view(np.uint32), want)
+    assert torch.equal(head, prep["head_words"])
+    image = asm.file_image_to_bytes(head, body, plan.head_bytes, body_bytes)
+    assert image == ref_compress(nums, ref_cfg, page_n=page_n, chunk_n=chunk_n)
+    if name == "constant_chunk_then_walk":
+        assert len(set(zip(plan.layout.orders, plan.layout.sls, plan.layout.bits))) == 2 and 0 in plan.layout.ts
 
 
 def test_row_sort_matches_jax_pallas_sort_in_interpret_mode():

@@ -1,11 +1,15 @@
-"""K5 (bin_ans_encode), K6 (section_pack), K7 (image_stitch) and K8
-(row_sort) of the port, on their own.
+"""K5 (bin_ans_encode), K6 (section_pack), K7 (image_assemble, in
+csrc/image_stitch.cu) and K8 (row_sort) of the port, on their own.
 
 The plain versions run here on the CPU; the tests marked `gpu` hold the
 CUDA kernels against the plain versions bit for bit and skip when there is
 no card. This file imports no JAX, so on a GPU machine without JAX it runs
 as `python -m pytest tests/test_torch_encode_kernels.py --noconftest -m gpu`.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -60,10 +64,15 @@ def test_wrappers_take_plain_versions_on_cpu():
     outs = ce.bin_ans_encode(*_k5_args(a))
     for x, y in zip(outs, ce.bin_ans_encode_plain(*_k5_args(a))):
         assert torch.equal(x, y)
-    p1, offsets, _ = outs
+    p1, offsets, states = outs
     W = plan.launch.sec_words
-    for x, y in zip(ce.section_pack(p1, offsets, W), ce.section_pack_plain(p1, offsets, W)):
+    k6 = ce.section_pack(p1, offsets, W)
+    for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)):
         assert torch.equal(x, y)
+    sections, ans_len, off_len, total_bits = k6
+    got = asm.image_assemble(plan, a, sections, states, ans_len, off_len, total_bits)
+    want = asm.image_assemble_plain(plan, a, sections, states, ans_len, off_len, total_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
     assert kernels.LAUNCHES == before
 
 
@@ -157,7 +166,7 @@ def test_image_stitch_plain_places_rows():
     t = torch.from_numpy
     empty = torch.zeros((0, 2), dtype=torch.int32)
     none = torch.zeros(0, dtype=torch.int64)
-    got = asm.image_stitch(t(rows.view(np.int32)), t(F0), t(lenW), empty, none, none, 14)
+    got = asm.image_stitch_plain(t(rows.view(np.int32)), t(F0), t(lenW), empty, none, none, 14)
     assert np.array_equal(got.numpy().view(np.uint32), body)
 
 
@@ -313,10 +322,9 @@ def test_kernels_match_plain_versions_on_card(case):
     for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)):
         assert torch.equal(x, y)
     sections, ans_len, off_len, total_bits = k6
-    prep = asm.prepare_image(plan, a, sections, states, ans_len, off_len, total_bits)
-    rows = (prep["rowsA"], prep["F0A"], prep["lenA"], prep["rowsC"], prep["F0C"], prep["lenC"])
-    nw = -(-int(prep["sizes"][0]) // 4)
-    assert torch.equal(asm.image_stitch(*rows, nw), asm.image_stitch_plain(*rows, nw))
+    got = asm.image_assemble(plan, a, sections, states, ans_len, off_len, total_bits)
+    want = asm.image_assemble_plain(plan, a, sections, states, ans_len, off_len, total_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
     torch.cuda.synchronize()
     for name in ("bin_ans_encode", "section_pack", "image_stitch"):
         assert kernels.LAUNCHES[name] > before[name]
@@ -432,3 +440,139 @@ def test_section_pack_matches_plain_on_random_launch_on_card(case):
     for x, y in zip(got, ce.section_pack_plain(p1, offsets, W)):
         assert torch.equal(x, y)
     assert got[0].shape == (p1.shape[0], W)
+
+
+K7_CASES = ["random_outputs", "trivial_chunk", "mixed_meta_groups", "wide_rows", "zero_length_pages",
+            "tiny_pages"]
+
+
+def _k7_inputs(case, device):
+    """A plan, its uploaded arrays and the launch's outputs for K7:
+    "random_outputs" replaces a real launch's outputs and moments with
+    random ones of the same layout (total bits from 0 to the row, section
+    bits zero past them, u16 lengths, any states and moments);
+    "trivial_chunk" has a trivial chunk (no chain) beside coded ones;
+    "mixed_meta_groups" chunks of three (order, ANS size log) meta layouts
+    with ragged chunks; "wide_rows" pages of 2^16 numbers, rows of over
+    130,000 words; "zero_length_pages" trivial chunks without a delta, whose
+    pages take no byte; "tiny_pages" chunks whose last pages take 1 to 3
+    bytes, so a body word holds several pages."""
+    rng = np.random.default_rng(K7_CASES.index(case) + 70)
+    walk = np.cumsum(rng.integers(0, 120, 6000) + (rng.random(6000) < 0.01) * 10**6)
+    nums, cfg, page_n, chunk_n = {
+        "random_outputs": (walk.astype(np.int64), _cfg(2), 512, 2100),
+        "trivial_chunk": _case("constant_then_walk"),
+        "mixed_meta_groups": (np.concatenate([np.full(700, 3, np.int64), walk[:700], np.full(300, 9, np.int64),
+                                              walk[:900] % 200]), pt.ChunkConfig(), 256, 700),
+        "wide_rows": (rng.integers(-(2**63), 2**63 - 1, 3 << 16, dtype=np.int64), _cfg(0), 1 << 16, 1 << 20),
+        "zero_length_pages": (np.concatenate([np.full(1000, 7, np.int64), walk[:1000], np.full(777, 3, np.int64),
+                                              walk[:1001]]), _cfg(0), 256, 1000),
+        "tiny_pages": (rng.integers(0, 3, 1300).astype(np.uint16),
+                       pt.ChunkConfig(compression_level=0, mode_spec=pt.ModeSpec("classic"),
+                                      delta_spec=pt.DeltaSpec("no_op", 0)), 256, 259),
+    }[case]
+    plan, a = _launch(nums, cfg, page_n, chunk_n, device)
+    sections, states, ans_len, off_len, total_bits = ce.encode_launch(plan.launch, a)
+    ref = None
+    if case == "random_outputs":
+        n, W = sections.shape
+        tb = rng.integers(0, 32 * W + 1, n)
+        tb[:3] = [0, 1, 32 * W]
+        words = rng.integers(0, 2**32, (n, W), dtype=np.uint64)
+        bit = np.arange(W)[None, :] * 32
+        keep = np.clip(tb[:, None] - bit, 0, 32).astype(np.uint64)
+        words &= (np.uint64(1) << keep) - np.uint64(1)
+        t = lambda x: torch.from_numpy(x).to(device)
+        sections = t(words.astype(np.uint32).view(np.int32))
+        total_bits = t(tb.astype(np.int64))
+        states = t(rng.integers(-(2**40), 2**40, (n, 4)))
+        ans_len, off_len = (t(rng.integers(0, 2**16, tuple(ans_len.shape))) for _ in range(2))
+        a = dict(a, moments=t(rng.integers(-(2**63), 2**63 - 1, tuple(a["moments"].shape), dtype=np.int64)))
+    else:
+        ref = pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
+    return plan, a, (sections, states, ans_len, off_len, total_bits), ref
+
+
+@pytest.mark.parametrize("case", ["trivial_chunk", "mixed_meta_groups", "zero_length_pages", "tiny_pages"])
+def test_k7_cases_reach_their_layouts(case):
+    """The K7 cases' plans hold what their names say: a trivial chunk (no
+    chain), chunks of three meta layouts, pages of no byte, pages of 1 to 3
+    bytes (each page's bytes read from the plain version's head)."""
+    plan, a, outs, _ = _k7_inputs(case, "cpu")
+    lay = plan.layout
+    head = asm.image_assemble_plain(plan, a, *outs)[0].numpy()
+    H = len(plan.head_host) // 4
+    page_bytes = head[H : H + lay.total_pages]
+    if case == "trivial_chunk":
+        assert -1 in plan.launch.chain_start and plan.launch.n_chains
+    elif case == "mixed_meta_groups":
+        assert len(set(zip(lay.orders, lay.sls, lay.bits))) == 3 and len(set(lay.n_pages)) > 1
+    elif case == "zero_length_pages":
+        assert (page_bytes == 0).sum() > 1 and (page_bytes > 0).any()
+    else:
+        assert ((page_bytes > 0) & (page_bytes < 4)).sum() > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K7_CASES)
+def test_image_assemble_matches_plain_on_card(case):
+    """Exact: K7 on the card (two counted C calls, each warp placing runs of
+    1, 3, 4 or 16 pages) writes the plain version's head words, body words
+    and byte count: on random outputs of
+    a real layout, a trivial chunk, three meta layouts, rows of over
+    130,000 words, pages of no byte and of 1 to 3 bytes; from the real
+    outputs the image is the port's container_compress bytes."""
+    _need_card()
+    plan, a, outs, ref = _k7_inputs(case, "cuda")
+    before = kernels.LAUNCHES["image_stitch"]
+    got = asm.image_assemble(plan, a, *outs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["image_stitch"] == before + 2
+    want = asm.image_assemble_plain(plan, a, *outs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
+    keep = kernels.K7_PAGES_PER_WARP
+    try:
+        for ppw in (1, 3, 16):  # runs of pages a warp that end mid-chunk and past the last page
+            kernels.K7_PAGES_PER_WARP = ppw
+            assert torch.equal(asm.image_assemble(plan, a, *outs)[1], want[1])
+    finally:
+        kernels.K7_PAGES_PER_WARP = keep
+    if case == "wide_rows":
+        assert plan.launch.sec_words > 130_000
+    if ref is not None:
+        assert asm.file_image_to_bytes(got[0], got[1], plan.head_bytes, got[2]) == ref
+
+
+_TRAP = """
+import numpy as np, torch
+import pcodec_tpu_torch as pt
+from pcodec_tpu_torch.ops import assemble as asm, container_encode as ce, kernels
+nums = np.cumsum(np.random.default_rng(3).integers(0, 120, 5000)).astype(np.int64)
+cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_consecutive", 1))
+plan = asm.plan_image(nums, cfg, 256, 2048, "cuda")
+a = asm.upload_image(plan, "cuda")
+sections, states, ans_len, off_len, total_bits = ce.encode_launch(plan.launch, a)
+head, body, body_bytes = asm.image_assemble(plan, a, sections, states, ans_len, off_len, total_bits)
+scan_words, page_words = kernels.image_scratch_sizes(plan.layout.total_pages)
+scan = torch.empty(scan_words, dtype=torch.int64, device="cuda")
+pages = torch.empty(page_words, dtype=torch.int32, device="cuda")
+kernels.launch_image_offsets(a["image_desc"], total_bits, ans_len, off_len, sections, states, a["moments"],
+                             a["image_pfx"], a["head_host"], head.shape[0] - a["head_host"].shape[0]
+                             - plan.layout.total_pages, head, scan, pages)
+short = torch.empty(body.shape[0] - 1, dtype=torch.int32, device="cuda")
+kernels.launch_image_stitch(a["image_desc"], pages, scan, sections, states, a["moments"], a["image_pfx"], short)
+torch.cuda.synchronize()
+print("placed without an error")
+"""
+
+
+@pytest.mark.gpu
+def test_image_stitch_traps_a_word_outside_the_body_on_card():
+    """K7's placement into a body one word too short stops with a device
+    error rather than drop the word (in a process of its own: the error
+    ends that process's CUDA context)."""
+    _need_card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _TRAP], cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "placed without an error" not in r.stdout, r.stdout + r.stderr
+    assert "CUDA error" in r.stderr or "launch failure" in r.stderr or "illegal instruction" in r.stderr, r.stderr

@@ -10,7 +10,7 @@ import re
 
 import pytest
 
-from pcodec_tpu_torch.ops import decode, kernels, row_sort
+from pcodec_tpu_torch.ops import assemble, decode, device_train, kernels, row_sort
 
 _CONSTEXPR = re.compile(r"constexpr\s+[\w ]+?\s+(\w+)\s*=\s*([^;]+);")
 
@@ -45,6 +45,10 @@ def _cu_constants(name: str) -> dict:
     ("lookback_recon", "JOIN_FLOAT", decode.JOIN_FLOAT),
     ("row_sort", "TILE", row_sort.RADIX_TILE),
     ("row_sort", "BITS", row_sort.RADIX_BITS),
+    ("image_stitch", "SCAN_THREADS", kernels.K7_SCAN_PAGES),
+    ("histogram_walk", "NB_LOG_MAX", device_train.WALK_NB_LOG_MAX),
+    ("histogram_walk", "X_BITS", device_train.WALK_X_BITS),
+    ("histogram_walk", "NARROW_BITS", device_train.WALK_NARROW_BITS),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value
@@ -56,3 +60,11 @@ def test_k3_descriptor_columns_follow_the_kernel_enum():
     with open(os.path.join(kernels._CSRC, "lookback_recon.cu")) as f:
         body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
     assert [name.strip().lower() for name in body.split(",") if name.strip()] == list(decode.LB_COLS)
+
+
+def test_k7_descriptor_columns_follow_the_kernel_enum():
+    """K7's descriptor columns (assemble.IMAGE_COLS) in the order of
+    csrc/image_stitch.cu's `enum Col`, whose last member counts them."""
+    with open(os.path.join(kernels._CSRC, "image_stitch.cu")) as f:
+        body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
+    assert [name.strip().lower() for name in body.split(",") if name.strip()] == list(assemble.IMAGE_COLS) + ["cols"]

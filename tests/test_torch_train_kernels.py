@@ -85,6 +85,50 @@ def test_walk_wrapper_takes_the_plain_version_on_cpu():
     assert kernels.LAUNCHES == before
 
 
+WALK_NS = ["1", "2", "3", "2^20", "2^31-1", "largest"]
+
+
+@pytest.mark.parametrize("nb_log", [0, 8, 12, 24])
+@pytest.mark.parametrize("n_name", WALK_NS)
+def test_walk_reciprocal_division_is_floor_division(n_name, nb_log):
+    """Exact: K9's bin index by a multiply with floor((2^64 - 1) / n) and one
+    correction (walk_bin_idx_plain, the kernel's arithmetic in numpy) equals
+    (c << nb_log) // n for c from 0 to n - 1: every c where n is small,
+    else both ends and random c between, up to the largest n the kernel
+    takes (n << nb_log just below 2^63)."""
+    n = {"1": 1, "2": 2, "3": 3, "2^20": 1 << 20, "2^31-1": 2**31 - 1,
+         "largest": (1 << (dt.WALK_X_BITS - nb_log)) - 1}[n_name]
+    if n <= 1 << 20:
+        c = np.arange(n, dtype=np.uint64)
+    else:
+        rng = np.random.default_rng(nb_log)
+        c = np.concatenate([np.arange(5000), n - 1 - np.arange(5000),
+                            rng.integers(0, n, 50_000, dtype=np.uint64)]).astype(np.uint64)
+    want = np.array([(int(x) << nb_log) // n for x in c], dtype=np.uint64)
+    assert np.array_equal(dt.walk_bin_idx_plain(c, n, nb_log), want)
+
+
+NARROW_CASES = [(n, nb_log) for nb_log in (0, 8, 12, 24)
+                for n in (1, 2, 3, 1 << 20, 2**31 - 1, (1 << (dt.WALK_NARROW_BITS - nb_log)) - 1)
+                if (n + 1) << nb_log <= 1 << dt.WALK_NARROW_BITS]
+
+
+@pytest.mark.parametrize("n,nb_log", NARROW_CASES)
+def test_walk_reciprocal_division_in_32_bits_is_floor_division(n, nb_log):
+    """Exact: the 32-bit route of K9's bin index (lanes with (n + 1) <<
+    nb_log at most 2^32), floor((2^32 - 1) / n) and one correction, equals
+    (c << nb_log) // n for c from 0 to n - 1 (both ends and random c
+    between where n is large), up to the largest n the route takes."""
+    if n <= 1 << 20:
+        c = np.arange(n, dtype=np.uint64)
+    else:
+        rng = np.random.default_rng(n)
+        c = np.concatenate([np.arange(5000), n - 1 - np.arange(5000),
+                            rng.integers(0, n, 50_000, dtype=np.uint64)]).astype(np.uint64)
+    want = np.array([(int(x) << nb_log) // n for x in c], dtype=np.uint64)
+    assert np.array_equal(dt.walk_bin_idx_plain(c, n, nb_log, bits=32), want)
+
+
 def _meta(cc) -> bytes:
     w = BitWriter()
     cc.write_meta(w)
@@ -97,10 +141,12 @@ def _need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nb_log", list(range(2, 13)))
+@pytest.mark.parametrize("nb_log", list(range(2, 15)))
 def test_walk_kernel_matches_plain_version_on_card(nb_log):
     """Exact: K9 on the card equals its plain version, on lanes of n 0, 1
-    and 10, all-equal values, all 0xFFFF... values and full 64-bit ranges."""
+    and 10, all-equal values, all 0xFFFF... values and full 64-bit ranges;
+    its tables in shared memory up to nb_log 12, in device memory at 13 and
+    14 (40 bytes a bin past the card's opt-in shared memory)."""
     _need_card()
     (V, L, R, SL1, SR, s0), n = _tables(_lanes(), nb_log, "cuda")
     before = kernels.LAUNCHES["histogram_walk"]
