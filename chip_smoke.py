@@ -132,16 +132,49 @@ Phases, one line each (numbers beside the card's name and power limit):
                   and 1,024 with emit), E2 bitonic_cluster (its checks,
                   (96, 2^16) beside K8 and torch.sort; at (32, 2^21), which
                   no cluster holds, the refusal, then K8 and torch.sort)
-  7. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
+  7. standalone   small standalone `.pco` files, one a mode x delta kind
+                  (Classic with NOOP, fused and order-3 consecutive,
+                  lookback and conv1 deltas; Dict, IntMult, FloatMult f64,
+                  FloatQuant f16): decode_standalone_device on the card
+                  equals its CPU route and the source, K1, K2 and every K3
+                  and K4 call equal their plain versions; then
+                  bench_matrix.py's seven standalone inputs (its seed-1234
+                  draws replayed): taxi_i64_delta1 (48M), f64_auto_multichunk
+                  (32M) and conv1_i32_lpc (8M, order 6) at full size, the
+                  first 8M numbers of intmult_i64_timestamps, floatmult_f32,
+                  floatquant_f16 and taxi_i64_realistic_ratio; each encoded
+                  by the port's simple_compress, planned by
+                  plan_standalone (host seconds), decoded by
+                  decode_standalone_device with the counts set to 0 just
+                  before and read just after, compared bit for bit with the
+                  source, K1, K2, K3 and K4 held against their plain
+                  versions, and timed: the decode, K1 + K2, K3, K4 and the
+                  post (conv1's post the loop over positions)
+  8. multi-var    small IntMult, FloatMult f32, FloatQuant f32 and lookback
+                  inputs (page_n 256, 8,192-number chunks): K5, K6 with its
+                  joint-cursor rows and K7 with its multi-var rows equal
+                  their plain versions, the image equals container_compress;
+                  then intmult_i64_timestamps at 32M and prefixes of
+                  f64_auto_multichunk, floatmult_f32, floatquant_f16 (4M
+                  each) and wrapped_lookback_multipage (2M): each image
+                  (counts set to 0 just before run_image, read just after)
+                  equals the port's container_compress at page_n 1024 and
+                  1M-number chunks byte for byte, its chunks' modes, the
+                  encode device part, K5, K6 (a call and alone) and K7
+                  timed, K6's and K7's bounds from the run's rows; K6 at
+                  the main path printed again; then the run's wall time
+  9. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
-     and the label `"status": "redesigned"`, K9's also its longest lane's
+     and the label `"status": "redesigned"`, K6's and K7's a `multivar`
+     object (phase 8's IntMult 32M: numbers, times, bound), K9's also its longest lane's
      steps and time alone; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
      (torch.gather on the card alone).
 
-Launch counts are set to 0 just before each main-path run, and before
-phase 6's runs at the experiments' shapes, and read just after. Any
+Launch counts are set to 0 just before each main-path run, each of phase
+7's and 8's full-size runs and phase 6's runs at the experiments' shapes,
+and read just after. Any
 failure exits non-zero before the `ok` line. Without a CUDA device, or
 without the package beside this script, it fails at once.
 """
@@ -379,6 +412,106 @@ def matrix_inputs(pt):
     return [("wrapped_lookback_multipage", lookback, lb_cfg, "lookback_recon_chunks"),
             ("dict_i64_100k", dict100k, dict_cfg, "dict_join_chunks"),
             ("dict_i64", dict4, dict_cfg, "dict_join_chunks")]
+
+
+def standalone_inputs(pt):
+    """bench_matrix.py's make_configs standalone inputs and its lookback
+    input, its seed-1234 draws replayed in order (the Dict inputs' draws
+    made and dropped): {name: (numbers, config)} at the benchmark's full
+    sizes."""
+    rng = np.random.default_rng(1234)
+    n, n2, n3, n4 = 48 << 20, 32 << 20, 8 << 20, 16 << 20
+    incs, jumps = rng.integers(0, 120, n), rng.random(n) < 0.001
+    out = {"taxi_i64_delta1": np.cumsum(incs + jumps * rng.integers(0, 10**6, n)).astype(np.int64)}
+    del incs, jumps
+    out["f64_auto_multichunk"] = np.cumsum(rng.standard_normal(n2)) + 0.001 * np.arange(n2, dtype=np.float64)
+    out["intmult_i64_timestamps"] = (np.cumsum(rng.integers(1, 30, n2)) * 1_000_000_000
+                                     + rng.integers(0, 4, n2)).astype(np.int64)
+    out["floatmult_f32"] = (rng.integers(-5000, 5000, n) * np.float32(0.01)).astype(np.float32)
+    out["floatquant_f16"] = (np.round(rng.standard_normal(n) * 16) / 16).astype(np.float16)
+    pattern = rng.integers(0, 10**6, 512).astype(np.int64)
+    out["wrapped_lookback_multipage"] = np.tile(pattern, n2 // 512) + rng.integers(0, 2, n2)
+    rng.integers(0, 4, n2)  # dict_i64
+    rng.integers(-(10**12), 10**12, 100_000), rng.integers(0, 100_000, n4)  # dict_i64_100k
+    t3 = np.arange(n3, dtype=np.float64)
+    sig = (1 << 20) * np.sin(0.01 * t3) + (1 << 18) * np.sin(0.003 * t3 + 1.0) + rng.integers(-64, 64, n3)
+    out["conv1_i32_lpc"] = sig.astype(np.int32)
+    incs_r, jumps_r = rng.integers(0, 600, n2), rng.random(n2) < 0.001
+    out["taxi_i64_realistic_ratio"] = np.cumsum(incs_r + jumps_r * rng.integers(0, 10**6, n2)).astype(np.int64)
+    cfgs = {"conv1_i32_lpc": pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_CONV1, 6)),
+            "wrapped_lookback_multipage": pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_LOOKBACK))}
+    return {k: (v, cfgs.get(k)) for k, v in out.items()}
+
+
+# phase 7's inputs, in bench_matrix.py's order
+STANDALONE = ("taxi_i64_delta1", "f64_auto_multichunk", "intmult_i64_timestamps", "floatmult_f32", "floatquant_f16",
+              "conv1_i32_lpc", "taxi_i64_realistic_ratio")
+
+
+# phase 7: the standalone inputs decoded at full size; the others cut to
+# their first STANDALONE_CUT numbers (host encode time)
+STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "conv1_i32_lpc")
+STANDALONE_CUT = 8 << 20
+# phase 8: the multi-var image inputs and their numbers (IntMult at full
+# size; prefixes of the others, lookback's for its host training's time)
+MULTI_INPUTS = (("intmult_i64_timestamps", 32 << 20), ("f64_auto_multichunk", 4 << 20),
+                ("floatmult_f32", 4 << 20), ("floatquant_f16", 4 << 20), ("wrapped_lookback_multipage", 2 << 20))
+
+
+def standalone_small_cases(pt):
+    """(name, numbers, config) of small standalone files, one a mode x delta
+    kind, held against the CPU route of the decode."""
+    rng = np.random.default_rng(SEED + 7)
+    walk = np.cumsum(rng.integers(0, 120, 9000)).astype(np.int64)
+    t = np.arange(9000, dtype=np.float64)
+    cfg = lambda kind, order=0: pt.ChunkConfig(delta_spec=pt.DeltaSpec(kind, order))
+    return [
+        ("classic_noop_u32", rng.integers(0, 5000, 9000).astype(np.uint32), None),
+        ("classic_consecutive_fused_i64", walk, cfg("try_consecutive", 1)),
+        ("classic_consecutive_order3_i32", (np.cumsum(np.cumsum(walk % 7)) % 2_000_000).astype(np.int32),
+         cfg("try_consecutive", 3)),
+        ("classic_lookback_i64", np.tile(rng.integers(0, 10**6, 512), 40).astype(np.int64)
+         + rng.integers(0, 2, 20480), cfg("try_lookback")),
+        ("classic_conv1_i32", (1000 * np.sin(t * 0.01) + rng.standard_normal(9000)).astype(np.int32),
+         cfg("try_conv1", 4)),
+        ("dict_i64", np.array([3, 99, 1234567, -5], np.int64)[rng.integers(0, 4, 9000)],
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_dict"))),
+        ("int_mult_i64", (rng.integers(0, 10**6, 9000) * 1_000_000_000).astype(np.int64), None),
+        ("float_mult_f64", (rng.integers(0, 1000, 9000) * 0.1).astype(np.float64), None),
+        ("float_quant_f16", np.round(rng.standard_normal(9000) * 16).astype(np.float16) / 16, None),
+    ]
+
+
+def multi_small_cases(pt):
+    """(name, numbers, config) of small multi-var and lookback inputs, one a
+    kind, at page_n 256 and 8,192-number chunks: IntMult's two vars,
+    FloatMult f32, FloatQuant f32 (a non-trivial secondary) and a lookback
+    delta's lookbacks and primary."""
+    rng = np.random.default_rng(SEED + 8)
+    fq = (np.round(rng.standard_normal(20_000) * 64) / 64).astype(np.float32)
+    fq.view(np.uint32)[::7] += rng.integers(1, 4, len(fq[::7])).astype(np.uint32)
+    fm = (rng.integers(-5000, 5000, 20_000) * np.float32(0.01)).astype(np.float32)
+    fm.view(np.uint32)[::9] += 1
+    return [
+        ("int_mult_i64", (np.cumsum(rng.integers(1, 30, 20_000)) * 1_000_000_000
+                          + rng.integers(0, 4, 20_000)).astype(np.int64),
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 10**9))),
+        ("float_mult_f32", fm, None),
+        ("float_quant_f32", fq, pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_quant", 6))),
+        ("lookback_i64", np.tile(rng.integers(0, 10**6, 512), 40).astype(np.int64) + rng.integers(0, 2, 20480),
+         pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_lookback", 0))),
+    ]
+
+
+def modes_line(plan) -> str:
+    """Each chunk kind of an image plan (mode/delta and its latent vars) and
+    its chunks."""
+    kinds = {}
+    for job in plan.enc.jobs:
+        meta = job.cc.meta
+        key = f"{meta.mode.kind}/{meta.delta_encoding.kind} {'+'.join(vj.key for vj in job.vars)}"
+        kinds[key] = kinds.get(key, 0) + 1
+    return ", ".join(f"{k} x{v}" for k, v in kinds.items())
 
 
 def dict_size_inputs(pt):
@@ -776,9 +909,9 @@ def check_encode_steps(ce, asm, plan, a):
     err = {"bin_ans_encode": max(check_equal(x, y)
                                  for x, y in zip(outs, ce.bin_ans_encode_plain(*k5_args(a))))}
     p1, offsets, states = outs
-    W = plan.launch.sec_words
-    k6 = ce.section_pack(p1, offsets, W)
-    err["section_pack"] = max(check_equal(x, y) for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W)))
+    W, rc = plan.launch.sec_words, a.get("row_chains")
+    k6 = ce.section_pack(p1, offsets, W, rc)
+    err["section_pack"] = max(check_equal(x, y) for x, y in zip(k6, ce.section_pack_plain(p1, offsets, W, rc)))
     sections, ans_len, off_len, total_bits = k6
     curs = ce.section_cursors(p1)[2]
     head, body, body_bytes = asm.image_assemble(plan, a, sections, states, ans_len, off_len, total_bits)
@@ -868,6 +1001,10 @@ def main() -> int:
     from pcodec_tpu_torch.ops import row_sort as rs
     from pcodec_tpu_torch.ops import softfloat as sf
 
+    from pcodec_tpu_torch.codec import standalone as sa
+    from pcodec_tpu_torch.ops import standalone_decode as sd
+
+    t_wall = time.time()
     dev = torch.device("cuda")
     # 1. card
     card = card_line()
@@ -1454,6 +1591,161 @@ def main() -> int:
     del plan_c, data_c
     torch.cuda.empty_cache()
 
+    # 7. standalone .pco decode: small files of each mode x delta kind, then
+    # bench_matrix.py's seven standalone inputs
+    t_ph = time.time()
+    for case, nums7, cfg7 in standalone_small_cases(pt):
+        blob = sa.simple_compress(nums7, cfg7)
+        want = pt.decode_standalone_device(blob, device="cpu")
+        plan7 = sd.plan_standalone(blob)
+        arrays7 = cd.upload_plan(plan7, dev)
+        with capturing(dops) as calls:
+            got = cd.to_numbers(cd.decode_plan(plan7, arrays7), plan7.nt)
+        if not (np.array_equal(got.view(np.uint8), want.view(np.uint8))
+                and np.array_equal(got.view(np.uint8), nums7.view(np.uint8))):
+            raise AssertionError(f"standalone {case}: the card's decode differs from the CPU route's")
+        check_launches(cd, plan7, arrays7)
+        check_breadth_calls(dops, calls)
+        ch = plan7.chunks[0]
+        print(f"standalone: {case}: decode on the card == CPU route == source, {ch.mode_kind}/{ch.delta.kind}, "
+              f"K1, K2{', K3' if calls['lookback_recon_chunks'] or calls['lookback_recon'] else ''}"
+              f"{', K4' if calls['dict_join_chunks'] else ''} == plain", flush=True)
+    inputs = standalone_inputs(pt)
+    sa_rows = {}
+    for case in STANDALONE:
+        nums7, cfg7 = inputs[case]
+        if case not in STANDALONE_FULL:
+            nums7 = nums7[:STANDALONE_CUT]
+        t0 = time.time()
+        blob = sa.simple_compress(nums7, cfg7)
+        t_enc7 = time.time() - t0
+        t0 = time.time()
+        plan7 = sd.plan_standalone(blob)
+        t_plan7 = time.time() - t0
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        with capturing(dops) as calls:
+            got = pt.decode_standalone_device(blob, device=dev)
+            torch.cuda.synchronize()
+        launches7 = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if not np.array_equal(got.view(np.uint8), nums7.view(np.uint8)):
+            raise AssertionError(f"standalone {case}: decode_standalone_device differs from the source")
+        del got
+        kinds = {(ch.mode_kind, ch.delta.kind) for ch in plan7.chunks}
+        need = ["section_gather", "chain_decode"] + (["lookback_recon"] if any(d == "lookback" for _, d in kinds)
+                                                     else []) + (["dict_join"] if any(m == "dict" for m, _ in kinds)
+                                                                 else [])
+        if any(not launches7.get(k) for k in need):
+            raise AssertionError(f"standalone {case}: a kernel of its decode was not launched: {launches7}")
+        arrays7 = cd.upload_plan(plan7, dev)
+        check_launches(cd, plan7, arrays7)
+        check_breadth_calls(dops, calls)
+        dec7 = time_ms(lambda: cd.decode_plan(plan7, arrays7))
+        k12 = time_ms(lambda: [cd.run_launch(cp, arrays7.words, arrays7.launches[lk])
+                               for lk, cp in plan7.launches.items()])
+        outs7 = {lk: cd.run_launch(cp, arrays7.words, arrays7.launches[lk]) for lk, cp in plan7.launches.items()}
+        # a post of over 50 ms (conv1's loop, FloatMult's softfloat) is timed in 3 runs
+        post7 = time_ms(lambda: cd.post_chunks(plan7, outs7, arrays7),
+                        **({"runs": 3, "warmup": 1} if dec7[0] > 50 else {}))
+        k3 = [(dops.lookback_recon_chunks, a) for a in calls["lookback_recon_chunks"]] + [
+            (dops.lookback_recon, a) for a in calls["lookback_recon"]]
+        k4 = [(dops.dict_join_chunks, a) for a in calls["dict_join_chunks"]]
+        k3_t = time_ms(lambda: [f(*a) for f, a in k3])[0] if k3 else 0.0
+        k4_t = time_ms(lambda: [f(*a) for f, a in k4])[0] if k4 else 0.0
+        n7, nb7 = len(nums7), nums7.nbytes
+        bound7 = bound(len(blob) + nb7)[0]
+        sa_rows[case] = {"n": n7, "bytes": len(blob), "ms": dec7[0], "plan_s": t_plan7, "post_ms": post7[0]}
+        print(f"standalone: {case}: {n7} {nums7.dtype}{'' if case in STANDALONE_FULL else ' (the first 8M)'}, "
+              f"{len(blob)} bytes, ratio {nb7 / len(blob):.4f}, {len(plan7.chunks)} chunks "
+              f"{sorted(kinds)}, host simple_compress {t_enc7:.1f} s, host plan_standalone {t_plan7:.3f} s; "
+              f"decode_standalone_device == source, launches {launches7}, K1, K2 and the decode's K3/K4 calls "
+              f"== plain [{card}]", flush=True)
+        print(f"standalone: {case}: decode {dec7[0]:.3f} ms median (min {dec7[1]:.3f}, max {dec7[2]:.3f}, "
+              f"{RUNS} runs), {nb7 / (dec7[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound {bound7:.4f} ms = "
+              f"{bound7 / dec7[0]:.1%}; K1 + K2 {k12[0]:.4f} ms ({len(plan7.launches)} launches), K3 "
+              f"{k3_t:.4f} ms ({len(k3)} calls), K4 {k4_t:.4f} ms ({len(k4)} calls), post (post_chunks, K3/K4 "
+              f"inside) {post7[0]:.4f} ms (min {post7[1]:.4f}, max {post7[2]:.4f}, {3 if dec7[0] > 50 else RUNS} runs)"
+              f"{'; the conv1 post (conv1_decode_pages, a loop over positions)' if case == 'conv1_i32_lpc' else ''}"
+              f" [{card}]", flush=True)
+        del outs7, arrays7, plan7, blob, calls, nums7
+        torch.cuda.empty_cache()
+    print(f"standalone: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
+
+    # 8. multi-var and lookback file image: small inputs of each kind with
+    # K6 and K7 held against their plain versions, then bench_matrix.py's
+    # multi-var inputs
+    t_ph = time.time()
+    for case, nums8, cfg8 in multi_small_cases(pt):
+        ref8 = pt.container_compress(nums8, cfg8, page_n=256, chunk_n=8192)
+        plan8 = asm.plan_image(nums8, cfg8, 256, 8192, dev)
+        if plan8.launch.row_chains is None:
+            raise AssertionError(f"multi {case}: no chunk of several latent vars ({modes_line(plan8)})")
+        a8 = asm.upload_image(plan8, dev)
+        check_encode_steps(ce, asm, plan8, a8)
+        if asm.file_image_to_bytes(*asm.run_image(plan8, a8)) != ref8:
+            raise AssertionError(f"multi {case}: file image differs from container_compress")
+        print(f"multi: {case}: {modes_line(plan8)}; K5, K6 (joint rows), K7 (multi-var rows) == plain, "
+              f"image == container_compress", flush=True)
+    multi_rows = {}
+    for case, m in MULTI_INPUTS:
+        nums8, cfg8 = inputs[case]
+        nums8 = nums8[:m]
+        t0 = time.time()
+        ref8 = pt.container_compress(nums8, cfg8, page_n=1024, chunk_n=1 << 20)
+        t_ref8 = time.time() - t0
+        t0 = time.time()
+        plan8 = asm.plan_image(nums8, cfg8, 1024, 1 << 20, dev)
+        t_plan8 = time.time() - t0
+        a8 = asm.upload_image(plan8, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        img8 = asm.run_image(plan8, a8)
+        torch.cuda.synchronize()
+        launches8 = {k: kernels.LAUNCHES[k] for k in ("bin_ans_encode", "section_pack", "image_stitch")}
+        peak8 = torch.cuda.max_memory_allocated()
+        if asm.file_image_to_bytes(*img8) != ref8:
+            raise AssertionError(f"multi {case}: file image differs from container_compress")
+        if any(v == 0 for v in launches8.values()):
+            raise AssertionError(f"multi {case}: a kernel of its encode was not launched: {launches8}")
+        del img8
+        L8 = plan8.launch
+        st8 = check_encode_steps(ce, asm, plan8, a8)
+        rc8 = a8.get("row_chains")
+        enc8 = time_ms(lambda: asm.run_image(plan8, a8))
+        k5_8 = time_ms(lambda: ce.bin_ans_encode(*k5_args(a8)))
+        k6_8 = time_ms(lambda: ce.section_pack(st8["p1"], st8["offsets"], L8.sec_words, rc8))
+        k6_8a = time_ms(lambda: ce.section_pack(st8["p1"], st8["offsets"], L8.sec_words, rc8), hold=True)[0]
+        k7_in = (st8["sections"], st8["states"], st8["ans_len"], st8["off_len"], st8["total_bits"])
+        k7_8 = time_ms(lambda: asm.image_assemble(plan8, a8, *k7_in))
+        syms8 = int(L8.body_n.sum())
+        off_b8 = 8 if int(((a8["t1"] >> 4) & 127).max()) > 32 else 4
+        pw8 = int(((st8["total_bits"] + 31) >> 5).sum())
+        k6_b8 = bound(syms8 * (4 + off_b8) + nbytes(st8["sections"], st8["ans_len"], st8["off_len"],
+                                                    st8["total_bits"]) + (nbytes(rc8) if rc8 is not None else 0),
+                      syms8 * K6_OPS_PER_SYMBOL)[0]
+        k7_b8 = bound(pw8 * 4 + nbytes(st8["states"], st8["ans_len"], st8["off_len"], st8["total_bits"],
+                                       a8["moments"], a8["image_desc"], a8["image_pfx"], a8["head_host"])
+                      + st8["body_words"] * 4 + plan8.head_bytes)[0]
+        multi_rows[case] = {"n": len(nums8), "launches": launches8, "k6_ms": k6_8[0], "k6_device_ms": k6_8a,
+                            "k6_bound_ms": k6_b8, "k7_ms": k7_8[0], "k7_bound_ms": k7_b8, "encode_ms": enc8[0]}
+        print(f"multi: {case}: {len(nums8)} {nums8.dtype}, {len(ref8)} bytes, {modes_line(plan8)}; trained on the "
+              f"{plan8.trained_on}, host container_compress {t_ref8:.1f} s, plan_image {t_plan8:.3f} s; image == "
+              f"container_compress, launches {launches8}; K5, K6, K7 == plain; {L8.n_chains} chains, K6 rows "
+              f"{L8.n_rows} x {L8.sec_words} words ({'pages of ' + str(rc8.shape[1]) + ' var slots' if rc8 is not None else 'a row a chain'}); "
+              f"max_memory_allocated {peak8} bytes [{card}]", flush=True)
+        print(f"multi: {case}: encode device part (run_image) {enc8[0]:.3f} ms (min {enc8[1]:.3f}, max "
+              f"{enc8[2]:.3f}), {nums8.nbytes / (enc8[0] * 1e-3) / 1e9:.2f} GB/s of input; K5 {k5_8[0]:.4f} ms, K6 "
+              f"{k6_8[0]:.4f} ms (card alone {k6_8a:.4f}, bound {k6_b8:.4f}), K7 {k7_8[0]:.4f} ms (bound "
+              f"{k7_b8:.4f}) [{card}]", flush=True)
+        del st8, a8, plan8, ref8, nums8
+        torch.cuda.empty_cache()
+    del inputs
+    print(f"multi: K6 at the main path {k6[0]:.4f} ms (card alone {k6_alone:.4f}); phase {time.time() - t_ph:.1f} s "
+          f"[{card}]", flush=True)
+
     # 6. experiments: the microbenchmarks of pcodec_tpu_torch/experiments
     t_exp = time.time()
     experiment_checks(torch, dev)
@@ -1486,11 +1778,14 @@ def main() -> int:
         {"name": "section_pack", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_pack.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:268", "launches": enc_launches["section_pack"],
          "max_abs_err": st["err"]["section_pack"], "ms": k6[0], "plain_ms": k6_plain[0], "bound_ms": k6_bound,
-         "bound_by": k6_by, "library_ms": None, "device_ms": k6_alone, "status": "redesigned"},
+         "bound_by": k6_by, "library_ms": None, "device_ms": k6_alone, "status": "redesigned",
+         "multivar": {k: multi_rows["intmult_i64_timestamps"][k] for k in ("n", "k6_ms", "k6_device_ms",
+                                                                           "k6_bound_ms")}},
         {"name": "image_stitch", "route": "cuda", "source": "pcodec_tpu_torch/csrc/image_stitch.cu",
          "replaces": "pcodec_tpu/ops/assemble.py:495", "launches": enc_launches["image_stitch"],
          "max_abs_err": st["err"]["image_stitch"], "ms": k7[0], "plain_ms": k7_plain[0], "bound_ms": k7_bound,
-         "bound_by": "bytes", "library_ms": None, "device_ms": k7_alone, "status": "redesigned"},
+         "bound_by": "bytes", "library_ms": None, "device_ms": k7_alone, "status": "redesigned",
+         "multivar": {k: multi_rows["intmult_i64_timestamps"][k] for k in ("n", "k7_ms", "k7_bound_ms")}},
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
@@ -1517,6 +1812,7 @@ def main() -> int:
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
                      "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name],
                      **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
+    print(f"wall: {time.time() - t_wall:.1f} s from the start of main [{card}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 The host layer (format, binning, modes, delta, codec, native) is a copy of
 the JAX package's framework-free host modules. The device layer decodes
-PCT containers (`ops/container_decode.py`) and encodes them to a file
+PCT containers (`ops/container_decode.py`) and standalone `.pco` files
+(`ops/standalone_decode.py`) and encodes PCT containers to a file
 image on the card (`ops/container_encode.py`, `ops/row_sort.py`,
 `ops/assemble.py`), with hand-written CUDA kernels on an NVIDIA GPU, or
 with their plain PyTorch versions on the CPU.
@@ -15,3 +16,7 @@ from pcodec_tpu_torch.codec.container import (  # noqa: F401
 )
 from pcodec_tpu_torch.ops.assemble import encode_container_device, encode_container_image_device  # noqa: F401
 from pcodec_tpu_torch.ops.container_decode import decode_container_device  # noqa: F401
+from pcodec_tpu_torch.ops.standalone_decode import (  # noqa: F401
+    decode_standalone_device,
+    decode_standalone_with_device,
+)

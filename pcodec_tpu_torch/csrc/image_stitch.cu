@@ -19,7 +19,7 @@
 //
 // What the design does about it: no rows. Two C calls, three kernels.
 //   image_offsets: a thread a page writes its head words (page bytes, the
-//     u16 entries of its batches), its record (chunk, chain, prefix and meta
+//     u16 entries of its batches), its record (chunk, K6 row, prefix and meta
 //     bytes) and its row's first 4 bytes, and a block's exclusive scan of
 //     the pages' byte lengths (prefix + meta + sections) gives each page its
 //     offset within its block; one block then scans the blocks' sums. The
@@ -45,7 +45,13 @@
 //     outside the body stops the kernel with a device error.
 // Meta groups (chunks of different order, bits or ANS size log) and trivial
 // chunks (no chain: a meta of zero indices, no sections) are rows of one
-// descriptor table, so one launch places every page. Nothing is staged in
+// descriptor table, so one launch places every page. A chunk of several
+// latent vars (a lookback delta's lookbacks, IntMult's and the float
+// modes' secondary) is a row too: its pages' sections are K6's rows of the
+// page, its vars interleaved already, and its meta and directory entries
+// are every var's in file order (per var: its delta states, then its 4
+// state indices; per page, per var, its batches' lengths), each var's
+// states read from its own chains. Nothing is staged in
 // shared memory, so a page of any width takes the same path.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,12 +63,20 @@ using u64 = unsigned long long;
 using i64 = long long;
 constexpr unsigned FULL = 0xffffffffu;
 
-// a row a chunk (assemble.IMAGE_COLS): a page's sections come from its var's
-// chain row, CHAIN0 plus the page's index in the chunk
+// a row a chunk (assemble.IMAGE_COLS): a page's sections are K6's row ROW0
+// plus the page's index in the chunk (-1: none), and per var (up to
+// MAX_VARS, VAR_COLS columns each from CHAIN0_0) its final states are those
+// of its chain CHAIN0_v plus the page's index (-1: a trivial var)
 enum Col {
-  FIRST_PAGE, N_PAGES, CHAIN0, ORDER, BITS, SL, TS, META_BYTES, PFX_BYTES, PFX_WORD, FIRST_ENTRY, BATCHES,
-  LAST_BATCHES, COLS
+  FIRST_PAGE, N_PAGES, ROW0, N_VARS, META_BITS, META_BYTES, PFX_BYTES, PFX_WORD, FIRST_ENTRY, BATCHES,
+  LAST_BATCHES,
+  CHAIN0_0, N_STATE_0, STATE_BITS_0, SL_0, TS_0, MOM_COL_0,
+  CHAIN0_1, N_STATE_1, STATE_BITS_1, SL_1, TS_1, MOM_COL_1,
+  CHAIN0_2, N_STATE_2, STATE_BITS_2, SL_2, TS_2, MOM_COL_2,
+  COLS
 };
+constexpr int MAX_VARS = 3;  // latent vars a chunk's row names
+constexpr int VAR_COLS = CHAIN0_1 - CHAIN0_0;
 constexpr int SCAN_THREADS = 256;  // pages a block of image_offsets scans
 constexpr int LAST_THREADS = 1024;  // threads of the block that scans the blocks' sums
 constexpr int WARPS = 8;           // pages (warps) a block of image_stitch
@@ -104,11 +118,15 @@ __device__ i64 block_excl_scan(i64 v, i64* total) {
   return before + x - v;
 }
 
-// word i of a page meta: `order` moments at `bits` each, then the 4 final
-// state indices (state - table size, zero for a trivial var) at `sl` bits,
-// LSB first
-__device__ u32 meta_word(const i64* __restrict__ d, const i64* __restrict__ mom, const i64* __restrict__ st,
-                         i64 i) {
+// word i of the meta of page j of a chunk, LSB first: per var its N_STATE
+// delta states (from the page's states at MOM_COL) at STATE_BITS each, then
+// its 4 final state indices (state - table size, zero for a trivial var)
+// at SL bits. Where K6's rows are the chains (VK == 1: one var a chunk),
+// the var's chain is the page's row, known from its record, so its states
+// load beside its fields; var 0's fields load before the loop over the
+// others (a placement is latency-bound: one round of loads, not two)
+__device__ u32 meta_word(const i64* __restrict__ d, const i64* __restrict__ mom, const i64* __restrict__ states,
+                         i64 j, i64 row, int VK, i64 i) {
   u32 w = 0;
   i64 cur = -32 * i;
   auto field = [&](u64 val, int len) {
@@ -118,24 +136,37 @@ __device__ u32 meta_word(const i64* __restrict__ d, const i64* __restrict__ mom,
     }
     cur += len;
   };
-  const int order = (int)d[ORDER], bits = (int)d[BITS], sl = (int)d[SL];
-  for (int k = 0; k < order; k++) field((u64)__ldg(mom + k), bits);
-  for (int k = 0; k < 4; k++) field(st ? (u64)(__ldg(st + k) - d[TS]) : 0, sl);
+  auto var = [&](const i64* f, i64 chain) {
+    const int ns = (int)__ldg(f + N_STATE_0 - CHAIN0_0), bits = (int)__ldg(f + STATE_BITS_0 - CHAIN0_0);
+    const int sl = (int)__ldg(f + SL_0 - CHAIN0_0);
+    const i64 ts = __ldg(f + TS_0 - CHAIN0_0);
+    const i64* m = mom + __ldg(f + MOM_COL_0 - CHAIN0_0);
+    const i64* st = chain >= 0 ? states + chain * 4 : nullptr;
+    for (int k = 0; k < ns; k++) field((u64)__ldg(m + k), bits);
+    for (int k = 0; k < 4; k++) field(st ? (u64)(__ldg(st + k) - ts) : 0, sl);
+  };
+  auto chain_of = [&](const i64* f) {
+    const i64 c0 = __ldg(f);
+    return c0 >= 0 ? c0 + j : -1;
+  };
+  const int nv = (int)__ldg(d + N_VARS);
+  var(d + CHAIN0_0, VK == 1 ? row : chain_of(d + CHAIN0_0));  // every chunk has its primary
+  for (int v = 1; v < nv; v++) var(d + CHAIN0_0 + v * VAR_COLS, chain_of(d + CHAIN0_0 + v * VAR_COLS));
   return w;
 }
 
-// per page: its chunk, its chain (-1: none), the prefix bytes before it (0
-// but on a chunk's first page) and its meta bytes
+// per page: its chunk, its row of K6's (-1: none), the prefix bytes before
+// it (0 but on a chunk's first page) and its meta bytes
 struct PageRec {
-  int chunk, chain, pfx, meta;
+  int chunk, row, pfx, meta;
 };
 
 __global__ void __launch_bounds__(SCAN_THREADS) image_sums_kernel(
     const i64* __restrict__ desc, int n_chunks, const i64* __restrict__ total_bits, const i64* __restrict__ ans_len,
-    const i64* __restrict__ off_len, int B, const u32* __restrict__ sections, int W, const i64* __restrict__ states,
-    const i64* __restrict__ moments, int MO, const u32* __restrict__ pfx_words, const u32* __restrict__ head_host,
-    int H, i64 R, i64 E, u32* __restrict__ head, i64* __restrict__ local, i64* __restrict__ block_sum,
-    PageRec* __restrict__ rec, u32* __restrict__ first_word) {
+    const i64* __restrict__ off_len, int VK, int B, const u32* __restrict__ sections, int W,
+    const i64* __restrict__ states, const i64* __restrict__ moments, int MO, const u32* __restrict__ pfx_words,
+    const u32* __restrict__ head_host, int H, i64 R, i64 E, u32* __restrict__ head, i64* __restrict__ local,
+    i64* __restrict__ block_sum, PageRec* __restrict__ rec, u32* __restrict__ first_word) {
   const i64 p = (i64)blockIdx.x * SCAN_THREADS + threadIdx.x;
   for (i64 i = p; i < H; i += (i64)gridDim.x * SCAN_THREADS) head[i] = head_host[i];
   i64 row = 0;
@@ -143,27 +174,33 @@ __global__ void __launch_bounds__(SCAN_THREADS) image_sums_kernel(
     const int c = find_chunk(desc, n_chunks, p);
     const i64* d = desc + (i64)c * COLS;
     const i64 j = p - d[FIRST_PAGE];
-    const i64 chain = d[CHAIN0] >= 0 ? d[CHAIN0] + j : -1;
-    const i64 tb = chain >= 0 ? total_bits[chain] : 0;
+    const i64 krow = d[ROW0] >= 0 ? d[ROW0] + j : -1;
+    const i64 tb = krow >= 0 ? total_bits[krow] : 0;
     const i64 mb = d[META_BYTES], pfx = j == 0 ? d[PFX_BYTES] : 0;
     const i64 page_bytes = mb + ((tb + 7) >> 3);
     head[H + p] = (u32)page_bytes;
     row = page_bytes + pfx;
     // the directory's u16 entries: every batch's ANS lengths, then every
-    // batch's offset lengths, in page order
+    // batch's offset lengths, in (page, var, batch) order; K6's lengths are
+    // per (row, var < VK, batch)
     unsigned short* h16 = reinterpret_cast<unsigned short*>(head + H + R);
-    const i64 e0 = d[FIRST_ENTRY] + j * d[BATCHES];
+    const i64 nv = d[N_VARS];
+    const i64 e0 = d[FIRST_ENTRY] + j * nv * d[BATCHES];
     const i64 nbat = j == d[N_PAGES] - 1 ? d[LAST_BATCHES] : d[BATCHES];
-    for (i64 b = 0; b < nbat; b++) {
-      h16[e0 + b] = chain >= 0 ? (unsigned short)ans_len[chain * B + b] : 0;
-      h16[E + e0 + b] = chain >= 0 ? (unsigned short)off_len[chain * B + b] : 0;
+    for (i64 v = 0; v < nv; v++) {
+      const i64* al = ans_len + (krow * VK + v) * B;
+      const i64* ol = off_len + (krow * VK + v) * B;
+      for (i64 b = 0; b < nbat; b++) {
+        h16[e0 + v * nbat + b] = krow >= 0 ? (unsigned short)al[b] : 0;
+        h16[E + e0 + v * nbat + b] = krow >= 0 ? (unsigned short)ol[b] : 0;
+      }
     }
     // the row's first 4 bytes, for the page before it whose last word
     // they complete: prefix, meta and sections, each zero past its bytes
     u32 w0 = pfx ? pfx_words[d[PFX_WORD]] : 0;
-    if (pfx < 4 && mb) w0 |= meta_word(d, moments + p * MO, chain >= 0 ? states + chain * 4 : nullptr, 0) << (8 * pfx);
-    if (pfx + mb < 4 && tb) w0 |= sections[chain * W] << (8 * (pfx + mb));
-    rec[p] = PageRec{c, (int)chain, (int)pfx, (int)mb};
+    if (pfx < 4 && mb) w0 |= meta_word(d, moments + p * MO, states, j, krow, VK, 0) << (8 * pfx);
+    if (pfx + mb < 4 && tb) w0 |= sections[krow * W] << (8 * (pfx + mb));
+    rec[p] = PageRec{c, (int)krow, (int)pfx, (int)mb};
     first_word[p] = w0;
   }
   i64 total;
@@ -242,8 +279,8 @@ __device__ __forceinline__ Bounds bounds(i64 q, Offsets start, const PageRec* __
 __device__ __forceinline__ void place_page(i64 p, i64 s, const Bounds& b, int lane, const i64* __restrict__ desc,
                                            const u32* __restrict__ first_word, Offsets start,
                                            const u32* __restrict__ sections, int W, const i64* __restrict__ states,
-                                           const i64* __restrict__ moments, int MO, const u32* __restrict__ pfx_words,
-                                           u32* __restrict__ body, i64 body_words) {
+                                           const i64* __restrict__ moments, int MO, int VK,
+                                           const u32* __restrict__ pfx_words, u32* __restrict__ body, i64 body_words) {
   const i64 e = b.e;
   const PageRec r = b.r;
   const i64 w_first = (s + 3) >> 2, w_last = (e - 1) >> 2;
@@ -251,7 +288,7 @@ __device__ __forceinline__ void place_page(i64 p, i64 s, const Bounds& b, int la
   const i64 meta_at = s + r.pfx, sec_at = meta_at + r.meta;
   const i64 sec_bytes_words = (e - sec_at + 3) >> 2;
   const i64 sec_n = sec_bytes_words < W ? sec_bytes_words : W;
-  const u32* sec = sections + (r.chain >= 0 ? (i64)r.chain * W : 0);
+  const u32* sec = sections + (r.row >= 0 ? (i64)r.row * W : 0);
   const i64 head_end = (sec_at - 1) >> 2;  // the last word holding prefix or meta bytes
   const i64 q_sec = sec_at >> 2, q_meta = meta_at >> 2;
   const int sh_sec = 8 * (int)(sec_at & 3), sh_meta = 8 * (int)(meta_at & 3);
@@ -268,13 +305,16 @@ __device__ __forceinline__ void place_page(i64 p, i64 s, const Bounds& b, int la
   // takes its low bits), then each batch's last
   const i64 i0 = w_first - 1 - q_sec;
   u32 carry = i0 >= 0 && i0 < sec_n ? __ldg(sec + i0) : 0;
-  // the page meta, word `lane` in lane `lane`, packed while the first loads
-  // are in flight (the wrapper admits metas of up to 32 words)
+  // the page meta, word `lane` in lane `lane` (a meta of over 32 words,
+  // conv1's of order 31 or 32, also word 32 + `lane` in mword2), packed
+  // while the first loads are in flight (the wrapper admits metas of up to
+  // 64 words)
   const i64* d = desc + (i64)r.chunk * COLS;
-  const int meta_n = r.meta ? (int)((d[ORDER] * d[BITS] + 4 * d[SL] + 31) >> 5) : 0;
-  const u32 mword = lane < meta_n
-                        ? meta_word(d, moments + p * MO, r.chain >= 0 ? states + (i64)r.chain * 4 : nullptr, lane)
-                        : 0;
+  const int meta_n = r.meta ? (int)((d[META_BITS] + 31) >> 5) : 0;
+  const i64 j = p - d[FIRST_PAGE];
+  const u32 mword = lane < meta_n ? meta_word(d, moments + p * MO, states, j, r.row, VK, lane) : 0;
+  const bool wide = meta_n > 32;  // the warp's page: uniform
+  const u32 mword2 = wide && lane + 32 < meta_n ? meta_word(d, moments + p * MO, states, j, r.row, VK, lane + 32) : 0;
   for (i64 base = w_first;;) {
 #pragma unroll
     for (int k = 0; k < UNROLL; k++) {
@@ -285,8 +325,14 @@ __device__ __forceinline__ void place_page(i64 p, i64 s, const Bounds& b, int la
       carry = __shfl_sync(FULL, hi[k], 31);
       if (base + 32 * k <= head_end) {  // the warp's words that hold prefix or meta bytes
         const i64 i = w - q_meta;
-        const u32 m_hi = __shfl_sync(FULL, mword, (int)(i & 31));
-        const u32 m_lo = __shfl_sync(FULL, mword, (int)((i - 1) & 31));
+        u32 m_hi = __shfl_sync(FULL, mword, (int)(i & 31));
+        u32 m_lo = __shfl_sync(FULL, mword, (int)((i - 1) & 31));
+        if (wide) {  // meta words 32-63 from mword2 (i < 0 or i >= meta_n are masked below)
+          const u32 h2 = __shfl_sync(FULL, mword2, (int)(i & 31));
+          const u32 l2 = __shfl_sync(FULL, mword2, (int)((i - 1) & 31));
+          if (i & 32) m_hi = h2;
+          if ((i - 1) & 32) m_lo = l2;
+        }
         v |= __funnelshift_l(i >= 1 && i <= meta_n ? m_lo : 0, i >= 0 && i < meta_n ? m_hi : 0, sh_meta);
         if (r.pfx && w <= w_last) v |= prefix_bits(pfx_words + d[PFX_WORD], (r.pfx + 3) >> 2, s, w);
       }
@@ -310,7 +356,7 @@ __device__ __forceinline__ void place_page(i64 p, i64 s, const Bounds& b, int la
 __global__ void __launch_bounds__(32 * WARPS, 4) image_stitch_kernel(
     const i64* __restrict__ desc, const PageRec* __restrict__ rec, const u32* __restrict__ first_word, Offsets start,
     int ppw, const u32* __restrict__ sections, int W, const i64* __restrict__ states,
-    const i64* __restrict__ moments, int MO, const u32* __restrict__ pfx_words, u32* __restrict__ body,
+    const i64* __restrict__ moments, int MO, int VK, const u32* __restrict__ pfx_words, u32* __restrict__ body,
     i64 body_words) {
   const i64 p0 = ((i64)blockIdx.x * WARPS + (threadIdx.x >> 5)) * ppw;
   const int lane = threadIdx.x & 31;
@@ -321,7 +367,7 @@ __global__ void __launch_bounds__(32 * WARPS, 4) image_stitch_kernel(
   for (i64 p = p0; p < p1; p++) {
     const Bounds cur = b;
     if (p + 1 < p1) b = bounds(p + 1, start, rec, first_word);
-    place_page(p, s, cur, lane, desc, first_word, start, sections, W, states, moments, MO, pfx_words, body,
+    place_page(p, s, cur, lane, desc, first_word, start, sections, W, states, moments, MO, VK, pfx_words, body,
                body_words);
     s = cur.e;
   }
@@ -329,27 +375,29 @@ __global__ void __launch_bounds__(32 * WARPS, 4) image_stitch_kernel(
 
 }  // namespace
 
-// head (H + R + E words): the host words, then each page's bytes and the
-// 2E u16 directory entries; scan (R + 2 nblk + 1 int64, nblk = ceil(R /
+// ans_len, off_len: K6's (rows, VK, B) section lengths. head (H + R + E
+// words): the host words, then each page's bytes and the 2E u16 directory
+// entries; scan (R + 2 nblk + 1 int64, nblk = ceil(R /
 // SCAN_THREADS)): the pages' offsets within their blocks, each block's first
 // byte and then the body's byte count, the blocks' sums; pages (5 R int32):
-// each page's record (chunk, chain, prefix bytes, meta bytes), then its
+// each page's record (chunk, K6's row, prefix bytes, meta bytes), then its
 // row's first 4 bytes
 extern "C" int image_offsets(const void* desc, int n_chunks, const void* total_bits, const void* ans_len,
-                             const void* off_len, int B, const void* sections, int W, const void* states,
+                             const void* off_len, int VK, int B, const void* sections, int W, const void* states,
                              const void* moments, int MO, const void* pfx_words, const void* head_host, int H,
                              long long R, long long E, void* head, void* scan, void* pages, int device,
                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_chunks < 1 || R < 1 || H < 0 || E < 0 || B < 0 || W < 0 || MO < 0) return (int)cudaErrorInvalidValue;
+  if (n_chunks < 1 || R < 1 || H < 0 || E < 0 || VK < 1 || VK > MAX_VARS || B < 0 || W < 0 || MO < 0)
+    return (int)cudaErrorInvalidValue;
   const long long nblk = (R + SCAN_THREADS - 1) / SCAN_THREADS;
   auto s = static_cast<cudaStream_t>(stream);
   i64* local = static_cast<i64*>(scan);
   PageRec* rec = static_cast<PageRec*>(pages);
   image_sums_kernel<<<(unsigned)nblk, SCAN_THREADS, 0, s>>>(
       static_cast<const i64*>(desc), n_chunks, static_cast<const i64*>(total_bits), static_cast<const i64*>(ans_len),
-      static_cast<const i64*>(off_len), B, static_cast<const u32*>(sections), W, static_cast<const i64*>(states),
+      static_cast<const i64*>(off_len), VK, B, static_cast<const u32*>(sections), W, static_cast<const i64*>(states),
       static_cast<const i64*>(moments), MO, static_cast<const u32*>(pfx_words), static_cast<const u32*>(head_host),
       H, R, E, static_cast<u32*>(head), local, local + R + nblk + 1, rec, reinterpret_cast<u32*>(rec + R));
   err = cudaGetLastError();
@@ -358,19 +406,21 @@ extern "C" int image_offsets(const void* desc, int n_chunks, const void* total_b
   return (int)cudaGetLastError();
 }
 
+// VK: K6's var slots a row (1: K6's rows are the chains)
 extern "C" int image_stitch(const void* desc, const void* pages, const void* scan, long long R, const void* sections,
-                            int W, const void* states, const void* moments, int MO, const void* pfx_words,
+                            int W, const void* states, const void* moments, int MO, int VK, const void* pfx_words,
                             void* body, long long body_words, int ppw, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (R < 1 || W < 0 || MO < 0 || body_words < 1 || ppw < 1) return (int)cudaErrorInvalidValue;
+  if (R < 1 || W < 0 || MO < 0 || VK < 1 || VK > MAX_VARS || body_words < 1 || ppw < 1)
+    return (int)cudaErrorInvalidValue;
   const long long warps = (R + ppw - 1) / ppw;
   const i64* local = static_cast<const i64*>(scan);
   const Offsets start{local, local + R, R, (R + SCAN_THREADS - 1) / SCAN_THREADS};
   const PageRec* rec = static_cast<const PageRec*>(pages);
   image_stitch_kernel<<<(unsigned)((warps + WARPS - 1) / WARPS), 32 * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const i64*>(desc), rec, reinterpret_cast<const u32*>(rec + R), start, ppw,
-      static_cast<const u32*>(sections), W, static_cast<const i64*>(states), static_cast<const i64*>(moments), MO,
+      static_cast<const u32*>(sections), W, static_cast<const i64*>(states), static_cast<const i64*>(moments), MO, VK,
       static_cast<const u32*>(pfx_words), static_cast<u32*>(body), body_words);
   return (int)cudaGetLastError();
 }

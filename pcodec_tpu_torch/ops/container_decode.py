@@ -92,11 +92,20 @@ class ChunkPlan:
     mode_scalar: int  # IntMult/FloatMult base latent, FloatQuant k; else 0
     var_plans: Dict[str, VarPlan]
     dict_table: Optional[np.ndarray] = None  # (D,) int64 memory bits of each Dict entry
+    # a standalone chunk is one page cut into chains: its lookback vars are
+    # reconstructed over the whole chunk from one stored state
+    flat_lookback: bool = False
 
     @property
     def n(self) -> int:
         """Numbers of the chunk: whole pages but the last."""
         return (self.n_pages - 1) * self.page_n + int(self.page_ns[-1]) if self.n_pages else 0
+
+    @property
+    def recon_pages(self) -> tuple:
+        """(pages, page length) of the lookback reconstruction: the launch's
+        pages, or one page of every chain's numbers for a flat chunk."""
+        return (1, self.n_pages * self.page_n) if self.flat_lookback else (self.n_pages, self.page_n)
 
 
 @dataclass
@@ -319,6 +328,13 @@ def plan_container(data: bytes) -> ContainerPlan:
             var_plans=var_plans, dict_table=table,
         ))
 
+    return _finish_plan(data, idx.nt, chunks, groups)
+
+
+def _finish_plan(data: bytes, nt: NumberType, chunks: List[ChunkPlan], groups: Dict[tuple, list]) -> ContainerPlan:
+    """The launches of the grouped chains, the padded words of `data`, K4's
+    and K3's descriptor tables: the plan of every decode on the card, from
+    a container's pages or a standalone file's chains."""
     launches = {lkey: _build_launch(lkey, items) for lkey, items in groups.items()}
     n_words = -(-len(data) // 4)
     for cp in launches.values():  # K1 may read a full staging row past any chain start
@@ -340,7 +356,7 @@ def plan_container(data: bytes) -> ContainerPlan:
             dict_bases.append(base)
         rows.append([dict_bases.index(base), start, ch.n, offsets[ci], toff, len(ch.dict_table)])
         toff += len(ch.dict_table)
-    plan = ContainerPlan(nt=idx.nt, chunks=chunks, launches=launches, words=raw.view(np.uint32), offsets=offsets,
+    plan = ContainerPlan(nt=nt, chunks=chunks, launches=launches, words=raw.view(np.uint32), offsets=offsets,
                          dict_chunks=dict_chunks, dict_bases=dict_bases,
                          dict_desc=np.array(rows, dtype=np.int64).reshape(-1, 6),
                          dict_table=np.concatenate([chunks[ci].dict_table for ci in dict_chunks])
@@ -353,7 +369,7 @@ def _k3_chunk(ch: ChunkPlan) -> bool:
     """Whether K3's container launch reconstructs a chunk's lookback vars:
     a lookback chunk with pages that fit shared memory."""
     return (ch.delta.kind == DeltaEncoding.LOOKBACK and ch.n_pages > 0
-            and ch.page_n <= kernels.LB_SMEM_MAX_N)
+            and ch.recon_pages[1] <= kernels.LB_SMEM_MAX_N)
 
 
 def _plan_lookback(plan: ContainerPlan) -> None:
@@ -388,11 +404,12 @@ def _plan_lookback(plan: ContainerPlan) -> None:
                 out, join = (base(("scratch",)), scratch_n), dec.JOIN_LATENTS
                 scratch[(ci, key)] = scratch_n
                 scratch_n += ch.n
+            n_pages, page_n = ch.recon_pages
             rows.append([*source(vp, ch), *source(ch.var_plans["delta"], ch), base(("moments",)), mom_off, *out,
-                         ch.n_pages, ch.page_n, ch.n, de.state_n, de.window_n, vp.bits, join, page0])
+                         n_pages, page_n, ch.n, de.state_n, de.window_n, vp.bits, join, page0])
             moments.append(vp.moments.reshape(-1))
             mom_off += vp.moments.size
-            page0 += ch.n_pages
+            page0 += n_pages
     plan.lookback_bases = bases
     plan.lookback_desc = np.array(rows, np.int64).reshape(-1, dec.LB_DESC_COLS)
     plan.lookback_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
@@ -658,7 +675,9 @@ def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
     if de.kind == DeltaEncoding.CONSECUTIVE:
         return dec.consecutive_decode_batched(lat, moments, de.order, vp.bits)
     if de.kind == DeltaEncoding.LOOKBACK:
-        return dec.lookback_recon(lat, delta_latents, moments, de.window_n, de.state_n, vp.bits)
+        P, N = cp.recon_pages
+        return dec.lookback_recon(lat.reshape(P, N), delta_latents.reshape(P, N), moments, de.window_n,
+                                  de.state_n, vp.bits).reshape(lat.shape)
     return dec.conv1_decode_pages(lat, moments, de.weights, de.quantization, de.bias, de.order, vp.bits)
 
 

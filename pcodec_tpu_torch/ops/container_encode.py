@@ -11,23 +11,26 @@ independent encode *chain*:
     plan_encode          host, numpy: train every chunk (its latents sorted
                          by K8 on the card), build its tANS encoder table
                          (build_enc_tables)
-    build_encode_launch  one row of latents per chain (from the host's
-                         chunks, or sliced out of device training's rows on
-                         the card), one table per chunk, one launch for all
-                         chunks
+    build_encode_launch  one row of latents per chain, a chain a (page,
+                         latent var) (from the host's chunks, or sliced out
+                         of device training's rows on the card), one table
+                         per (chunk, var), one launch for all chunks
     bin_ans_encode       K5, CUDA (csrc/bin_ans_encode.cu): bin search,
                          reverse 4-stream tANS walk and offsets per chain
-    section_pack         K6, CUDA (csrc/section_pack.cu): a warp a chain
+    section_pack         K6, CUDA (csrc/section_pack.cu): a warp a row
                          computes each batch's section lengths and cursors
                          and bit-packs its ANS values and offsets at them
-                         (section_cursors is that first step in plain torch)
+                         (section_cursors is that first step in plain torch);
+                         a row is a chain, or a page whose vars' chains it
+                         interleaves batch by batch at joint cursors
 
 ops/assemble.py stitches the sections into the file image on the card and
 holds the entry points.
 
-Only single-latent-var chunks (Classic or Dict mode) with NOOP or
-consecutive delta encode here; others raise NotImplementedError. A trivial
-var writes no body bits and needs no chain.
+Every mode (Classic, Dict, IntMult, FloatMult, FloatQuant) and every delta
+encodes here: a chunk's latent vars (the lookbacks of a lookback delta,
+the primary, the secondary) each get their chains and table. A trivial var
+writes no body bits and needs no chain.
 
 u64 values travel as int64 tensors holding the same bits (see
 container_decode.py). Each kernel wrapper takes its plain PyTorch version
@@ -53,10 +56,6 @@ from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 from pcodec_tpu_torch.ops.row_sort import sort_latents
 
 M32 = 0xFFFFFFFF
-_MULTI = (
-    "not ported yet; see ROADMAP.md queue item 4b "
-    "(multi-latent-var and lookback encode and file image)"
-)
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -93,15 +92,49 @@ def build_enc_tables(var_meta):
 
 
 @dataclass
-class ChunkJob:
-    cc: ChunkCompressor
-    order: int  # consecutive delta order; 0 for NOOP
+class VarJob:
+    """One latent var of a chunk: its encoder table and the page meta's
+    fields for it."""
+
+    key: str  # "delta", "primary" or "secondary"
     tables: Optional[tuple]  # build_enc_tables output; None for a trivial var
     sec_words: int  # worst-case section words of one page; 0 when trivial
+    n_state: int  # delta-state latents in each page meta
+    state_bits: int  # bits of each of them
+    sl: int  # ANS size log: the bits of each of the 4 final state indices
 
     @property
     def trivial(self) -> bool:
         return self.tables is None
+
+
+@dataclass
+class ChunkJob:
+    cc: ChunkCompressor
+    order: int  # consecutive delta order of the primary; 0 for another delta
+    vars: List[VarJob]  # the chunk's latent vars in file order
+
+    @property
+    def primary(self) -> VarJob:
+        return next(v for v in self.vars if v.key == "primary")
+
+    @property
+    def tables(self) -> Optional[tuple]:
+        return self.primary.tables
+
+    @property
+    def trivial(self) -> bool:
+        """No var has a chain."""
+        return all(v.trivial for v in self.vars)
+
+    @property
+    def sec_words(self) -> int:
+        """Worst-case section words of one page, every var's together."""
+        return sum(v.sec_words for v in self.vars)
+
+    @property
+    def multi(self) -> bool:
+        return len(self.vars) > 1
 
 
 @dataclass
@@ -128,29 +161,28 @@ class EncodePlan:
     dev: Optional[DeviceRows] = None  # device training's page rows
 
 
-def _check_encodable(ci: int, meta) -> None:
-    pv = meta.per_latent_var
-    if pv.secondary is not None or pv.delta is not None:
-        raise NotImplementedError(
-            f"chunk {ci}: {meta.mode.kind} mode with {meta.delta_encoding.kind} delta has "
-            f"several latent vars; {_MULTI}"
-        )
-    if meta.delta_encoding.kind not in (DeltaEncoding.NOOP, DeltaEncoding.CONSECUTIVE):
-        raise NotImplementedError(f"chunk {ci}: {meta.delta_encoding.kind} delta is {_MULTI}")
-
-
 def chunk_job(cc: ChunkCompressor, page_n: int) -> ChunkJob:
-    """The launch job of one trained single-var chunk: its delta order, its
-    encoder table and the worst-case section words of one page."""
-    de = cc.meta.delta_encoding
+    """The launch job of one trained chunk: per latent var its encoder
+    table, the worst-case section words of one page and its page meta's
+    fields."""
+    meta = cc.meta
+    de = meta.delta_encoding
+    vars_ = []
+    for key, lvc in cc.lvcs.enumerated():
+        vm = meta.per_latent_var.get(key)
+        n_state = de.for_latent_var(key).n_latents_per_state()
+        state_bits = vm.latent_type.bits
+        if n_state and isinstance(cc.page_infos, list) and cc.page_infos:
+            # the meta writes each state at its dtype's width (device training's
+            # lazy infos hold the latent type's)
+            state_bits = 8 * cc.page_infos[0].per_latent_var.get(key).delta_state.dtype.itemsize
+        tables, sec_words = None, 0
+        if not lvc.is_trivial:
+            worst = int(np.max(vm.bins.worst_case_bits_per_latent(lvc.ans_size_log)))
+            tables, sec_words = build_enc_tables(vm), -(-(page_n * (worst + 1) + 64) // 32)
+        vars_.append(VarJob(key, tables, sec_words, n_state, state_bits, int(vm.ans_size_log)))
     order = de.order if de.kind == DeltaEncoding.CONSECUTIVE else 0
-    lvc = cc.lvcs.primary
-    if lvc.is_trivial:
-        return ChunkJob(cc, order, None, 0)
-    vm = cc.meta.per_latent_var.primary
-    worst = int(np.max(vm.bins.worst_case_bits_per_latent(lvc.ans_size_log)))
-    sec_words = -(-(page_n * (worst + 1) + 64) // 32)
-    return ChunkJob(cc, order, build_enc_tables(vm), sec_words)
+    return ChunkJob(cc, order, vars_)
 
 
 def plan_encode(nums: np.ndarray, config: Optional[ChunkConfig] = None, page_n: int = 1024,
@@ -172,18 +204,21 @@ def plan_encode(nums: np.ndarray, config: Optional[ChunkConfig] = None, page_n: 
         chunk_config = replace(config, paging_spec=PagingSpec.exact_pages(ctn._exact_split(cn, page_n)))
         cc = chunk_compressor(nt, nums[start : start + cn], chunk_config, sort=sort)
         start += cn
-        _check_encodable(ci, cc.meta)
         jobs.append(chunk_job(cc, page_n))
     return EncodePlan(nt=nt, n=len(nums), page_n=page_n, chunk_ns=chunk_ns, jobs=jobs)
 
 
 @dataclass
 class EncodeLaunch:
-    """One launch of K5 + K6 for every non-trivial chunk: one row per chain
-    (page), each table's chains padded to CHAINS_PER_BLOCK with inert chains
-    (body_n 0), so every K5 block reads a single table. Bins are padded to a
-    power of two with copies of the last bin, which the search may pick but
-    which encode exactly as that bin."""
+    """One launch of K5 + K6 for every coded (chunk, var): one row per chain
+    (a page of one var), each table's chains padded to CHAINS_PER_BLOCK with
+    inert chains (body_n 0), so every K5 block reads a single table. Bins
+    are padded to a power of two with copies of the last bin, which the
+    search may pick but which encode exactly as that bin.
+
+    K6 packs a row per chain when every chunk has one latent var
+    (row_chains None); else a row per page of the file, the chains of its
+    vars interleaved batch by batch (row_chains)."""
 
     page_n: int
     # (n_chains, page_n), zero past body_n: a uint64 array built on the host,
@@ -196,12 +231,25 @@ class EncodeLaunch:
     lowers: np.ndarray  # (n_tables, b_pad) uint64 sorted bin lowers
     t1: np.ndarray  # (n_tables, b_pad) int32 min_renorm | ob << 4 | cutoff << 11
     t2: np.ndarray  # (n_tables, b_pad) int32 wbase - weight
-    sec_words: int  # section row words (multiple of 4), a bound for every chain
-    chain_start: List[int] = field(default_factory=list)  # per chunk; -1 when trivial
+    sec_words: int  # K6's row words (multiple of 4), a bound for every row
+    var_starts: List[dict] = field(default_factory=list)  # per chunk: each var's first chain; -1 when trivial
+    # (R, V) int64: K6's row of each page of the file, the chain of its v-th
+    # var in file order (-1: trivial or none); None: K6 packs a row a chain
+    row_chains: Optional[np.ndarray] = None
 
     @property
     def n_chains(self) -> int:
         return len(self.body_n)
+
+    @property
+    def chain_start(self) -> List[int]:
+        """Per chunk: the primary's first chain; -1 when trivial."""
+        return [vs.get("primary", -1) for vs in self.var_starts]
+
+    @property
+    def n_rows(self) -> int:
+        """K6's rows."""
+        return self.n_chains if self.row_chains is None else len(self.row_chains)
 
 
 def _page_bodies(cn: int, order: int, page_n: int):
@@ -212,17 +260,19 @@ def _page_bodies(cn: int, order: int, page_n: int):
     return skip, lens - skip
 
 
-def _page_rows(cc: ChunkCompressor, order: int, page_n: int) -> np.ndarray:
-    """(n_pages, page_n) uint64: each page's stored latents of the
-    delta-encoded chunk, shifted to the row's start, zeros after."""
-    lat = cc.lvcs.primary.latents
-    skip, body_n = _page_bodies(len(lat), order, page_n)
-    padded = np.zeros((len(body_n) + 1) * page_n, dtype=np.uint64)
+def _var_rows(cc: ChunkCompressor, key: str, page_n: int):
+    """(rows (n_pages, page_n) uint64, body_n (n_pages,)): each page's
+    stored latents of one var of a host-trained chunk (its page info's
+    [start, end) of the var's latents), from the row's start, zeros after."""
+    lat = cc.lvcs.get(key).latents
+    starts = np.asarray([info.per_latent_var.get(key).start for info in cc.page_infos], np.int64)
+    body_n = np.asarray([info.per_latent_var.get(key).end for info in cc.page_infos], np.int64) - starts
+    padded = np.zeros(len(lat) + page_n, dtype=np.uint64)
     padded[: len(lat)] = lat
     col = np.arange(page_n)[None, :]
-    rows = padded[(np.arange(len(body_n)) * page_n + skip)[:, None] + col]
+    rows = padded[starts[:, None] + col]
     rows[col >= body_n[:, None]] = 0
-    return rows
+    return rows, body_n
 
 
 def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n: np.ndarray) -> torch.Tensor:
@@ -238,19 +288,22 @@ def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n
 
 
 def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
-    """Chain-major launch arrays of every non-trivial chunk (the JAX
+    """Chain-major launch arrays of every coded (chunk, var) (the JAX
     `_build_launch_args` without the TPU layout). The latents come from the
-    host's trained chunks, or, after device training, from the page rows
-    on the card (no host latents, no upload)."""
+    host's trained chunks, or, after device training (one var a chunk),
+    from the page rows on the card (no host latents, no upload)."""
     page_n = plan.page_n
-    items = [(ci, job) for ci, job in enumerate(plan.jobs) if not job.trivial]
-    ts = max((job.tables[4] for _, job in items), default=1)
-    b_max = max((len(job.tables[1]) for _, job in items), default=1)
+    items = [(ci, vj) for ci, job in enumerate(plan.jobs) for vj in job.vars if not vj.trivial]
+    ts = max((vj.tables[4] for _, vj in items), default=1)
+    b_max = max((len(vj.tables[1]) for _, vj in items), default=1)
     b_pad = 1 << (b_max - 1).bit_length()
     n_tables = len(items)
     n_pages = [-(-cn // page_n) for cn in plan.chunk_ns]
     n_rows = [-(-n_pages[ci] // CHAINS_PER_BLOCK) * CHAINS_PER_BLOCK for ci, _ in items]
     n_chains = sum(n_rows)
+    multi = any(job.multi for job in plan.jobs)
+    row_words = max((job.sec_words for job in plan.jobs) if multi else (vj.sec_words for _, vj in items),
+                    default=4)
     L = EncodeLaunch(
         page_n=page_n,
         latents=np.zeros((n_chains, page_n), dtype=np.uint64) if plan.dev is None else None,
@@ -261,14 +314,15 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         lowers=np.zeros((n_tables, b_pad), dtype=np.uint64),
         t1=np.zeros((n_tables, b_pad), dtype=np.int32),
         t2=np.zeros((n_tables, b_pad), dtype=np.int32),
-        sec_words=-(-max((job.sec_words for _, job in items), default=4) // 4) * 4,
-        chain_start=[-1] * len(plan.jobs),
+        sec_words=-(-max(row_words, 4) // 4) * 4,
+        var_starts=[{vj.key: -1 for vj in job.vars} for job in plan.jobs],
     )
     src_row = np.zeros(n_chains, dtype=np.int64)
     skip = np.zeros(n_chains, dtype=np.int64)
     pos = 0
-    for tid, ((ci, job), rows) in enumerate(zip(items, n_rows)):
-        nexts, lowers, t1, t2, tsj = job.tables
+    for tid, ((ci, vj), rows) in enumerate(zip(items, n_rows)):
+        job = plan.jobs[ci]
+        nexts, lowers, t1, t2, tsj = vj.tables
         b = len(lowers)
         L.nexts[tid, :tsj] = nexts
         L.lowers[tid] = lowers[-1]
@@ -277,20 +331,29 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         L.t1[tid, :b] = t1
         L.t2[tid] = t2[-1]
         L.t2[tid, :b] = t2
-        sk, body_n = _page_bodies(plan.chunk_ns[ci], job.order, page_n)
-        sl = slice(pos, pos + len(body_n))
+        sl = slice(pos, pos + n_pages[ci])
         if plan.dev is None:
-            L.latents[sl] = _page_rows(job.cc, job.order, page_n)
+            L.latents[sl], L.body_n[sl] = _var_rows(job.cc, vj.key, page_n)
         else:
-            src_row[sl] = ci * plan.dev.rows_per_chunk + np.arange(len(body_n))
+            sk, L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], job.order, page_n)
+            src_row[sl] = ci * plan.dev.rows_per_chunk + np.arange(n_pages[ci])
             skip[sl] = sk
-        L.body_n[sl] = body_n
         L.table_id[pos : pos + rows] = tid
         L.states0[pos : pos + rows] = tsj
-        L.chain_start[ci] = pos
+        L.var_starts[ci][vj.key] = pos
         pos += rows
     if plan.dev is not None:
         L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n)
+    if multi:
+        V = max(len(job.vars) for job in plan.jobs)
+        L.row_chains = np.full((sum(n_pages), V), -1, dtype=np.int64)
+        p0 = 0
+        for ci, job in enumerate(plan.jobs):
+            for v, vj in enumerate(job.vars):
+                c0 = L.var_starts[ci][vj.key]
+                if c0 >= 0:
+                    L.row_chains[p0 : p0 + n_pages[ci], v] = c0 + np.arange(n_pages[ci])
+            p0 += n_pages[ci]
     return L
 
 
@@ -313,7 +376,7 @@ def enc_launch_from_jax(schema, dev_args) -> EncodeLaunch:
     has the `EncSchema` fields page_n, ts, b_pad and sec_words; `dev_args`
     is the `_build_launch_args` tuple (latlo, lathi, tables, bodyn,
     states0, tbl_ids) as numpy arrays. Undoes the round and dense-quad
-    layouts and splits the five table planes. `chain_start` is left empty:
+    layouts and splits the five table planes. `var_starts` is left empty:
     the JAX jobs carry it."""
     latlo, lathi, tables, bodyn, states0, tbl_ids = (np.asarray(a) for a in dev_args)
     lo = _from_round_layout(latlo).astype(np.uint32).astype(np.uint64)
@@ -341,7 +404,7 @@ def upload_launch(L: EncodeLaunch, device) -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {
+    a = {
         "latents": (L.latents.to(device) if isinstance(L.latents, torch.Tensor)
                     else t(L.latents.view(np.int64))),
         "body_n": t(L.body_n),
@@ -352,6 +415,9 @@ def upload_launch(L: EncodeLaunch, device) -> dict:
         "t1": t(L.t1),
         "t2": t(L.t2),
     }
+    if L.row_chains is not None:
+        a["row_chains"] = t(L.row_chains)
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -503,15 +569,31 @@ def section_cursors(p1: torch.Tensor):
     return ans_len, off_len, curs, start[:, -1] + total[:, -1]
 
 
-def section_pack_plain(p1, offsets, sec_words: int):
-    """Plain version of K6. p1 (n, page_n) int32 and offsets (n, page_n)
-    int64 from K5. Returns (sections (n, sec_words) int32, ans_len, off_len
-    (n, B), total_bits (n,)): section_cursors, then batch b's ANS values
-    (renorm bits each) LSB-first from its ANS cursor and its offsets (ob
-    bits each) from its offset cursor. Every value lands in at most three
-    words and payload bits never overlap, so an index_add_ on int64 words is
-    an OR."""
-    ans_len, off_len, curs, total_bits = section_cursors(p1)
+def joint_cursors(ans_len, off_len, row_chains):
+    """The sections' places when K6's row is a page of several vars: per
+    (row, var, batch) the ANS and offset bit lengths (zeros where the
+    row's var has no chain), the joint cursors (batch by batch, var by var
+    in file order, each [ANS][offsets], from bit 0 of the row; the JAX
+    `_multi_glue`'s exclusive scan) and each row's total bits. ans_len and
+    off_len (n_chains, B) per chain, row_chains (R, V) int64. Returns
+    (a, o (R, V, B), ans_at, off_at (R, V, B), total_bits (R,))."""
+    R, V = row_chains.shape
+    B = ans_len.shape[1]
+    ok = (row_chains >= 0)[:, :, None]
+    c = row_chains.clamp(min=0)
+    a = torch.where(ok, ans_len[c], 0)
+    o = torch.where(ok, off_len[c], 0)
+    tot = (a + o).transpose(1, 2).reshape(R, B * V)  # batch-major, var-minor
+    excl = (torch.cumsum(tot, 1) - tot).view(R, B, V).transpose(1, 2)
+    return a, o, excl, excl + a, tot.sum(1)
+
+
+def _deposit_rows(p1, offsets, curs, row, n_rows: int, sec_words: int) -> torch.Tensor:
+    """Chain c's batch b deposited into row row[c] (n_rows: dropped): its
+    ANS values (renorm bits each) LSB-first from curs[c, 2b], its offsets
+    (ob bits each) from curs[c, 2b + 1]. Every value lands in at most three
+    words and payload bits never overlap, so an index_add_ on int64 words
+    is an OR. Returns (n_rows, sec_words) int32."""
     dev = p1.device
     n, page_n = p1.shape
     B = page_n // BATCH
@@ -519,14 +601,14 @@ def section_pack_plain(p1, offsets, sec_words: int):
     ren, ob = (p >> 15) & 15, (p >> 19) & 127
     a_pos = curs[:, 0::2, None] + torch.cumsum(ren, 2) - ren
     o_pos = curs[:, 1::2, None] + torch.cumsum(ob, 2) - ob
-    del ren, ob, curs
+    del ren, ob
     W = sec_words + 3  # deposits past the last payload word add zeros
-    words = torch.zeros(n * W, dtype=torch.int64, device=dev)
-    row = (torch.arange(n, device=dev) * W)[:, None, None]
+    words = torch.zeros((n_rows + 1) * W, dtype=torch.int64, device=dev)
+    base = (row * W)[:, None, None]
 
     def deposit(v, pos):  # v < 2^32
         x = v << (pos & 31)
-        w = row + (pos >> 5)
+        w = base + (pos >> 5)
         words.index_add_(0, w.reshape(-1), (x & M32).reshape(-1))
         words.index_add_(0, (w + 1).reshape(-1), (x >> 32).reshape(-1))
 
@@ -534,38 +616,72 @@ def section_pack_plain(p1, offsets, sec_words: int):
     off = offsets.view(n, B, BATCH)
     deposit(off & M32, o_pos)
     deposit((off >> 32) & M32, o_pos + 32)  # zero unless ob > 32
-    return _to_i32(words.view(n, W)[:, :sec_words]), ans_len, off_len, total_bits
+    return _to_i32(words.view(n_rows + 1, W)[:n_rows, :sec_words])
 
 
-def section_pack(p1, offsets, sec_words: int):
-    """K6: the page body of every chain and its section lengths, the
-    cursors computed in the kernel; arguments and results as
-    section_pack_plain. Rows of at most kernels.section_pack_smem_words
-    words are staged in shared memory, longer ones ORed in device memory."""
+def section_pack_plain(p1, offsets, sec_words: int, row_chains=None):
+    """Plain version of K6. p1 (n, page_n) int32 and offsets (n, page_n)
+    int64 from K5. Without row_chains a row is a chain: returns (sections
+    (n, sec_words) int32, ans_len, off_len (n, B), total_bits (n,)) from
+    section_cursors, then batch b's ANS values (renorm bits each)
+    LSB-first from its ANS cursor and its offsets (ob bits each) from its
+    offset cursor. With row_chains (R, V) a row is a page whose vars'
+    chains it interleaves at joint_cursors: returns (sections (R,
+    sec_words), ans_len, off_len (R, V, B), total_bits (R,))."""
+    ans_len, off_len, curs, total_bits = section_cursors(p1)
+    n = p1.shape[0]
+    if row_chains is None:
+        row = torch.arange(n, device=p1.device)
+        return _deposit_rows(p1, offsets, curs, row, n, sec_words), ans_len, off_len, total_bits
+    R, V = row_chains.shape
+    a, o, ans_at, off_at, total_bits = joint_cursors(ans_len, off_len, row_chains)
+    ok = row_chains >= 0
+    chains = row_chains[ok]
+    row = torch.full((n,), R, dtype=torch.int64, device=p1.device)
+    row[chains] = torch.arange(R, device=p1.device)[:, None].expand(R, V)[ok]
+    curs = torch.zeros_like(curs)
+    curs[chains] = torch.stack([ans_at, off_at], 3)[ok].reshape(len(chains), -1)
+    return _deposit_rows(p1, offsets, curs, row, R, sec_words), a, o, total_bits
+
+
+def section_pack(p1, offsets, sec_words: int, row_chains=None):
+    """K6: the page body of every row and its section lengths, the cursors
+    computed in the kernel; arguments and results as section_pack_plain.
+    Rows of at most kernels.section_pack_smem_words words are staged in
+    shared memory, longer ones ORed in device memory."""
     if p1.device.type == "cpu":
-        return section_pack_plain(p1, offsets, sec_words)
+        return section_pack_plain(p1, offsets, sec_words, row_chains)
     n, page_n = p1.shape
     if page_n < BATCH or page_n % BATCH or sec_words < 4 or sec_words % 4:
         raise ValueError("section_pack needs whole batches and sec_words a multiple of 4")
-    if offsets.shape != p1.shape:
+    if offsets.shape != p1.shape or (row_chains is not None and (row_chains.dim() != 2 or not
+                                                                 1 <= row_chains.shape[1] <= kernels.K6_MAX_VARS)):
         raise ValueError("section_pack: argument shapes do not match the chains")
-    _check_cuda((p1, torch.int32), (offsets, torch.int64))
+    _check_cuda((p1, torch.int32), (offsets, torch.int64), *(((row_chains, torch.int64),) if row_chains is not None
+                                                             else ()))
     dev = p1.device
-    out = torch.empty((n, sec_words), dtype=torch.int32, device=dev)
-    lens = torch.empty((2, n, page_n // BATCH), dtype=torch.int64, device=dev)
-    total_bits = torch.empty(n, dtype=torch.int64, device=dev)
-    kernels.launch_section_pack(p1, offsets, out, lens[0], lens[1], total_bits)
+    R, V = (n, 1) if row_chains is None else tuple(row_chains.shape)
+    B = page_n // BATCH
+    out = torch.empty((R, sec_words), dtype=torch.int32, device=dev)
+    lens = torch.empty((2, R, V, B), dtype=torch.int64, device=dev)
+    total_bits = torch.empty(R, dtype=torch.int64, device=dev)
+    kernels.launch_section_pack(p1, offsets, out, lens[0], lens[1], total_bits, row_chains)
+    if row_chains is None:
+        return out, lens[0, :, 0], lens[1, :, 0], total_bits
     return out, lens[0], lens[1], total_bits
 
 
 def encode_launch(L: EncodeLaunch, a: dict):
-    """K5 -> K6 for one launch. Returns (sections (n, sec_words) int32,
-    final states (n, 4), ans_len, off_len, total_bits)."""
-    if not L.n_chains:  # every chunk trivial: nothing to launch
+    """K5 -> K6 for one launch. Returns (sections (L.n_rows, sec_words)
+    int32, final states (n_chains, 4), ans_len, off_len, total_bits): K6's
+    rows (section_pack)."""
+    if not L.n_chains:  # every chunk trivial: nothing to launch, K6's rows empty
         z = a["latents"].new_zeros
         B = L.page_n // BATCH
-        return z((0, L.sec_words), dtype=torch.int32), z((0, 4)), z((0, B)), z((0, B)), z(0)
+        R = L.n_rows
+        lens = (R, B) if L.row_chains is None else (R, L.row_chains.shape[1], B)
+        return z((R, L.sec_words), dtype=torch.int32), z((0, 4)), z(lens), z(lens), z(R)
     p1, offsets, states = bin_ans_encode(a["latents"], a["body_n"], a["table_id"], a["states0"],
                                          a["nexts"], a["lowers"], a["t1"], a["t2"])
-    sections, ans_len, off_len, total_bits = section_pack(p1, offsets, L.sec_words)
+    sections, ans_len, off_len, total_bits = section_pack(p1, offsets, L.sec_words, a.get("row_chains"))
     return sections, states, ans_len, off_len, total_bits

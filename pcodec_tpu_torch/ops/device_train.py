@@ -30,9 +30,11 @@ round trips and have no counterpart here; its u32-key speculation is K8's
 own choice of key width.
 
 Coverage (device_train_supported): integer numbers, auto or Classic mode,
-NOOP, consecutive or auto delta, chunk_n a multiple of page_n. A chunk whose
-decision leaves the single-var image (an IntMult base, a lookback delta)
-raises NotImplementedError (ROADMAP.md item 4b).
+NOOP, consecutive or auto delta, chunk_n a multiple of page_n. When the
+screening finds an IntMult base or the auto delta a lookback winner, the
+configuration is trained on the host instead (container_encode.plan_encode,
+`trained_on` "host"); the card still encodes and assembles it (the
+multi-var image). Their device phases are ROADMAP.md item 5b.
 
 u64 values travel as int64 tensors holding the same bits. The K9 wrapper
 takes its plain PyTorch version only for CPU tensors; for CUDA tensors it
@@ -61,7 +63,7 @@ from pcodec_tpu_torch.format.metadata import (
 from pcodec_tpu_torch.modes import int_mult
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.container_decode import BATCH, _resolve_device
-from pcodec_tpu_torch.ops.container_encode import _MULTI, DeviceRows, EncodePlan, chunk_job
+from pcodec_tpu_torch.ops.container_encode import DeviceRows, EncodePlan, chunk_job, plan_encode
 from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 from pcodec_tpu_torch.ops.row_sort import row_sort
 
@@ -470,20 +472,20 @@ def _lookback_costs(samples: List[np.ndarray], ubls: List[int], lt: LatentType) 
     return costs
 
 
-def _screen_int_mult(nums: np.ndarray, nt: NumberType, chunk_ns, starts) -> None:
+def _screen_int_mult(nums: np.ndarray, nt: NumberType, chunk_ns, starts) -> bool:
     """The IntMult screening of auto mode on the host's sample of each
     chunk (the JAX host screening thread, device_train.py:1983-1997): the
-    sample and function of the host pipeline's int_mult.choose_base. A
-    chunk with a base raises NotImplementedError."""
+    sample and function of the host pipeline's int_mult.choose_base.
+    Whether some chunk has a base."""
     sample_idx = {}
     for ci, (cn, st) in enumerate(zip(chunk_ns, starts)):
         if cn not in sample_idx:
             sample_idx[cn] = sampling.choose_sample_indices(cn)
         if sample_idx[cn] is None:
             continue
-        base = int_mult.choose_base_from_sample(nt.to_latent_ordered(nums[st + sample_idx[cn]]))
-        if base is not None:
-            raise NotImplementedError(f"chunk {ci}: int_mult mode (base {base}) has several latent vars; {_MULTI}")
+        if int_mult.choose_base_from_sample(nt.to_latent_ordered(nums[st + sample_idx[cn]])) is not None:
+            return True
+    return False
 
 
 def _delta_sample_index(chunk_ns, starts):
@@ -612,8 +614,8 @@ def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, p
     starts = np.cumsum([0] + chunk_ns[:-1])
     ubls = [cmp.choose_unoptimized_bins_log(config.compression_level, cn) for cn in chunk_ns]
 
-    if config.mode_spec.kind == ModeSpec.AUTO:
-        _screen_int_mult(nums, nt, chunk_ns, starts)
+    if config.mode_spec.kind == ModeSpec.AUTO and _screen_int_mult(nums, nt, chunk_ns, starts):
+        return plan_encode(nums, config, page_n, chunk_n, device)  # IntMult: trained on the host
     ds = config.delta_spec
     auto = ds.kind == DeltaSpec.AUTO
     delta_idx, spans = _delta_sample_index(chunk_ns, starts) if auto else (None, None)
@@ -625,9 +627,9 @@ def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, p
     else:
         encs = [DeltaEncoding.noop()] * n_chunks
     del delta_s
-    for ci, enc in enumerate(encs):
-        if enc.kind not in (DeltaEncoding.NOOP, DeltaEncoding.CONSECUTIVE):
-            raise NotImplementedError(f"chunk {ci}: {enc.kind} delta is {_MULTI}")
+    if any(enc.kind not in (DeltaEncoding.NOOP, DeltaEncoding.CONSECUTIVE) for enc in encs):
+        del lat2d
+        return plan_encode(nums, config, page_n, chunk_n, device)  # a lookback winner: trained on the host
     orders = [enc.order if enc.kind == DeltaEncoding.CONSECUTIVE else 0 for enc in encs]
     nreal = [sum(max(p - o, 0) for p in per) for per, o in zip(pages, orders)]
 

@@ -51,6 +51,7 @@ K3_THREADS = 128
 # K6's chains (warps) a block, from chip_smoke.py's sweep; fewer where a
 # block's rows do not fit its shared memory
 K6_WARPS = 1
+K6_MAX_VARS = 3  # latent vars a K6 row interleaves; must match csrc/section_pack.cu
 
 K7_SCAN_PAGES = 256  # pages a block of K7's offsets pass scans; must match csrc/image_stitch.cu
 
@@ -75,12 +76,12 @@ _ARGTYPES = {
     # latents, page_n, body_n, table_id, states0, nexts, ts, lowers, t1, t2,
     # b_pad, p1, offsets, states, n_chains, device, stream
     "bin_ans_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
-    # p1, offsets, page_n, out, sec_words, ans_len, off_len, total_bits,
-    # n_chains, warps, device, stream
-    "section_pack": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    # desc, pages, scan, R, sections, W, states, moments, MO, pfx_words, body,
-    # body_words, pages a warp, device, stream
-    "image_stitch": [_P, _P, _P, _L, _P, _I, _P, _P, _I, _P, _P, _L, _I, _I, _P],
+    # p1, offsets, page_n, row_chains, V, out, sec_words, ans_len, off_len,
+    # total_bits, n_rows, warps, device, stream
+    "section_pack": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # desc, pages, scan, R, sections, W, states, moments, MO, VK, pfx_words,
+    # body, body_words, pages a warp, device, stream
+    "image_stitch": [_P, _P, _P, _L, _P, _I, _P, _P, _I, _I, _P, _P, _L, _I, _I, _P],
     # in, out, rows, m, in_bytes, key_bytes, passes, mm, keys, hist, device, stream
     "row_sort": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _I, _P],
     # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
@@ -109,10 +110,10 @@ _MORE_FUNCS = {
     "row_sort_span": ("row_sort", [_P, _I, _L, _I, _P, _I, _P]),
     # bases, numels, n_bases, desc, desc_dev, n_rows, threads, launched, device, stream
     "lookback_chunks": ("lookback_recon", [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P]),
-    # desc, n_chunks, total_bits, ans_len, off_len, B, sections, W, states,
+    # desc, n_chunks, total_bits, ans_len, off_len, VK, B, sections, W, states,
     # moments, MO, pfx_words, head_host, H, R, E, head, scan, pages, device, stream
-    "image_offsets": ("image_stitch", [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _L, _L, _P, _P, _P,
-                                       _I, _P]),
+    "image_offsets": ("image_stitch", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _L, _L, _P, _P,
+                                       _P, _I, _P]),
 }
 
 
@@ -224,9 +225,11 @@ def section_pack_smem_words(device) -> int:
     return _K6_SMEM_WORDS[index]
 
 
-def launch_section_pack(p1, offsets, out, ans_len, off_len, total_bits) -> None:
-    _call("section_pack", p1, p1.data_ptr(), offsets.data_ptr(), p1.shape[1], out.data_ptr(), out.shape[1],
-          ans_len.data_ptr(), off_len.data_ptr(), total_bits.data_ptr(), p1.shape[0], K6_WARPS)
+def launch_section_pack(p1, offsets, out, ans_len, off_len, total_bits, row_chains=None) -> None:
+    """K6: out's rows are p1's chains, or the (R, V) pages of row_chains."""
+    rc, V = (None, 1) if row_chains is None else (row_chains.data_ptr(), row_chains.shape[1])
+    _call("section_pack", p1, p1.data_ptr(), offsets.data_ptr(), p1.shape[1], rc, V, out.data_ptr(), out.shape[1],
+          ans_len.data_ptr(), off_len.data_ptr(), total_bits.data_ptr(), out.shape[0], K6_WARPS)
 
 
 def image_scratch_sizes(R: int):
@@ -241,19 +244,22 @@ def image_scratch_sizes(R: int):
 def launch_image_offsets(desc, total_bits, ans_len, off_len, sections, states, moments, pfx_words, head_host,
                          E: int, head, scan, pages) -> None:
     """K7's first C call (two kernels): the head's words, the pages' records
-    and first bytes, and the scan of the pages' byte lengths. Counted
-    under image_stitch."""
+    and first bytes, and the scan of the pages' byte lengths. ans_len and
+    off_len: K6's (rows, B) or (rows, V, B) lengths. Counted under
+    image_stitch."""
     R = pages.shape[0] // 5
+    VK = ans_len.shape[1] if ans_len.dim() == 3 else 1
     _call("image_offsets", desc, desc.data_ptr(), desc.shape[0], total_bits.data_ptr(), ans_len.data_ptr(),
-          off_len.data_ptr(), ans_len.shape[1], sections.data_ptr(), sections.shape[1], states.data_ptr(),
+          off_len.data_ptr(), VK, ans_len.shape[-1], sections.data_ptr(), sections.shape[1], states.data_ptr(),
           moments.data_ptr(), moments.shape[1], pfx_words.data_ptr(), head_host.data_ptr(), head_host.shape[0], R,
           E, head.data_ptr(), scan.data_ptr(), pages.data_ptr(), count="image_stitch")
 
 
-def launch_image_stitch(desc, pages, scan, sections, states, moments, pfx_words, body) -> None:
-    """K7's placement: every body word from the pages' sources."""
+def launch_image_stitch(desc, pages, scan, sections, states, moments, pfx_words, body, VK: int = 1) -> None:
+    """K7's placement: every body word from the pages' sources. VK: K6's
+    var slots a row (1 where K6's rows are the chains)."""
     _call("image_stitch", body, desc.data_ptr(), pages.data_ptr(), scan.data_ptr(), pages.shape[0] // 5,
-          sections.data_ptr(), sections.shape[1], states.data_ptr(), moments.data_ptr(), moments.shape[1],
+          sections.data_ptr(), sections.shape[1], states.data_ptr(), moments.data_ptr(), moments.shape[1], VK,
           pfx_words.data_ptr(), body.data_ptr(), body.shape[0], K7_PAGES_PER_WARP)
 
 

@@ -277,13 +277,23 @@ def test_default_device_needs_a_card():
 @pytest.mark.parametrize("entry", ["host_assembly", "file_image"])
 @pytest.mark.parametrize("mode,delta", [("try_int_mult", ("no_op", 0)), ("classic", ("try_lookback", 0))])
 def test_chunks_outside_the_slice_raise(mode, delta, entry):
+    """Chunks of several latent vars (IntMult's secondary, a lookback
+    delta's lookbacks), which raised NotImplementedError before the
+    multi-var image, now encode through both entry points to the JAX
+    package's container_compress bytes, trained on the host."""
     if mode == "try_int_mult":
         nums = (RNG.integers(0, 1000, 3000) * 1_000_000).astype(np.int64)
-        spec = pt.ModeSpec(mode, 1_000_000)
+        spec, ref_spec = pt.ModeSpec(mode, 1_000_000), RefModeSpec(mode, 1_000_000)
     else:
         nums = np.tile(RNG.integers(0, 10**6, 300), 10).astype(np.int64)
-        spec = pt.ModeSpec(mode)
+        spec, ref_spec = pt.ModeSpec(mode), RefModeSpec(mode)
     cfg = pt.ChunkConfig(mode_spec=spec, delta_spec=pt.DeltaSpec(*delta))
-    fn = pt.encode_container_device if entry == "host_assembly" else pt.encode_container_image_device
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(nums, cfg, page_n=256, device="cpu")
+    ref = ref_compress(nums, RefChunkConfig(mode_spec=ref_spec, delta_spec=RefDeltaSpec(*delta)), page_n=256)
+    if entry == "host_assembly":
+        got = pt.encode_container_device(nums, cfg, page_n=256, device="cpu")
+    else:
+        got = asm.file_image_to_bytes(*pt.encode_container_image_device(nums, cfg, page_n=256, device="cpu"))
+    assert got == ref
+    plan = asm.plan_image(nums, cfg, 256, 1 << 20, "cpu")
+    assert plan.trained_on == "host" and plan.launch.row_chains is not None
+    assert len(plan.enc.jobs[0].vars) == 2

@@ -576,3 +576,138 @@ def test_image_stitch_traps_a_word_outside_the_body_on_card():
     r = subprocess.run([sys.executable, "-c", _TRAP], cwd=root, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "placed without an error" not in r.stdout, r.stdout + r.stderr
     assert "CUDA error" in r.stderr or "launch failure" in r.stderr or "illegal instruction" in r.stderr, r.stderr
+
+
+def _multi_case(name):
+    """A multi-var or lookback input (numbers, config, page_n, chunk_n):
+    IntMult's two vars with a second chunk of one var, FloatMult f32, a
+    lookback delta's lookbacks and primary, an IntMult chunk whose secondary
+    is trivial (no chain), and K6's joint row over the shared-memory limit
+    (pages of 2^16 numbers of two wide vars)."""
+    rng = np.random.default_rng(["intmult_mixed", "floatmult_f32", "lookback", "trivial_secondary",
+                                 "wide_joint_rows"].index(name) + 90)
+    if name == "intmult_mixed":
+        a = np.cumsum(rng.integers(0, 120, 8192)).astype(np.int64)
+        b = (rng.integers(0, 1 << 20, 8192) * 1_000_003 + rng.integers(0, 3, 8192)).astype(np.int64)
+        return np.concatenate([a, b]), pt.ChunkConfig(), 256, 8192
+    if name == "floatmult_f32":
+        x = (rng.integers(-5000, 5000, 6000) * np.float32(0.01)).astype(np.float32)
+        x.view(np.uint32)[::9] += 1
+        return x, pt.ChunkConfig(), 512, 4000
+    if name == "lookback":
+        x = np.tile(rng.integers(0, 10**6, 300), 20).astype(np.int64) + rng.integers(0, 2, 6000)
+        return x, pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_lookback", 0)), 256, 2500
+    if name == "trivial_secondary":
+        return (rng.integers(0, 1 << 20, 6000) * 777).astype(np.int64), pt.ChunkConfig(), 1024, 1 << 20
+    x = rng.integers(0, 2**40, 3 << 16, dtype=np.int64) * 1000 + rng.integers(0, 4, 3 << 16)
+    return x, pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 1000)), 1 << 16, 1 << 20
+
+
+MULTI_CASES = ["intmult_mixed", "floatmult_f32", "lookback", "trivial_secondary", "wide_joint_rows"]
+
+
+@pytest.mark.parametrize("name", MULTI_CASES[:4])
+def test_multivar_cases_reach_their_layouts(name):
+    """The multi-var cases hold what their names say, and their plain image
+    is the port's container_compress bytes."""
+    nums, cfg, page_n, chunk_n = _multi_case(name)
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cpu")
+    jobs, L = plan.enc.jobs, plan.launch
+    assert L.row_chains is not None and L.n_rows == plan.layout.total_pages
+    if name == "intmult_mixed":
+        assert [len(job.vars) for job in jobs] == [1, 2]
+    elif name == "lookback":
+        assert all([vj.key for vj in job.vars] == ["delta", "primary"] for job in jobs)
+    elif name == "trivial_secondary":
+        assert (L.row_chains[:, 1] == -1).all() and jobs[0].vars[1].trivial
+    img = asm.file_image_to_bytes(*asm.run_image(plan, a))
+    assert img == pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MULTI_CASES)
+def test_multivar_kernels_match_plain_on_card(name):
+    """Exact: on pages of several vars K6 (one counted launch, the joint
+    cursors inside) and K7 (two counted C calls, multi-var descriptor rows)
+    equal their plain versions, K6 also with its row map replaced by every
+    page's chains in another order, and the image is the port's
+    container_compress bytes; "wide_joint_rows" packs rows past the
+    shared-memory limit."""
+    _need_card()
+    nums, cfg, page_n, chunk_n = _multi_case(name)
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cuda")
+    L = plan.launch
+    p1, offsets, states = ce.bin_ans_encode(*_k5_args(a))
+    before = dict(kernels.LAUNCHES)
+    k6 = ce.section_pack(p1, offsets, L.sec_words, a["row_chains"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["section_pack"] == before["section_pack"] + 1
+    for x, y in zip(k6, ce.section_pack_plain(p1, offsets, L.sec_words, a["row_chains"])):
+        assert torch.equal(x, y)
+    flipped = a["row_chains"].flip(1).contiguous()
+    for x, y in zip(ce.section_pack(p1, offsets, L.sec_words, flipped),
+                    ce.section_pack_plain(p1, offsets, L.sec_words, flipped)):
+        assert torch.equal(x, y)
+    if name == "wide_joint_rows":
+        assert L.sec_words > kernels.section_pack_smem_words("cuda")
+    got = asm.image_assemble(plan, a, k6[0], states, *k6[1:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["image_stitch"] == before["image_stitch"] + 2
+    want = asm.image_assemble_plain(plan, a, k6[0], states, *k6[1:])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
+    img = asm.file_image_to_bytes(*asm.run_image(plan, a))
+    assert img == pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
+
+
+@pytest.mark.gpu
+def test_single_var_rows_unchanged_on_card():
+    """The V = 1 case: K6 without a row map packs a row a chain, its lengths
+    (rows, B), exactly as with the one-column map of every chain, and K7
+    reads those rows."""
+    _need_card()
+    nums, cfg, page_n, chunk_n = _case("i64_o1_p1024")
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cuda")
+    assert plan.launch.row_chains is None and "row_chains" not in a
+    p1, offsets, _ = ce.bin_ans_encode(*_k5_args(a))
+    W = plan.launch.sec_words
+    plain = ce.section_pack(p1, offsets, W)
+    one = torch.arange(p1.shape[0], device="cuda")[:, None].contiguous()
+    mapped = ce.section_pack(p1, offsets, W, one)
+    assert plain[1].shape == (p1.shape[0], page_n // 256) and mapped[1].shape == (p1.shape[0], 1, page_n // 256)
+    assert torch.equal(plain[0], mapped[0]) and torch.equal(plain[3], mapped[3])
+    assert torch.equal(plain[1], mapped[1][:, 0]) and torch.equal(plain[2], mapped[2][:, 0])
+
+
+def _wide_meta_case():
+    """Order-32 conv1 on u32 numbers: a page meta of 32 states of 32 bits
+    and 4 indices, over 32 words."""
+    t = np.arange(20_000)
+    nums = (1e6 * np.sin(t * 0.01) + 2e6 + np.random.default_rng(77).integers(-64, 64, 20_000)).astype(np.uint32)
+    return nums, pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_conv1", 32)), 256, 8192
+
+
+def test_wide_page_meta_case_reaches_its_layout():
+    """The order-32 conv1 image's metas take over 32 words (K7's second meta
+    word a lane), and its plain image is the port's container_compress
+    bytes."""
+    nums, cfg, page_n, chunk_n = _wide_meta_case()
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cpu")
+    assert max(plan.layout.meta_bits) > 32 * 32
+    assert all(job.cc.meta.delta_encoding.kind == "conv1" for job in plan.enc.jobs)
+    img = asm.file_image_to_bytes(*asm.run_image(plan, a))
+    assert img == pt.container_compress(nums, cfg, page_n=page_n, chunk_n=chunk_n)
+
+
+@pytest.mark.gpu
+def test_wide_page_meta_matches_plain_on_card():
+    """Exact: K7 places page metas of over 32 words (order-32 conv1 on u32)
+    as its plain version does, and the image is container_compress's."""
+    _need_card()
+    nums, cfg, page_n, chunk_n = _wide_meta_case()
+    plan, a = _launch(nums, cfg, page_n, chunk_n, "cuda")
+    outs = ce.encode_launch(plan.launch, a)
+    got = asm.image_assemble(plan, a, *outs)
+    want = asm.image_assemble_plain(plan, a, *outs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
+    assert asm.file_image_to_bytes(*got[:2], plan.head_bytes, got[2]) == pt.container_compress(
+        nums, cfg, page_n=page_n, chunk_n=chunk_n)

@@ -63,6 +63,30 @@ def test_container_bytes_and_host_decode_match_reference(name):
     assert np.array_equal(out.view(np.uint8), nums.view(np.uint8))
 
 
+@pytest.mark.parametrize("name", ["i64_consecutive1", "f64_auto", "i64_dict", "i64_lookback"])
+def test_standalone_bytes_and_host_decode_match_reference(name):
+    """The copied codec/standalone.py and standalone.py: identical `.pco`
+    bytes, identical decoded bits, through both modules' entry points."""
+    import pcodec_tpu.standalone as ref_standalone
+    from pcodec_tpu.codec import standalone as ref_codec_standalone
+
+    import pcodec_tpu_torch.standalone as port_standalone
+    from pcodec_tpu_torch.codec import standalone as port_codec_standalone
+
+    nums, (dkind, dorder), mkind, _ = CASES[name]
+    ref_cfg = RefChunkConfig(mode_spec=RefModeSpec(mkind), delta_spec=RefDeltaSpec(dkind, dorder))
+    cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(mkind), delta_spec=pt.DeltaSpec(dkind, dorder))
+    ref = ref_codec_standalone.simple_compress(nums, ref_cfg)
+    ours = port_codec_standalone.simple_compress(nums, cfg)
+    assert ours == ref == port_standalone.simple_compress(nums, cfg)
+    out, nt = port_codec_standalone.simple_decompress(ours)
+    assert nt.name == ref_codec_standalone.simple_decompress(ref)[1].name
+    assert np.array_equal(out.view(np.uint8), nums.view(np.uint8))
+    flat = port_standalone.simple_decompress(ours)
+    assert np.array_equal(flat.view(np.uint8), ref_standalone.simple_decompress(ref).view(np.uint8))
+    assert port_standalone.header_size() == ref_standalone.header_size()
+
+
 def _forbidden(mod: str) -> bool:
     return mod.split(".")[0] in ("jax", "jaxlib", "pcodec_tpu")
 
@@ -97,7 +121,8 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
         "import pcodec_tpu_torch.ops.device_train\n"
         "from pcodec_tpu_torch.experiments import micro_gather, pallas_bitonic, proto_dma, proto_realign\n"
         "from pcodec_tpu_torch.experiments import proto_round_loop\n"
-        "from pcodec_tpu_torch.codec import compress, decompress\n"
+        "from pcodec_tpu_torch.codec import compress, decompress, standalone\n"
+        "import pcodec_tpu_torch.standalone, pcodec_tpu_torch.ops.standalone_decode\n"
         "new = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'pcodec_tpu'))\n"
         "print(new); sys.exit(1 if new else 0)\n"

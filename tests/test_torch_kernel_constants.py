@@ -46,6 +46,8 @@ def _cu_constants(name: str) -> dict:
     ("row_sort", "TILE", row_sort.RADIX_TILE),
     ("row_sort", "BITS", row_sort.RADIX_BITS),
     ("image_stitch", "SCAN_THREADS", kernels.K7_SCAN_PAGES),
+    ("image_stitch", "MAX_VARS", kernels.K6_MAX_VARS),
+    ("section_pack", "MAX_VARS", kernels.K6_MAX_VARS),
     ("histogram_walk", "NB_LOG_MAX", device_train.WALK_NB_LOG_MAX),
     ("histogram_walk", "X_BITS", device_train.WALK_X_BITS),
     ("histogram_walk", "NARROW_BITS", device_train.WALK_NARROW_BITS),

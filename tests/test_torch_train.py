@@ -231,12 +231,20 @@ def test_configurations_outside_the_slice_train_on_the_host(name):
 @pytest.mark.parametrize("name", ["int_mult_timestamps", "lookback_winner"])
 def test_decisions_outside_the_single_var_image_raise(name):
     """An IntMult base (tests/test_pallas_encode.py's timestamps) and an
-    auto-delta lookback winner are decided on the device and raise
-    NotImplementedError naming ROADMAP item 4b."""
+    auto-delta lookback winner, which raised NotImplementedError before the
+    multi-var image, now hand the configuration to host training: the
+    plan says so and the image is the JAX package's container_compress
+    bytes."""
+    from pcodec_tpu_torch.ops import assemble as asm
+
     rng = np.random.default_rng(23)
     if name == "int_mult_timestamps":
         nums = np.cumsum(rng.integers(1, 2000, 40_000)).astype(np.int64) * 1_000_000_000 + rng.integers(0, 3, 40_000)
     else:
         nums = np.tile(rng.integers(0, 10**6, 700), 60)[:40_000].astype(np.int64) + rng.integers(0, 2, 40_000)
-    with pytest.raises(NotImplementedError, match="4b"):
-        pt.encode_container_image_device(nums, pt.ChunkConfig(), page_n=256, chunk_n=32768, device="cpu")
+    plan = asm.plan_image(nums, pt.ChunkConfig(), 256, 32768, "cpu")
+    assert plan.trained_on == "host"
+    kinds = {(job.cc.meta.mode.kind, job.cc.meta.delta_encoding.kind) for job in plan.enc.jobs}
+    assert ("int_mult" if name == "int_mult_timestamps" else "lookback") in {k for kind in kinds for k in kind}
+    got = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cpu")))
+    assert got == ref_compress(nums, page_n=256, chunk_n=32768)
