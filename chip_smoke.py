@@ -9,6 +9,10 @@
                                    one decode (through the package beside
                                    the script, so a copy of the script in
                                    another tree measures that tree)
+    python3 chip_smoke.py --train  only the device training of the main
+                                   path's 64M numbers and of phase 8's
+                                   IntMult 32M input, timed the same way
+                                   (a copy in another tree times that tree)
 
 Phases, one line each (numbers beside the card's name and power limit):
   1. card         nvidia-smi name and power limit, torch's device name
@@ -154,23 +158,40 @@ Phases, one line each (numbers beside the card's name and power limit):
                   inputs (page_n 256, 8,192-number chunks): K5, K6 with its
                   joint-cursor rows and K7 with its multi-var rows equal
                   their plain versions, the image equals container_compress;
-                  then intmult_i64_timestamps at 32M and prefixes of
-                  f64_auto_multichunk, floatmult_f32, floatquant_f16 (4M
-                  each) and wrapped_lookback_multipage (2M): each image
-                  (counts set to 0 just before run_image, read just after)
-                  equals the port's container_compress at page_n 1024 and
-                  1M-number chunks byte for byte, its chunks' modes, the
-                  encode device part, K5, K6 (a call and alone) and K7
-                  timed, K6's and K7's bounds from the run's rows; K6 at
-                  the main path printed again; then the run's wall time
+                  then intmult_i64_timestamps (32M) and f64_auto_multichunk
+                  (32M, in its standalone file's 262,144-number chunks,
+                  which mix Classic, FloatMult and FloatQuant) at full
+                  size, prefixes of floatmult_f32, floatquant_f16 (4M each)
+                  and wrapped_lookback_multipage (2M), and phase 5b's
+                  dict_i64 (32M) and dict_i64_100k (16M) with their
+                  container_compress bytes: each planned by plan_image with
+                  the counts set to 0 just before and read just after,
+                  trained on the card (K8 and K9; the lookback input, whose
+                  auto delta picks lookback, on the host, and no other),
+                  its image (counts set to 0 just before run_image, read
+                  just after) equal to the port's container_compress at
+                  page_n 1024 and 1M-number chunks byte for byte, the
+                  metas of chunk 0 and of the first chunk of each other
+                  mode (else the last) equal to the host
+                  chunk_compressor's, every
+                  K8 and K9 call of its training held against the plain
+                  versions and the last sort (the secondary rows; Dict's
+                  u32 index rows) and its walks timed beside the plain
+                  versions and torch.sort; plan_image's seconds with the
+                  device training's part, the peak memory of training and
+                  image, the encode device part, K5, K6 (a call and alone)
+                  and K7 timed, K6's and K7's bounds from the run's rows; K6
+                  at the main path printed again; then the run's wall time
   9. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
      and the label `"status": "redesigned"`, K6's and K7's a `multivar`
-     object (phase 8's IntMult 32M: numbers, times, bound), K9's also its longest lane's
-     steps and time alone; a phase-6 row adds its `device_ms` and, for E4a, `library_device_ms`
-     (torch.gather on the card alone).
+     object (phase 8's IntMult 32M: numbers, times, bound), K9's also its
+     longest lane's steps and time alone, K8's and K9's a `train_modes`
+     object (phase 8's shapes of each device-trained input: launches,
+     times, K8's bound); a phase-6 row adds its `device_ms` and, for E4a,
+     `library_device_ms` (torch.gather on the card alone).
 
 Launch counts are set to 0 just before each main-path run, each of phase
 7's and 8's full-size runs and phase 6's runs at the experiments' shapes,
@@ -454,8 +475,19 @@ STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "conv1_i32_lpc")
 STANDALONE_CUT = 8 << 20
 # phase 8: the multi-var image inputs and their numbers (IntMult at full
 # size; prefixes of the others, lookback's for its host training's time)
-MULTI_INPUTS = (("intmult_i64_timestamps", 32 << 20), ("f64_auto_multichunk", 4 << 20),
-                ("floatmult_f32", 4 << 20), ("floatquant_f16", 4 << 20), ("wrapped_lookback_multipage", 2 << 20))
+MULTI_INPUTS = (("intmult_i64_timestamps", 32 << 20), ("f64_auto_multichunk", 32 << 20),
+                ("floatmult_f32", 4 << 20), ("floatquant_f16", 4 << 20), ("wrapped_lookback_multipage", 2 << 20),
+                ("dict_i64", 32 << 20), ("dict_i64_100k", 16 << 20))
+# phase 8's chunk size, 1M numbers but for f64_auto_multichunk, whose
+# standalone file's 262,144-number chunks mix Classic, FloatMult and
+# FloatQuant (1M-number chunks are all Classic)
+MULTI_CHUNK_N = {"f64_auto_multichunk": 1 << 18}
+# phase 8's Dict inputs: phase 5b's numbers and container_compress bytes
+# (page_n 1024, 1M-number chunks, as phase 8 encodes)
+MULTI_DICT = ("dict_i64", "dict_i64_100k")
+# phase 8's one input trained on the host: the auto delta's lookback winner
+# (ROADMAP item 5b-iii)
+MULTI_HOST = ("wrapped_lookback_multipage",)
 
 
 def standalone_small_cases(pt):
@@ -725,6 +757,78 @@ def check_train_calls(dt, rs, calls) -> float:
         for a, b in zip(dt.walk_bins(*args), dt.walk_bins_plain(*args)):
             check_equal(a, b)
     return 0.0
+
+
+@contextlib.contextmanager
+def timed_call(mod, name):
+    """Host seconds of every call of mod.name, the card synchronised after
+    each (the device training inside a plan_image)."""
+    import torch
+
+    spent = [0.0]
+    fn = getattr(mod, name)
+
+    def call(*args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.time() - t0
+        return out
+
+    setattr(mod, name, call)
+    try:
+        yield spent
+    finally:
+        setattr(mod, name, fn)
+
+
+def check_two_metas(pt, cmp, plan, nums, cfg) -> str:
+    """The metas of chunk 0 and of the first chunk of each other mode (the
+    last chunk where all share one) against the host chunk_compressor's."""
+    from pcodec_tpu_torch.codec.chunk_config import PagingSpec
+    from pcodec_tpu_torch.codec.container import _exact_split
+
+    jobs, chunk_ns = plan.enc.jobs, plan.enc.chunk_ns
+    first = {}
+    for ci, j in enumerate(jobs):
+        first.setdefault(j.cc.meta.mode.kind, ci)
+    picked = sorted(set(first.values()) | ({len(jobs) - 1} if len(first) == 1 else set()))
+    starts = np.cumsum([0] + chunk_ns[:-1])
+    for ci in picked:
+        ccfg = replace(cfg or pt.ChunkConfig(),
+                       paging_spec=PagingSpec.exact_pages(_exact_split(chunk_ns[ci], plan.enc.page_n)))
+        host = cmp.chunk_compressor(plan.enc.nt, nums[starts[ci] : starts[ci] + chunk_ns[ci]], ccfg)
+        if meta_bytes(jobs[ci].cc) != meta_bytes(host):
+            raise AssertionError(f"chunk {ci}'s device-trained meta differs from the host chunk_compressor's")
+    return f"of chunks {', '.join(f'{ci} ({jobs[ci].cc.meta.mode.kind})' for ci in picked)}"
+
+
+def train_kernel_numbers(torch, dt, rs, calls, plan, launches) -> dict:
+    """K8 and K9 held against their plain versions on every call of one
+    device training, then timed at the shapes of its last sort (the split
+    chunks' secondary rows; a Dict plan's rows of u32 indices) and of the
+    walks of those rows (K9's calls from the last, as many lanes as the sort
+    had rows)."""
+    check_train_calls(dt, rs, calls)
+    (x,) = calls["row_sort"][-1]
+    walks, lanes = [], 0
+    for args in reversed(calls["walk_bins"]):
+        if lanes >= x.shape[0]:
+            break
+        walks.insert(0, args)
+        lanes += args[0].shape[0]
+    k8 = time_ms(lambda: rs.row_sort(x))
+    k8_plain = time_ms(lambda: rs.row_sort_plain(x), runs=3, warmup=1)
+    k8_lib = time_ms(lambda: torch.sort(x, dim=1))
+    k9 = time_ms(lambda: [dt.walk_bins(*a) for a in walks])
+    k9_plain = time_ms(lambda: [dt.walk_bins_plain(*a) for a in walks], runs=3, warmup=1)
+    kinds = {j.cc.meta.mode.kind for j in plan.enc.jobs}
+    return {"rows_of": ("secondary rows" if any(j.multi for j in plan.enc.jobs)
+                        else "index rows" if "dict" in kinds else "primary rows"),
+            "rows": x.shape[0], "cols": x.shape[1], "key_bytes_passes": rs.radix_plan(rs.radix_span(x)[1]),
+            "ms": k8[0], "plain_ms": k8_plain[0], "library_ms": k8_lib[0], "bound_ms": bound(2 * nbytes(x))[0],
+            "lanes": lanes, "nb_logs": sorted({a[-1] for a in walks}), "walk_ms": k9[0], "walk_plain_ms": k9_plain[0],
+            "launches": launches}
 
 
 def meta_bytes(cc) -> bytes:
@@ -1448,10 +1552,13 @@ def main() -> int:
 
     # 5b. breadth at full size
     breadth_rows = {}
+    dict_kept = {}  # phase 8's Dict inputs: their numbers, config and container_compress bytes
     for case, nums5, cfg5, kname in matrix_inputs(pt) + dict_size_inputs(pt):
         t0 = time.time()
         data5 = pt.container_compress(nums5, cfg5)
         t_enc5 = time.time() - t0
+        if case in MULTI_DICT:
+            dict_kept[case] = (nums5, cfg5, data5)
         t0 = time.time()
         plan5 = cd.plan_container(data5)
         t_plan5 = time.time() - t0
@@ -1687,19 +1794,31 @@ def main() -> int:
             raise AssertionError(f"multi {case}: file image differs from container_compress")
         print(f"multi: {case}: {modes_line(plan8)}; K5, K6 (joint rows), K7 (multi-var rows) == plain, "
               f"image == container_compress", flush=True)
-    multi_rows = {}
+    multi_rows, train_rows = {}, {}
     for case, m in MULTI_INPUTS:
-        nums8, cfg8 = inputs[case]
-        nums8 = nums8[:m]
         t0 = time.time()
-        ref8 = pt.container_compress(nums8, cfg8, page_n=1024, chunk_n=1 << 20)
+        chunk8 = MULTI_CHUNK_N.get(case, 1 << 20)
+        if case in MULTI_DICT:
+            nums8, cfg8, ref8 = dict_kept.pop(case)
+        else:
+            nums8, cfg8 = inputs[case]
+            nums8 = nums8[:m]
+            ref8 = pt.container_compress(nums8, cfg8, page_n=1024, chunk_n=chunk8)
         t_ref8 = time.time() - t0
-        t0 = time.time()
-        plan8 = asm.plan_image(nums8, cfg8, 1024, 1 << 20, dev)
-        t_plan8 = time.time() - t0
-        a8 = asm.upload_image(plan8, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.time()
+        with capturing(dt, ("row_sort", "walk_bins")) as tcalls8, timed_call(asm, "plan_encode_device") as t_train8:
+            plan8 = asm.plan_image(nums8, cfg8, 1024, chunk8, dev)
+            torch.cuda.synchronize()
+        t_plan8 = time.time() - t0
+        train_launches8 = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk")}
+        want_on = "host" if case in MULTI_HOST else "device"
+        if plan8.trained_on != want_on:
+            raise AssertionError(f"multi {case}: trained on the {plan8.trained_on}, not the {want_on}")
+        a8 = asm.upload_image(plan8, dev)
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         img8 = asm.run_image(plan8, a8)
@@ -1711,6 +1830,17 @@ def main() -> int:
         if any(v == 0 for v in launches8.values()):
             raise AssertionError(f"multi {case}: a kernel of its encode was not launched: {launches8}")
         del img8
+        metas8 = check_two_metas(pt, cmp, plan8, nums8, cfg8)
+        if want_on == "device":
+            train_rows[case] = train_kernel_numbers(torch, dt, rs, tcalls8, plan8, train_launches8)
+            tr = train_rows[case]
+            print(f"multi: {case}: plan_image {t_plan8:.3f} s, of it device training (plan_encode_device) "
+                  f"{t_train8[0]:.3f} s; chunk metas {metas8} == host chunk_compressor; K8, K9 == plain on "
+                  f"every call; launches {train_launches8}; the {tr['rows_of']}: K8 on {tr['rows']} rows of "
+                  f"{tr['cols']} (key bytes, passes {tr['key_bytes_passes']}) {tr['ms']:.4f} ms a call (plain "
+                  f"{tr['plain_ms']:.4f}, torch.sort {tr['library_ms']:.4f}), K9 on {tr['lanes']} lanes at nb_log "
+                  f"{tr['nb_logs']} {tr['walk_ms']:.4f} ms (plain {tr['walk_plain_ms']:.3f}) [{card}]", flush=True)
+        del tcalls8
         L8 = plan8.launch
         st8 = check_encode_steps(ce, asm, plan8, a8)
         rc8 = a8.get("row_chains")
@@ -1742,7 +1872,7 @@ def main() -> int:
               f"{k7_b8:.4f}) [{card}]", flush=True)
         del st8, a8, plan8, ref8, nums8
         torch.cuda.empty_cache()
-    del inputs
+    del inputs, dict_kept
     print(f"multi: K6 at the main path {k6[0]:.4f} ms (card alone {k6_alone:.4f}); phase {time.time() - t_ph:.1f} s "
           f"[{card}]", flush=True)
 
@@ -1789,12 +1919,18 @@ def main() -> int:
         {"name": "row_sort", "route": "cuda", "source": "pcodec_tpu_torch/csrc/row_sort.cu",
          "replaces": "pcodec_tpu/ops/pallas_sort.py:49", "launches": enc_launches["row_sort"],
          "max_abs_err": train_err, "ms": k8[0], "plain_ms": k8_plain[0], "bound_ms": k8_bound,
-         "bound_by": k8_by, "library_ms": k8_lib[0], "span_launches": enc_launches["row_sort_span"]},
+         "bound_by": k8_by, "library_ms": k8_lib[0], "span_launches": enc_launches["row_sort_span"],
+         "train_modes": {case: {k: r[k] for k in ("rows_of", "rows", "cols", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms")} | {"launches": r["launches"]["row_sort"]}
+                         for case, r in train_rows.items()}},
         {"name": "histogram_walk", "route": "cuda", "source": "pcodec_tpu_torch/csrc/histogram_walk.cu",
          "replaces": "pcodec_tpu/ops/pallas_walk.py:40", "launches": enc_launches["histogram_walk"],
          "max_abs_err": train_err, "ms": k9[0], "plain_ms": k9_plain[0], "bound_ms": k9_bound,
          "bound_by": k9_by, "library_ms": None, "device_ms": k9_alone, "status": "redesigned",
-         "longest_lane_steps": lane_steps[long9], "longest_lane_ms": k9_lane},
+         "longest_lane_steps": lane_steps[long9], "longest_lane_ms": k9_lane,
+         "train_modes": {case: {"lanes": r["lanes"], "nb_logs": r["nb_logs"], "ms": r["walk_ms"],
+                                "plain_ms": r["walk_plain_ms"], "launches": r["launches"]["histogram_walk"]}
+                         for case, r in train_rows.items()}},
         {"name": "lookback_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1242", **breadth_rows["lookback_recon"],
          "status": "redesigned"},
@@ -1857,5 +1993,62 @@ def lookback_decode_only() -> int:
     return 0
 
 
+def profiled_functions(fn, top=14) -> str:
+    """The package's functions under cProfile in one call of fn, the card
+    synchronised at its end: name, calls and cumulative host seconds of the
+    top ones."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = [(ct, nc, f"{fname.split('pcodec_tpu_torch/')[-1]}:{line}({name})")
+            for (fname, line, name), (_, nc, _, ct, _) in pstats.Stats(prof).stats.items()
+            if "pcodec_tpu_torch" in fname or name.startswith("<method") or name.startswith("<built-in")]
+    return "; ".join(f"{label} x{nc} {ct:.4f}" for ct, nc, label in sorted(rows, reverse=True)[:top])
+
+
+def train_only() -> int:
+    """The device training of the main path's 64M numbers (phase 5's
+    configuration) and of phase 8's intmult_i64_timestamps (32M, auto
+    mode) alone, through plan_encode_device, which every tree of the port
+    has (a tree that trains IntMult on the host hands it to plan_encode
+    there): a call's host seconds, the card synchronised, median (min, max)
+    of RUNS calls after a warm-up, and where it trained."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.ops import device_train as dt
+
+    dev = torch.device("cuda")
+    card = card_line()
+    for case, nums, cfg in (("main", make_data(), cfg_of(pt, 1)),
+                            ("intmult_i64_timestamps", standalone_inputs(pt)["intmult_i64_timestamps"][0], None)):
+        plan = dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev)
+        secs = []
+        for _ in range(RUNS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        print(f"train: {case}: {len(nums)} {nums.dtype} trained on the {plan.trained_on} by {dt.__file__}: "
+              f"plan_encode_device {sorted(secs)[len(secs) // 2]:.3f} s median (min {min(secs):.3f}, max "
+              f"{max(secs):.3f}, {RUNS} runs) [{card}]", flush=True)
+        print(f"train: {case}: one call's functions of the package by cumulative host seconds (cProfile): "
+              f"{profiled_functions(lambda: dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev))}", flush=True)
+        del plan, nums
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(lookback_decode_only() if sys.argv[1:] == ["--lookback-decode"] else main())
+    modes = {"--lookback-decode": lookback_decode_only, "--train": train_only}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

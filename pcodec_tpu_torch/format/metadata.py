@@ -155,8 +155,8 @@ class Mode:
         elif self.kind == self.DICT:
             writer.write_uint(len(self.payload), c.BITS_TO_ENCODE_DICT_LEN)
             writer.finish_byte()
-            for v in self.payload.tolist():
-                writer.write_uint(int(v), latent_type.bits)
+            # the entries in one batch write, the bits of one write_uint each
+            writer.write_batch(np.asarray(self.payload, np.uint64), np.full(len(self.payload), latent_type.bits))
 
     def primary_latent_type(self, number_latent_type: LatentType) -> LatentType:
         return U32 if self.kind == self.DICT else number_latent_type

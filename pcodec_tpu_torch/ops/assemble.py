@@ -179,8 +179,8 @@ def plan_image(nums: np.ndarray, config=None, page_n: int = 1024, chunk_n: int =
     `_plan_image_multi`): training, the launch, and the host-serialized
     bytes. Training runs on `device` through device_train.plan_encode_device
     where device_train_supported covers the number type and configuration
-    (`trained_on` "device"; it hands a chunk whose mode or delta it does
-    not train to the host), else on the host through
+    (`trained_on` "device"; it hands a configuration whose auto delta
+    picks lookback to the host), else on the host through
     container_encode.plan_encode, whose sorts run on `device` (`trained_on`
     "host")."""
     if len(nums) == 0:

@@ -141,13 +141,18 @@ class ChunkJob:
 class DeviceRows:
     """The page rows that device training (ops/device_train.py) leaves on
     the card: page p of chunk ci is row ci * rows_per_chunk + p. Each row
-    holds its page's latents after the chunk's delta (the first `order`
-    columns are junk, the stored latents follow up to the page length); a
-    chunk that fell back to the baseline compressor holds its raw latents."""
+    holds its page's primary latents after the chunk's delta (the first
+    `order` columns are junk, the stored latents follow up to the page
+    length); a chunk that fell back to the baseline compressor holds its
+    raw latents. A chunk whose mode splits has its secondary latents (NOOP
+    delta, every position stored) in the same layout in sec_rows, from row
+    sec_row0[ci] on."""
 
     rows: torch.Tensor  # (n_chunks * rows_per_chunk, page_n) int64, u64 bits
     moments: torch.Tensor  # (n_chunks * rows_per_chunk, max order) int64: each page's delta moments
     rows_per_chunk: int
+    sec_rows: Optional[torch.Tensor] = None  # (split chunks * rows_per_chunk, page_n) int64, u64 bits
+    sec_row0: dict = field(default_factory=dict)  # split chunk -> its first row of sec_rows
 
 
 @dataclass
@@ -275,23 +280,29 @@ def _var_rows(cc: ChunkCompressor, key: str, page_n: int):
     return rows, body_n
 
 
-def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n: np.ndarray) -> torch.Tensor:
+def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n: np.ndarray,
+                  sec: np.ndarray) -> torch.Tensor:
     """(n_chains, page_n) int64 on the rows' device: chain c takes row
-    src_row[c] of the device rows from column skip[c] on, body_n[c] latents,
-    zeros after (the JAX `_build_launch_args(dev_rows=...)`)."""
-    rows = dev.rows
-    page_n = rows.shape[1]
-    src, sk, bn = (torch.from_numpy(a).to(rows.device) for a in (src_row, skip, body_n))
-    col = torch.arange(page_n, device=rows.device)[None, :]
-    lat = rows[src].gather(1, (col + sk[:, None]).clamp(max=page_n - 1))
-    return torch.where(col < bn[:, None], lat, 0)
+    src_row[c] of the device rows (of the secondary rows where sec[c]) from
+    column skip[c] on, body_n[c] latents, zeros after (the JAX
+    `_build_launch_args(dev_rows=...)`)."""
+    page_n = dev.rows.shape[1]
+    out = dev.rows.new_empty((len(src_row), page_n))
+    col = torch.arange(page_n, device=dev.rows.device)[None, :]
+    for rows, sel in ((dev.rows, np.flatnonzero(~sec)), (dev.sec_rows, np.flatnonzero(sec))):
+        if not len(sel):
+            continue
+        src, sk, bn = (torch.from_numpy(a[sel]).to(rows.device) for a in (src_row, skip, body_n))
+        lat = rows[src].gather(1, (col + sk[:, None]).clamp(max=page_n - 1))
+        out[torch.from_numpy(sel).to(rows.device)] = torch.where(col < bn[:, None], lat, 0)
+    return out
 
 
 def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
     """Chain-major launch arrays of every coded (chunk, var) (the JAX
     `_build_launch_args` without the TPU layout). The latents come from the
-    host's trained chunks, or, after device training (one var a chunk),
-    from the page rows on the card (no host latents, no upload)."""
+    host's trained chunks, or, after device training, from the page rows on
+    the card, each var's from its own rows (no host latents, no upload)."""
     page_n = plan.page_n
     items = [(ci, vj) for ci, job in enumerate(plan.jobs) for vj in job.vars if not vj.trivial]
     ts = max((vj.tables[4] for _, vj in items), default=1)
@@ -319,6 +330,7 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
     )
     src_row = np.zeros(n_chains, dtype=np.int64)
     skip = np.zeros(n_chains, dtype=np.int64)
+    sec = np.zeros(n_chains, dtype=bool)
     pos = 0
     for tid, ((ci, vj), rows) in enumerate(zip(items, n_rows)):
         job = plan.jobs[ci]
@@ -334,6 +346,10 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         sl = slice(pos, pos + n_pages[ci])
         if plan.dev is None:
             L.latents[sl], L.body_n[sl] = _var_rows(job.cc, vj.key, page_n)
+        elif vj.key == "secondary":  # NOOP: every position stored
+            L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], 0, page_n)[1]
+            src_row[sl] = plan.dev.sec_row0[ci] + np.arange(n_pages[ci])
+            sec[sl] = True
         else:
             sk, L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], job.order, page_n)
             src_row[sl] = ci * plan.dev.rows_per_chunk + np.arange(n_pages[ci])
@@ -343,7 +359,7 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         L.var_starts[ci][vj.key] = pos
         pos += rows
     if plan.dev is not None:
-        L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n)
+        L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n, sec)
     if multi:
         V = max(len(job.vars) for job in plan.jobs)
         L.row_chains = np.full((sum(n_pages), V), -1, dtype=np.int64)

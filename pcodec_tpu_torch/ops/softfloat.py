@@ -1,5 +1,7 @@
-"""IEEE-754 binary multiply in integer ops: the part of the JAX package's
-`pcodec_tpu/ops/softfloat.py` that the FloatMult decode join needs.
+"""IEEE-754 binary multiply in integer ops, the PyTorch counterpart of the
+JAX package's `pcodec_tpu/ops/softfloat.py`: the multiply the FloatMult
+decode join needs, and the FloatMult split of the encoder's training
+(`float_mult_split`).
 
 Every value is an int64 tensor holding a W-bit pattern in its low bits (u64
 semantics: unsigned compares go through `_ult`, right shifts through
@@ -170,3 +172,60 @@ def int_float_latent_to_bits(lat, W: int, E: int, P: int):
     # negation is a sign-bit flip: the big-path bit trick can carry into the
     # sign bit, which -x then clears
     return torch.where(neg, bits ^ mid, bits)
+
+
+def round_half_away_latent(p, W: int, E: int, P: int):
+    """The latent of the W-bit float p rounded half away from zero
+    (int_float_to_latent(round_half_away(p)), JAX `round_half_away_latent`),
+    in bit operations: exact for every input, inf and NaN (the bit-trick
+    path) and signed zeros (zero is always the middle) included."""
+    bias = (1 << (E - 1)) - 1
+    sign_bit = _i64(1 << (W - 1))
+    mant_mask = (1 << (P - 1)) - 1
+    exp_raw_mask = (1 << E) - 1
+    gpi = 1 << P
+    gpi_bits = (P + bias) << (P - 1)  # the bits of float(2^P)
+
+    neg = (p & sign_bit) != 0
+    abs_bits = p & ((1 << (W - 1)) - 1)
+    ex = _srl(p, P - 1) & exp_raw_mask
+    e = ex - bias  # subnormals land at e = -bias (< -1)
+    m = (p & mant_mask) | (1 << (P - 1))
+    # 0 <= e <= P-2: the integer part plus the bump of the top fraction bit
+    k = (P - 1 - e).clamp(1, P - 1)
+    small_abs = (m >> k) + ((m >> (k - 1)) & 1)
+    abs_int = torch.where(e < -1, 0, torch.where(e == -1, 1, small_abs))
+    abs_int = torch.where(ex == 0, 0, abs_int)
+    big = e >= P - 1  # an integer already; inf and NaN too
+    # trunc quiets a signalling NaN before the bit trick sees it
+    is_nan = (ex == exp_raw_mask) & ((p & mant_mask) != 0)
+    abs_bits = torch.where(is_nan, abs_bits | (1 << (P - 2)), abs_bits)
+    abs_lat = torch.where(big, gpi + (abs_bits - gpi_bits), abs_int)
+    # trunc(x) + 0.0 makes a -0.0 result positive
+    neg = neg & ((abs_lat != 0) | big)
+    out = torch.where(neg, _i64((1 << (W - 1)) - 1) - abs_lat, _i64(1 << (W - 1)) + abs_lat)
+    return out & _i64((1 << W) - 1) if W < 64 else out
+
+
+def float_mult_primary(lat, invb_bits, W: int, E: int, P: int):
+    """FloatMult primary latents of ordered latents lat:
+    int_float_to_latent(round_half_away(x * inv_base)), the product in the
+    softfloat; invb_bits (broadcastable) are inv_base's memory bits."""
+    return round_half_away_latent(sf_mul_bits(bits_from_ordered(lat, W), invb_bits, W, E, P), W, E, P)
+
+
+def float_mult_adjustment(lat, prim, base_bits, W: int, E: int, P: int):
+    """FloatMult adjustment latents: x.to_latent() - (mult * base).to_latent()
+    + MID (wrapping at W bits), mult the integer-valued float prim denotes."""
+    prod = sf_mul_bits(int_float_latent_to_bits(prim, W, E, P), base_bits, W, E, P)
+    adj = lat - ordered_from_bits(prod, W) + _i64(1 << (W - 1))
+    return adj & _i64((1 << W) - 1) if W < 64 else adj
+
+
+def float_mult_split(lat, invb_bits, base_bits, W: int, E: int, P: int):
+    """The FloatMult split of ordered latents (mode/float_mult.rs
+    split_latents; JAX `float_mult_split_device`): (primary, adjustment)
+    latents, every multiply in the integer softfloat, never the card's own
+    (which drops NaN payloads)."""
+    prim = float_mult_primary(lat, invb_bits, W, E, P)
+    return prim, float_mult_adjustment(lat, prim, base_bits, W, E, P)

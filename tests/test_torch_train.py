@@ -211,9 +211,10 @@ def test_device_trained_image_matches_container_compress(name, kind):
 
 @pytest.mark.parametrize("name", ["try_dict", "float_auto"])
 def test_configurations_outside_the_slice_train_on_the_host(name):
-    """TRY_DICT and float numbers under auto mode train on the host planner,
-    decided from the type and configuration alone; the image still equals
-    pcodec_tpu's container_compress."""
+    """TRY_DICT and float numbers under auto mode, which trained on the host
+    planner until the card took every mode's training, now train on the
+    card, decided from the type and configuration alone; the image still
+    equals pcodec_tpu's container_compress."""
     if name == "try_dict":
         nums = np.array([3, 99, 1234567, -5], np.int64)[RNG.integers(0, 4, 3000)]
         cfg, ref_cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_dict")), RefChunkConfig(
@@ -221,20 +222,20 @@ def test_configurations_outside_the_slice_train_on_the_host(name):
     else:
         nums = RNG.standard_normal(3000)
         cfg, ref_cfg = pt.ChunkConfig(), RefChunkConfig()
-    assert not dt.device_train_supported(number_type_from_np(nums.dtype), cfg, 256, 1 << 20)
+    assert dt.device_train_supported(number_type_from_np(nums.dtype), cfg, 256, 1 << 20)
     plan = asm.plan_image(nums, cfg, 256, 1 << 20, "cpu")
-    assert plan.trained_on == "host"
+    assert plan.trained_on == "device"
     got = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cpu")))
     assert got == ref_compress(nums, ref_cfg, page_n=256)
 
 
 @pytest.mark.parametrize("name", ["int_mult_timestamps", "lookback_winner"])
 def test_decisions_outside_the_single_var_image_raise(name):
-    """An IntMult base (tests/test_pallas_encode.py's timestamps) and an
-    auto-delta lookback winner, which raised NotImplementedError before the
-    multi-var image, now hand the configuration to host training: the
-    plan says so and the image is the JAX package's container_compress
-    bytes."""
+    """An IntMult base (tests/test_pallas_encode.py's timestamps), which
+    raised NotImplementedError before the multi-var image and then trained
+    on the host, now trains on the card; an auto-delta lookback winner
+    still hands the configuration to host training. The plan says which,
+    and the image is the JAX package's container_compress bytes."""
     from pcodec_tpu_torch.ops import assemble as asm
 
     rng = np.random.default_rng(23)
@@ -243,7 +244,7 @@ def test_decisions_outside_the_single_var_image_raise(name):
     else:
         nums = np.tile(rng.integers(0, 10**6, 700), 60)[:40_000].astype(np.int64) + rng.integers(0, 2, 40_000)
     plan = asm.plan_image(nums, pt.ChunkConfig(), 256, 32768, "cpu")
-    assert plan.trained_on == "host"
+    assert plan.trained_on == ("device" if name == "int_mult_timestamps" else "host")
     kinds = {(job.cc.meta.mode.kind, job.cc.meta.delta_encoding.kind) for job in plan.enc.jobs}
     assert ("int_mult" if name == "int_mult_timestamps" else "lookback") in {k for kind in kinds for k in kind}
     got = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cpu")))

@@ -1,5 +1,5 @@
 """K9 (histogram_walk) of the port, on its own, and the extracts that feed
-it.
+it; on the card, device training of every mode through K8 and K9.
 
 The plain version runs here on the CPU against the host codec's
 histogram(); the tests marked `gpu` hold the CUDA kernel against the plain
@@ -18,6 +18,7 @@ from pcodec_tpu_torch.format.bitio import BitWriter
 from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import device_train as dt
 from pcodec_tpu_torch.ops import kernels
+from pcodec_tpu_torch.ops import row_sort as rs
 
 RNG = np.random.default_rng(41)
 U64_MAX = 0xFFFFFFFFFFFFFFFF
@@ -173,3 +174,56 @@ def test_device_training_on_card_writes_the_container(cfg):
     assert [_meta(j.cc) for j in plan.enc.jobs] == [_meta(j.cc) for j in cpu.enc.jobs]
     img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
     assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=32768)
+
+
+def _mode_inputs():
+    """(name, numbers, config) of each mode's device training: IntMult under
+    auto mode, Dict, FloatMult f32 and FloatQuant f32 pinned, and f64 under
+    auto mode with chunks of Classic, FloatMult and FloatQuant."""
+    rng = np.random.default_rng(42)
+    n = 60_000
+    ts = np.cumsum(rng.integers(1, 2000, n)).astype(np.int64) * 10**9 + rng.integers(0, 3, n)
+    quant = (rng.standard_normal(20_000).astype(np.float32).view(np.uint32) & np.uint32(0xFFFFFF00)).view(np.float32)
+    f64 = np.concatenate([rng.integers(-5000, 5000, 20_000) * 0.01, np.cumsum(rng.standard_normal(20_000)),
+                          quant.astype(np.float64)])
+    mode = lambda kind, v=0.0: pt.ChunkConfig(mode_spec=pt.ModeSpec(kind, v))  # noqa: E731
+    return [
+        ("int_mult_auto", ts, pt.ChunkConfig()),
+        ("dict", rng.integers(-(10**12), 10**12, 900)[rng.integers(0, 900, n)], mode("try_dict")),
+        ("float_mult_f32", (rng.integers(-5000, 5000, n) * np.float32(0.01)).astype(np.float32),
+         mode("try_float_mult", 0.01)),
+        ("float_quant_f32", (np.round(rng.standard_normal(n) * 64) / 64).astype(np.float32),
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_quant", 6), delta_spec=pt.DeltaSpec("no_op"))),
+        ("f64_auto_mixed", f64, pt.ChunkConfig()),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in _mode_inputs()])
+def test_every_mode_trains_on_card_to_the_container(case):
+    """Exact: each mode's training on the card plans the CPU's chunk metas
+    (a secondary var's and Dict's too), every K8 and K9 call it makes (the
+    secondary rows and the index rows among them) equals the plain
+    version, and the image equals the port's container_compress bytes."""
+    _need_card()
+    _, nums, cfg = next(c for c in _mode_inputs() if c[0] == case)
+    calls = {"row_sort": [], "walk_bins": []}
+    saved = {k: getattr(dt, k) for k in calls}
+    for k in calls:
+        setattr(dt, k, lambda *a, k=k: calls[k].append(a) or saved[k](*a))
+    try:
+        plan = asm.plan_image(nums, cfg, 256, 20_480, "cuda")
+    finally:
+        for k, fn in saved.items():
+            setattr(dt, k, fn)
+    cpu = asm.plan_image(nums, cfg, 256, 20_480, "cpu")
+    assert plan.trained_on == "device"
+    assert [_meta(j.cc) for j in plan.enc.jobs] == [_meta(j.cc) for j in cpu.enc.jobs]
+    assert calls["row_sort"] and calls["walk_bins"]
+    for (x,) in calls["row_sort"]:
+        assert torch.equal(saved["row_sort"](x), rs.row_sort_plain(x))
+    for a in calls["walk_bins"]:
+        for got, want in zip(saved["walk_bins"](*a), dt.walk_bins_plain(*a)):
+            assert torch.equal(got, want)
+    img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
+    assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=20_480)
