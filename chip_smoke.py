@@ -11,8 +11,9 @@
                                    another tree measures that tree)
     python3 chip_smoke.py --train  only the device training of the main
                                    path's 64M numbers and of phase 8's
-                                   IntMult 32M input, timed the same way
-                                   (a copy in another tree times that tree)
+                                   IntMult 32M and lookback 32M inputs,
+                                   timed the same way (a copy in another
+                                   tree times that tree)
 
 Phases, one line each (numbers beside the card's name and power limit):
   1. card         nvidia-smi name and power limit, torch's device name
@@ -155,19 +156,28 @@ Phases, one line each (numbers beside the card's name and power limit):
                   versions, and timed: the decode, K1 + K2, K3, K4 and the
                   post (conv1's post the loop over positions)
   8. multi-var    small IntMult, FloatMult f32, FloatQuant f32 and lookback
-                  inputs (page_n 256, 8,192-number chunks): K5, K6 with its
-                  joint-cursor rows and K7 with its multi-var rows equal
-                  their plain versions, the image equals container_compress;
-                  then intmult_i64_timestamps (32M) and f64_auto_multichunk
-                  (32M, in its standalone file's 262,144-number chunks,
-                  which mix Classic, FloatMult and FloatQuant) at full
-                  size, prefixes of floatmult_f32, floatquant_f16 (4M each)
-                  and wrapped_lookback_multipage (2M), and phase 5b's
-                  dict_i64 (32M) and dict_i64_100k (16M) with their
-                  container_compress bytes: each planned by plan_image with
-                  the counts set to 0 just before and read just after,
-                  trained on the card (K8 and K9; the lookback input, whose
-                  auto delta picks lookback, on the host, and no other),
+                  inputs (page_n 256, 8,192-number chunks; lookback also with a
+                  ragged last page, on u16, u32 and f32 latents, with pinned
+                  IntMult (three vars) and with Dict, and at page_n 65,536,
+                  past B5's shared-memory route, its time printed): trained on
+                  the card, every B5 call equal to its plain version (on CPU
+                  copies); B5 on two pages of 2^20 of the lookback numbers
+                  (64-bit slots in device memory) equal to the native
+                  chooser and the plain store, and timed; K5,
+                  K6 with its joint-cursor rows and K7 with its multi-var
+                  rows equal their plain versions, the image equals
+                  container_compress; then intmult_i64_timestamps (32M) and
+                  f64_auto_multichunk (32M, in its standalone file's
+                  262,144-number chunks, which mix Classic, FloatMult and
+                  FloatQuant) at full size, prefixes of floatmult_f32,
+                  floatquant_f16 (4M each), and phase 5b's
+                  wrapped_lookback_multipage (32M, TRY_LOOKBACK), dict_i64
+                  (32M) and dict_i64_100k (16M) with their container_compress
+                  bytes, and the auto route: the lookback numbers' first 4M
+                  under ChunkConfig(), whose auto delta picks lookback: each
+                  planned by plan_image with the counts set to 0 just before
+                  and read just after, trained on the card (K8, K9 and, for
+                  the lookback inputs, B5; no input trains on the host),
                   its image (counts set to 0 just before run_image, read
                   just after) equal to the port's container_compress at
                   page_n 1024 and 1M-number chunks byte for byte, the
@@ -175,14 +185,25 @@ Phases, one line each (numbers beside the card's name and power limit):
                   mode (else the last) equal to the host
                   chunk_compressor's, every
                   K8 and K9 call of its training held against the plain
-                  versions and the last sort (the secondary rows; Dict's
-                  u32 index rows) and its walks timed beside the plain
-                  versions and torch.sort; plan_image's seconds with the
-                  device training's part, the peak memory of training and
-                  image, the encode device part, K5, K6 (a call and alone)
-                  and K7 timed, K6's and K7's bounds from the run's rows; K6
-                  at the main path printed again; then the run's wall time
-  9. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
+                  versions and the last sort (the secondary rows; the
+                  lookback rows, and the lookback primary's rows before
+                  them; Dict's u32 index rows) and its walks timed beside
+                  the plain versions and torch.sort; B5's pages of the first
+                  two chunks held against the plain version, the call timed
+                  (a call, the card alone, the two chunks beside the plain
+                  version, one page alone) beside its bound; plan_image's
+                  seconds with the device training's part, the peak memory
+                  of training and image, the encode device part, K5, K6 (a
+                  call and alone) and K7 timed, K6's and K7's bounds from
+                  the run's rows; K6 at the main path printed again
+  9. entry points `python -m pcodec_tpu_torch compress --format pct` and
+                  `decompress` in subprocesses on the card, on the main
+                  path's numbers saved as .npy in a temporary directory
+                  (the file equals the main path's container, the decode the
+                  numbers), and pcodec_tpu_torch.entry.entry()'s decode on
+                  the card (its checksum equals numpy's); then the run's
+                  wall time
+  10. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
@@ -190,8 +211,12 @@ Phases, one line each (numbers beside the card's name and power limit):
      object (phase 8's IntMult 32M: numbers, times, bound), K9's also its
      longest lane's steps and time alone, K8's and K9's a `train_modes`
      object (phase 8's shapes of each device-trained input: launches,
-     times, K8's bound); a phase-6 row adds its `device_ms` and, for E4a,
-     `library_device_ms` (torch.gather on the card alone).
+     times, K8's bound); B5's row (lookback_choose, phase 8's 32M lookback
+     training: launches, a call, `device_ms`) adds its pages, the plain
+     version's pages (the first two chunks) and the kernel's time on them,
+     and one page's time alone and its steps; a phase-6 row adds its
+     `device_ms` and, for E4a, `library_device_ms` (torch.gather on the
+     card alone).
 
 Launch counts are set to 0 just before each main-path run, each of phase
 7's and 8's full-size runs and phase 6's runs at the experiments' shapes,
@@ -473,21 +498,23 @@ STANDALONE = ("taxi_i64_delta1", "f64_auto_multichunk", "intmult_i64_timestamps"
 # their first STANDALONE_CUT numbers (host encode time)
 STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "conv1_i32_lpc")
 STANDALONE_CUT = 8 << 20
-# phase 8: the multi-var image inputs and their numbers (IntMult at full
-# size; prefixes of the others, lookback's for its host training's time)
+# phase 8: the multi-var image inputs and their numbers (full size but the
+# FloatMult and FloatQuant prefixes, cut for the host reference's time; the
+# auto route's 4M prefix of the lookback numbers, whose auto delta picks
+# lookback, under ChunkConfig())
 MULTI_INPUTS = (("intmult_i64_timestamps", 32 << 20), ("f64_auto_multichunk", 32 << 20),
-                ("floatmult_f32", 4 << 20), ("floatquant_f16", 4 << 20), ("wrapped_lookback_multipage", 2 << 20),
-                ("dict_i64", 32 << 20), ("dict_i64_100k", 16 << 20))
+                ("floatmult_f32", 4 << 20), ("floatquant_f16", 4 << 20), ("wrapped_lookback_multipage", 32 << 20),
+                ("wrapped_lookback_auto", 4 << 20), ("dict_i64", 32 << 20), ("dict_i64_100k", 16 << 20))
 # phase 8's chunk size, 1M numbers but for f64_auto_multichunk, whose
 # standalone file's 262,144-number chunks mix Classic, FloatMult and
 # FloatQuant (1M-number chunks are all Classic)
 MULTI_CHUNK_N = {"f64_auto_multichunk": 1 << 18}
-# phase 8's Dict inputs: phase 5b's numbers and container_compress bytes
+# phase 8's inputs of phase 5b: its numbers and container_compress bytes
 # (page_n 1024, 1M-number chunks, as phase 8 encodes)
-MULTI_DICT = ("dict_i64", "dict_i64_100k")
-# phase 8's one input trained on the host: the auto delta's lookback winner
-# (ROADMAP item 5b-iii)
-MULTI_HOST = ("wrapped_lookback_multipage",)
+MULTI_KEPT = ("wrapped_lookback_multipage", "dict_i64", "dict_i64_100k")
+# B5's operations a number, counted from csrc/lookback_choose.cu: ~16 in
+# each of the 16 proposals' scores, ~15 in each of the 6 hash queries
+B5_OPS_PER_NUMBER = 16 * 16 + 6 * 15
 
 
 def standalone_small_cases(pt):
@@ -515,23 +542,39 @@ def standalone_small_cases(pt):
 
 
 def multi_small_cases(pt):
-    """(name, numbers, config) of small multi-var and lookback inputs, one a
-    kind, at page_n 256 and 8,192-number chunks: IntMult's two vars,
-    FloatMult f32, FloatQuant f32 (a non-trivial secondary) and a lookback
-    delta's lookbacks and primary."""
+    """(name, numbers, config, page_n, chunk_n) of small multi-var and
+    lookback inputs, one a kind, at page_n 256 and 8,192-number chunks:
+    IntMult's two vars, FloatMult f32, FloatQuant f32 (a non-trivial
+    secondary), a lookback delta's lookbacks and primary (i64; a ragged
+    last page; u16, u32 and f32 latents; pinned IntMult, three vars; Dict's
+    u32 indices), and pages of 65,536 numbers, past B5's shared-memory
+    route."""
     rng = np.random.default_rng(SEED + 8)
     fq = (np.round(rng.standard_normal(20_000) * 64) / 64).astype(np.float32)
     fq.view(np.uint32)[::7] += rng.integers(1, 4, len(fq[::7])).astype(np.uint32)
     fm = (rng.integers(-5000, 5000, 20_000) * np.float32(0.01)).astype(np.float32)
     fm.view(np.uint32)[::9] += 1
+    lb = np.tile(rng.integers(0, 10**6, 512), 40).astype(np.int64) + rng.integers(0, 2, 20480)
+    lb_cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_lookback", 0))
+    noise = rng.integers(0, 2, 20_000)
     return [
         ("int_mult_i64", (np.cumsum(rng.integers(1, 30, 20_000)) * 1_000_000_000
                           + rng.integers(0, 4, 20_000)).astype(np.int64),
-         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 10**9))),
-        ("float_mult_f32", fm, None),
-        ("float_quant_f32", fq, pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_quant", 6))),
-        ("lookback_i64", np.tile(rng.integers(0, 10**6, 512), 40).astype(np.int64) + rng.integers(0, 2, 20480),
-         pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_lookback", 0))),
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 10**9)), 256, 8192),
+        ("float_mult_f32", fm, None, 256, 8192),
+        ("float_quant_f32", fq, pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_quant", 6)), 256, 8192),
+        ("lookback_i64", lb, lb_cfg, 256, 8192),
+        ("lookback_i64_ragged_page", lb[:20_000], lb_cfg, 256, 8192),
+        ("lookback_u16", (np.tile(rng.integers(0, 60_000, 50), 400) + noise).astype(np.uint16), lb_cfg, 256, 8192),
+        ("lookback_u32", np.tile(rng.integers(0, 2**32, 50), 400).astype(np.uint32) ^ noise.astype(np.uint32),
+         lb_cfg, 256, 8192),
+        ("lookback_f32", np.tile(rng.standard_normal(300).astype(np.float32), 67)[:20_000], lb_cfg, 256, 8192),
+        ("int_mult_lookback_i64", lb * 1000 + rng.integers(0, 7, len(lb)),
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 1000), delta_spec=pt.DeltaSpec("try_lookback", 0)),
+         256, 8192),
+        ("dict_lookback_i64", rng.integers(-(10**12), 10**12, 50)[np.tile(rng.integers(0, 50, 120), 170)],
+         pt.ChunkConfig(mode_spec=pt.ModeSpec("try_dict"), delta_spec=pt.DeltaSpec("try_lookback", 0)), 256, 8192),
+        ("lookback_i64_long_pages", np.tile(lb, 7)[:140_000], lb_cfg, 65536, 131072),
     ]
 
 
@@ -803,32 +846,110 @@ def check_two_metas(pt, cmp, plan, nums, cfg) -> str:
     return f"of chunks {', '.join(f'{ci} ({jobs[ci].cc.meta.mode.kind})' for ci in picked)}"
 
 
-def train_kernel_numbers(torch, dt, rs, calls, plan, launches) -> dict:
-    """K8 and K9 held against their plain versions on every call of one
-    device training, then timed at the shapes of its last sort (the split
-    chunks' secondary rows; a Dict plan's rows of u32 indices) and of the
-    walks of those rows (K9's calls from the last, as many lanes as the sort
-    had rows)."""
-    check_train_calls(dt, rs, calls)
-    (x,) = calls["row_sort"][-1]
-    walks, lanes = [], 0
-    for args in reversed(calls["walk_bins"]):
-        if lanes >= x.shape[0]:
-            break
-        walks.insert(0, args)
-        lanes += args[0].shape[0]
+def _sort_walk_numbers(torch, dt, rs, x, walks) -> dict:
+    """K8 on one recorded sort and K9 on its walks, timed beside their
+    plain versions and torch.sort."""
     k8 = time_ms(lambda: rs.row_sort(x))
     k8_plain = time_ms(lambda: rs.row_sort_plain(x), runs=3, warmup=1)
     k8_lib = time_ms(lambda: torch.sort(x, dim=1))
     k9 = time_ms(lambda: [dt.walk_bins(*a) for a in walks])
     k9_plain = time_ms(lambda: [dt.walk_bins_plain(*a) for a in walks], runs=3, warmup=1)
-    kinds = {j.cc.meta.mode.kind for j in plan.enc.jobs}
-    return {"rows_of": ("secondary rows" if any(j.multi for j in plan.enc.jobs)
-                        else "index rows" if "dict" in kinds else "primary rows"),
-            "rows": x.shape[0], "cols": x.shape[1], "key_bytes_passes": rs.radix_plan(rs.radix_span(x)[1]),
+    return {"rows": x.shape[0], "cols": x.shape[1], "key_bytes_passes": rs.radix_plan(rs.radix_span(x)[1]),
             "ms": k8[0], "plain_ms": k8_plain[0], "library_ms": k8_lib[0], "bound_ms": bound(2 * nbytes(x))[0],
-            "lanes": lanes, "nb_logs": sorted({a[-1] for a in walks}), "walk_ms": k9[0], "walk_plain_ms": k9_plain[0],
-            "launches": launches}
+            "lanes": sum(a[0].shape[0] for a in walks), "nb_logs": sorted({a[-1] for a in walks}), "walk_ms": k9[0],
+            "walk_plain_ms": k9_plain[0]}
+
+
+def train_kernel_numbers(torch, dt, rs, calls, plan, launches) -> dict:
+    """K8 and K9 held against their plain versions on every call of one
+    device training, then timed at the shapes of its last sort (the split
+    chunks' secondary rows; else a lookback plan's lookback rows; a Dict
+    plan's rows of u32 indices) and of the walks of those rows (K9's calls
+    from the last, as many lanes as the sort had rows); a lookback plan's
+    primary rows, the sort before, and their walks under "more"."""
+    check_train_calls(dt, rs, calls)
+    walks, groups = list(calls["walk_bins"]), []
+    for (x,) in reversed(calls["row_sort"][-2:]):
+        group, lanes = [], 0
+        while walks and lanes < x.shape[0]:
+            group.insert(0, walks.pop())
+            lanes += group[0][0].shape[0]
+        groups.append(group)
+    jobs = plan.enc.jobs
+    kinds = {j.cc.meta.mode.kind for j in jobs}
+    lookback = any(j.cc.meta.delta_encoding.kind == "lookback" for j in jobs)
+    split = any(v.key == "secondary" for j in jobs for v in j.vars)  # phase_secondary sorts last
+    out = _sort_walk_numbers(torch, dt, rs, calls["row_sort"][-1][0], groups[0])
+    out["rows_of"] = ("secondary rows" if split else "lookback rows" if lookback
+                      else "index rows" if "dict" in kinds else "primary rows")
+    out["launches"] = launches
+    if lookback and not split and len(groups) > 1:
+        out["more"] = [_sort_walk_numbers(torch, dt, rs, calls["row_sort"][-2][0], groups[1])
+                       | {"rows_of": "primary rows (toggled lookback deltas)"}]
+    return out
+
+
+def check_lookback_calls(dt, calls, lanes=None, cpu=False) -> float:
+    """B5 against its plain version on every recorded call (its first
+    `lanes` page rows; with cpu, the plain version on CPU copies, faster
+    for few long pages)."""
+    for x, lens, *rest in calls:
+        if lanes:
+            x, lens = x[:lanes].contiguous(), lens[:lanes].contiguous()
+        got = dt.lookback_choose(x, lens, *rest)
+        want = dt.lookback_choose_plain(*((x.cpu(), lens.cpu()) if cpu else (x, lens)), *rest)
+        for a, b in zip(got, want):
+            check_equal(a.to(b.device), b)
+    return 0.0
+
+
+def long_pages_line(torch, dt, nums, dev) -> str:
+    """B5 on two pages of 2^20 of `nums` (i64; the second page ragged),
+    past 2^16 numbers a page (device memory, 64-bit slots): the lookbacks
+    held against the native chooser page by page (the plain chooser's 2^20
+    steps a page would take minutes), the stored rows and states against
+    the plain store of them; then timed."""
+    from pcodec_tpu_torch.dtypes import number_type_from_np
+    from pcodec_tpu_torch.native.kernels import choose_lookbacks_native
+
+    m = 1 << 20
+    x = dt.latents_on_card(nums[: 2 * m], number_type_from_np(nums.dtype), dev).view(2, m)
+    lens = torch.tensor([m, m - 1000], device=dev)
+    x[1, m - 1000 :] = 0
+    lbs, prim, states = dt.lookback_choose(x, lens, 64, 15, 1)
+    host = x.cpu().numpy().view(np.uint64)
+    for k, n in enumerate(lens.tolist()):
+        if not np.array_equal(lbs[k, : n - 1].cpu().numpy().astype(np.uint32),
+                              choose_lookbacks_native(15, 1, host[k, :n])) or lbs[k, n - 1 :].any():
+            raise AssertionError(f"B5 on a page of {n} numbers differs from the native chooser")
+    for a, b in zip((prim, states), dt.lookback_store_plain(x, lens, lbs, 64, 1)):
+        check_equal(a, b)
+    ms = time_ms(lambda: dt.lookback_choose(x, lens, 64, 15, 1), runs=3, warmup=1)
+    return (f"B5 on 2 pages of 2^20 (device memory, 64-bit slots) == the native chooser and the plain store; "
+            f"{ms[0]:.1f} ms (min {ms[1]:.1f}, max {ms[2]:.1f}), {ms[0] * 1e3 / (m - 1):.3f} us a step")
+
+
+def lookback_kernel_numbers(torch, dt, calls, lanes: int, launches: int) -> dict:
+    """B5 on a device training's lookback calls: the pages of the first two
+    chunks (`lanes` page rows) held against the plain version, then the
+    last call timed a call and on the card alone, its two chunks beside the
+    plain version, one page alone (a page's dependent steps), and its bound
+    from the call's inputs (8 bytes read, 12 written a number, the page
+    lengths; B5_OPS_PER_NUMBER operations a number)."""
+    err = check_lookback_calls(dt, calls, lanes)
+    x, lens, *rest = calls[-1]
+    sub = (x[:lanes].contiguous(), lens[:lanes].contiguous(), *rest)
+    one = (x[:1].contiguous(), lens[:1].contiguous(), *rest)
+    n = int(lens.sum())
+    ms = time_ms(lambda: dt.lookback_choose(x, lens, *rest))
+    b_ms, by = bound(x.numel() * 20 + nbytes(lens), n * B5_OPS_PER_NUMBER)
+    return {"launches": launches, "err": err, "pages": x.shape[0], "page_n": x.shape[1], "ms": ms[0],
+            "device_ms": time_ms(lambda: dt.lookback_choose(x, lens, *rest), hold=True)[0],
+            "bound_ms": b_ms, "bound_by": by, "plain_pages": lanes,
+            "two_chunks_ms": time_ms(lambda: dt.lookback_choose(*sub))[0],
+            "plain_ms": time_ms(lambda: dt.lookback_choose_plain(*sub), runs=3, warmup=1)[0],
+            "one_page_ms": time_ms(lambda: dt.lookback_choose(*one), hold=True)[0],
+            "one_page_steps": int(lens[0]) - rest[-1]}
 
 
 def meta_bytes(cc) -> bytes:
@@ -1025,6 +1146,37 @@ def check_encode_steps(ce, asm, plan, a):
     err["image_stitch"] = max(check_equal(head, want[0]), check_equal(body, want[1]))
     return dict(err=err, p1=p1, offsets=offsets, states=states, ans_len=ans_len, off_len=off_len, curs=curs,
                 total_bits=total_bits, sections=sections, body_words=body.shape[0])
+
+
+def cli_round_trip(nums, data) -> str:
+    """`python -m pcodec_tpu_torch` compress --format pct then decompress,
+    each in a subprocess on the card, on the main path's numbers saved as
+    .npy in a temporary directory, with the main path's flags: the file
+    must be the main path's container bytes and the decode the numbers."""
+    import os
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, pct, back = (os.path.join(tmp, f) for f in ("x.npy", "x.pct", "y.npy"))
+        np.save(src, nums)
+        secs = []
+        for argv in (["compress", src, pct, "--format", "pct", "--page-n", "1024", "--chunk-n", str(1 << 20),
+                      "--delta", "consecutive:1"], ["decompress", pct, back]):
+            t0 = time.time()
+            proc = subprocess.run([sys.executable, "-m", "pcodec_tpu_torch", *argv], cwd=root, capture_output=True,
+                                  text=True, timeout=600)
+            secs.append(time.time() - t0)
+            if proc.returncode:
+                raise AssertionError(f"cli {argv[0]} exited {proc.returncode}: {proc.stdout}{proc.stderr}")
+        with open(pct, "rb") as f:
+            if f.read() != data:
+                raise AssertionError("cli compress: the file differs from the main path's container")
+        if not np.array_equal(np.load(back), nums):
+            raise AssertionError("cli decompress: the numbers differ from the source")
+    return (f"cli compress --format pct == the main path's container, decompress == source ({len(nums)} numbers; "
+            f"subprocesses {secs[0]:.1f} s, {secs[1]:.1f} s)")
 
 
 def experiment_checks(torch, dev) -> None:
@@ -1552,13 +1704,13 @@ def main() -> int:
 
     # 5b. breadth at full size
     breadth_rows = {}
-    dict_kept = {}  # phase 8's Dict inputs: their numbers, config and container_compress bytes
+    kept = {}  # phase 8's inputs of this phase: their numbers, config and container_compress bytes
     for case, nums5, cfg5, kname in matrix_inputs(pt) + dict_size_inputs(pt):
         t0 = time.time()
         data5 = pt.container_compress(nums5, cfg5)
         t_enc5 = time.time() - t0
-        if case in MULTI_DICT:
-            dict_kept[case] = (nums5, cfg5, data5)
+        if case in MULTI_KEPT:
+            kept[case] = (nums5, cfg5, data5)
         t0 = time.time()
         plan5 = cd.plan_container(data5)
         t_plan5 = time.time() - t0
@@ -1783,23 +1935,43 @@ def main() -> int:
     # K6 and K7 held against their plain versions, then bench_matrix.py's
     # multi-var inputs
     t_ph = time.time()
-    for case, nums8, cfg8 in multi_small_cases(pt):
-        ref8 = pt.container_compress(nums8, cfg8, page_n=256, chunk_n=8192)
-        plan8 = asm.plan_image(nums8, cfg8, 256, 8192, dev)
-        if plan8.launch.row_chains is None:
-            raise AssertionError(f"multi {case}: no chunk of several latent vars ({modes_line(plan8)})")
+    for case, nums8, cfg8, pn8, cn8 in multi_small_cases(pt):
+        ref8 = pt.container_compress(nums8, cfg8, page_n=pn8, chunk_n=cn8)
+        with capturing(dt, ("lookback_choose",)) as bcalls:
+            plan8 = asm.plan_image(nums8, cfg8, pn8, cn8, dev)
+        if plan8.launch.row_chains is None or plan8.trained_on != "device":
+            raise AssertionError(f"multi {case}: trained on the {plan8.trained_on}, no chunk of several latent vars "
+                                 f"({modes_line(plan8)})")
+        lookback = any(j.cc.meta.delta_encoding.kind == "lookback" for j in plan8.enc.jobs)
+        if lookback != bool(bcalls["lookback_choose"]):
+            raise AssertionError(f"multi {case}: {len(bcalls['lookback_choose'])} B5 calls ({modes_line(plan8)})")
+        check_lookback_calls(dt, bcalls["lookback_choose"], cpu=True)
         a8 = asm.upload_image(plan8, dev)
         check_encode_steps(ce, asm, plan8, a8)
         if asm.file_image_to_bytes(*asm.run_image(plan8, a8)) != ref8:
             raise AssertionError(f"multi {case}: file image differs from container_compress")
-        print(f"multi: {case}: {modes_line(plan8)}; K5, K6 (joint rows), K7 (multi-var rows) == plain, "
-              f"image == container_compress", flush=True)
-    multi_rows, train_rows = {}, {}
+        routes = sorted({"shared" if a[0].shape[1] <= kernels.LB_CHOOSE_SMEM_MAX_N else "device"
+                         for a in bcalls["lookback_choose"]})
+        b5 = f"{len(bcalls['lookback_choose'])} B5 calls ({'/'.join(routes)} memory) == plain, " if lookback else ""
+        print(f"multi: {case}: page_n {pn8}, {modes_line(plan8)}; trained on the card, {b5}K5, K6 (joint rows), "
+              f"K7 (multi-var rows) == plain, image == container_compress", flush=True)
+        if "device" in routes:  # B5's device-memory route, timed
+            long_ms = time_ms(lambda: [dt.lookback_choose(*a) for a in bcalls["lookback_choose"]], runs=3, warmup=1)
+            print(f"multi: {case}: B5's device-memory route, its {len(bcalls['lookback_choose'])} calls "
+                  f"({', '.join(str(tuple(a[0].shape)) for a in bcalls['lookback_choose'])} pages x numbers) "
+                  f"{long_ms[0]:.2f} ms [{card}]", flush=True)
+        del bcalls
+    print(f"multi: {long_pages_line(torch, dt, kept['wrapped_lookback_multipage'][0][: 2 << 20], dev)} [{card}]",
+          flush=True)
+    multi_rows, train_rows, lb_rows = {}, {}, {}
     for case, m in MULTI_INPUTS:
         t0 = time.time()
         chunk8 = MULTI_CHUNK_N.get(case, 1 << 20)
-        if case in MULTI_DICT:
-            nums8, cfg8, ref8 = dict_kept.pop(case)
+        if case in MULTI_KEPT:
+            nums8, cfg8, ref8 = kept[case]
+        elif case == "wrapped_lookback_auto":
+            nums8, cfg8 = kept.pop("wrapped_lookback_multipage")[0][:m], pt.ChunkConfig()
+            ref8 = pt.container_compress(nums8, cfg8, page_n=1024, chunk_n=chunk8)
         else:
             nums8, cfg8 = inputs[case]
             nums8 = nums8[:m]
@@ -1810,14 +1982,19 @@ def main() -> int:
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         t0 = time.time()
-        with capturing(dt, ("row_sort", "walk_bins")) as tcalls8, timed_call(asm, "plan_encode_device") as t_train8:
+        with capturing(dt, ("row_sort", "walk_bins", "lookback_choose")) as tcalls8, \
+                timed_call(asm, "plan_encode_device") as t_train8:
             plan8 = asm.plan_image(nums8, cfg8, 1024, chunk8, dev)
             torch.cuda.synchronize()
         t_plan8 = time.time() - t0
-        train_launches8 = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk")}
-        want_on = "host" if case in MULTI_HOST else "device"
-        if plan8.trained_on != want_on:
-            raise AssertionError(f"multi {case}: trained on the {plan8.trained_on}, not the {want_on}")
+        train_launches8 = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk",
+                                                            "lookback_choose")}
+        if plan8.trained_on != "device":
+            raise AssertionError(f"multi {case}: trained on the {plan8.trained_on}, not the card")
+        lookback = any(j.cc.meta.delta_encoding.kind == "lookback" for j in plan8.enc.jobs)
+        if case.startswith("wrapped_lookback") and not (lookback and train_launches8["lookback_choose"]):
+            raise AssertionError(f"multi {case}: no lookback chunk trained through B5 ({modes_line(plan8)}, "
+                                 f"launches {train_launches8})")
         a8 = asm.upload_image(plan8, dev)
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
@@ -1831,15 +2008,26 @@ def main() -> int:
             raise AssertionError(f"multi {case}: a kernel of its encode was not launched: {launches8}")
         del img8
         metas8 = check_two_metas(pt, cmp, plan8, nums8, cfg8)
-        if want_on == "device":
-            train_rows[case] = train_kernel_numbers(torch, dt, rs, tcalls8, plan8, train_launches8)
-            tr = train_rows[case]
-            print(f"multi: {case}: plan_image {t_plan8:.3f} s, of it device training (plan_encode_device) "
-                  f"{t_train8[0]:.3f} s; chunk metas {metas8} == host chunk_compressor; K8, K9 == plain on "
-                  f"every call; launches {train_launches8}; the {tr['rows_of']}: K8 on {tr['rows']} rows of "
-                  f"{tr['cols']} (key bytes, passes {tr['key_bytes_passes']}) {tr['ms']:.4f} ms a call (plain "
-                  f"{tr['plain_ms']:.4f}, torch.sort {tr['library_ms']:.4f}), K9 on {tr['lanes']} lanes at nb_log "
-                  f"{tr['nb_logs']} {tr['walk_ms']:.4f} ms (plain {tr['walk_plain_ms']:.3f}) [{card}]", flush=True)
+        if lookback:  # B5 on the pages of the first two chunks against plain, then timed
+            lb_rows[case] = lookback_kernel_numbers(torch, dt, tcalls8["lookback_choose"], 2 * plan8.enc.dev.rows_per_chunk,
+                                                    train_launches8["lookback_choose"])
+            lr = lb_rows[case]
+            print(f"multi: {case}: B5 lookback_choose {lr['launches']} launch(es) on {lr['pages']} pages of "
+                  f"{lr['page_n']}: {lr['ms']:.4f} ms a call (card alone {lr['device_ms']:.4f}, bound "
+                  f"{lr['bound_ms']:.4f} by {lr['bound_by']}); the first two chunks' {lr['plain_pages']} pages == "
+                  f"plain, {lr['two_chunks_ms']:.4f} ms (plain {lr['plain_ms']:.2f}); one page alone "
+                  f"{lr['one_page_ms']:.4f} ms, {lr['one_page_steps']} steps [{card}]", flush=True)
+        train_rows[case] = tr = train_kernel_numbers(torch, dt, rs, tcalls8, plan8, train_launches8)
+        more = "".join(f"; the {p['rows_of']}: K8 on {p['rows']} rows of {p['cols']} (key bytes, passes "
+                       f"{p['key_bytes_passes']}) {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, torch.sort "
+                       f"{p['library_ms']:.4f}), K9 on {p['lanes']} lanes at nb_log {p['nb_logs']} {p['walk_ms']:.4f} ms "
+                       f"(plain {p['walk_plain_ms']:.3f})" for p in tr.get("more", []))
+        print(f"multi: {case}: plan_image {t_plan8:.3f} s, of it device training (plan_encode_device) "
+              f"{t_train8[0]:.3f} s; chunk metas {metas8} == host chunk_compressor; K8, K9 == plain on "
+              f"every call; launches {train_launches8}; the {tr['rows_of']}: K8 on {tr['rows']} rows of "
+              f"{tr['cols']} (key bytes, passes {tr['key_bytes_passes']}) {tr['ms']:.4f} ms a call (plain "
+              f"{tr['plain_ms']:.4f}, torch.sort {tr['library_ms']:.4f}), K9 on {tr['lanes']} lanes at nb_log "
+              f"{tr['nb_logs']} {tr['walk_ms']:.4f} ms (plain {tr['walk_plain_ms']:.3f}){more} [{card}]", flush=True)
         del tcalls8
         L8 = plan8.launch
         st8 = check_encode_steps(ce, asm, plan8, a8)
@@ -1872,7 +2060,7 @@ def main() -> int:
               f"{k7_b8:.4f}) [{card}]", flush=True)
         del st8, a8, plan8, ref8, nums8
         torch.cuda.empty_cache()
-    del inputs, dict_kept
+    del inputs, kept
     print(f"multi: K6 at the main path {k6[0]:.4f} ms (card alone {k6_alone:.4f}); phase {time.time() - t_ph:.1f} s "
           f"[{card}]", flush=True)
 
@@ -1891,6 +2079,20 @@ def main() -> int:
     print(f"experiments: E5 proto_realign at 2048 groups {exp['proto_realign']['ms'][0]:.4f} ms beside K1 "
           f"section_gather at the main path {k1[0]:.4f} ms; launches {exp_launches}; phase {time.time() - t_exp:.1f} s "
           f"[{card}]", flush=True)
+
+    # 9. entry points: the CLI in subprocesses on the main path's numbers, and
+    # entry()
+    t0 = time.time()
+    cli_line = cli_round_trip(nums, data)
+    from pcodec_tpu_torch.entry import entry, entry_numbers
+
+    fn, args = entry()
+    got = int(fn(*args).item()) & ((1 << 64) - 1)
+    if got != int(entry_numbers().view(np.uint64).sum()):
+        raise AssertionError(f"entry(): checksum {got} differs from numpy's")
+    print(f"entry: {cli_line}; entry() on the card: checksum {got} == numpy's; phase {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    b5 = lb_rows["wrapped_lookback_multipage"]
 
     rows = [
         {"name": "section_gather", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_gather.cu",
@@ -1936,6 +2138,11 @@ def main() -> int:
          "status": "redesigned"},
         {"name": "dict_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/dict_join.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1450", **breadth_rows["dict_join"]},
+        {"name": "lookback_choose", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_choose.cu",
+         "replaces": "pcodec_tpu/ops/device_train.py:745", "launches": b5["launches"], "max_abs_err": b5["err"],
+         "ms": b5["ms"], "plain_ms": b5["plain_ms"], "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+         "library_ms": None, "device_ms": b5["device_ms"],
+         **{k: b5[k] for k in ("pages", "page_n", "plain_pages", "two_chunks_ms", "one_page_ms", "one_page_steps")}},
     ]
     # phase 6's rows: the numbers of each kernel's last shape; launches at
     # that shape (its check, warm-ups and timed runs), beside the phase's
@@ -2015,36 +2222,45 @@ def profiled_functions(fn, top=14) -> str:
 
 def train_only() -> int:
     """The device training of the main path's 64M numbers (phase 5's
-    configuration) and of phase 8's intmult_i64_timestamps (32M, auto
-    mode) alone, through plan_encode_device, which every tree of the port
-    has (a tree that trains IntMult on the host hands it to plan_encode
-    there): a call's host seconds, the card synchronised, median (min, max)
-    of RUNS calls after a warm-up, and where it trained."""
+    configuration), of phase 8's intmult_i64_timestamps (32M, auto mode)
+    and of its wrapped_lookback_multipage (32M, TRY_LOOKBACK) alone, through
+    plan_encode_device where the tree's device_train_supported covers the
+    configuration, else the host training plan_encode (a tree without
+    lookback training on the card): a call's host seconds, the card
+    synchronised, median (min, max) of RUNS calls after a warm-up, and
+    where it trained."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.dtypes import number_type_from_np
+    from pcodec_tpu_torch.ops import container_encode as ce
     from pcodec_tpu_torch.ops import device_train as dt
 
     dev = torch.device("cuda")
     card = card_line()
+    inputs = standalone_inputs(pt)
     for case, nums, cfg in (("main", make_data(), cfg_of(pt, 1)),
-                            ("intmult_i64_timestamps", standalone_inputs(pt)["intmult_i64_timestamps"][0], None)):
-        plan = dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev)
+                            ("intmult_i64_timestamps", inputs.pop("intmult_i64_timestamps")[0], None),
+                            ("wrapped_lookback_multipage", *inputs.pop("wrapped_lookback_multipage"))):
+        nt = number_type_from_np(nums.dtype)
+        train = (dt.plan_encode_device if dt.device_train_supported(nt, cfg or pt.ChunkConfig(), 1024, 1 << 20)
+                 else ce.plan_encode)
+        plan = train(nums, cfg, 1024, 1 << 20, dev)
         secs = []
         for _ in range(RUNS):
             torch.cuda.synchronize()
             t0 = time.time()
-            dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev)
+            train(nums, cfg, 1024, 1 << 20, dev)
             torch.cuda.synchronize()
             secs.append(time.time() - t0)
         print(f"train: {case}: {len(nums)} {nums.dtype} trained on the {plan.trained_on} by {dt.__file__}: "
-              f"plan_encode_device {sorted(secs)[len(secs) // 2]:.3f} s median (min {min(secs):.3f}, max "
+              f"{train.__name__} {sorted(secs)[len(secs) // 2]:.3f} s median (min {min(secs):.3f}, max "
               f"{max(secs):.3f}, {RUNS} runs) [{card}]", flush=True)
         print(f"train: {case}: one call's functions of the package by cumulative host seconds (cProfile): "
-              f"{profiled_functions(lambda: dt.plan_encode_device(nums, cfg, 1024, 1 << 20, dev))}", flush=True)
+              f"{profiled_functions(lambda: train(nums, cfg, 1024, 1 << 20, dev))}", flush=True)
         del plan, nums
     return 0
 

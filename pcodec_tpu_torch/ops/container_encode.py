@@ -146,13 +146,19 @@ class DeviceRows:
     length); a chunk that fell back to the baseline compressor holds its
     raw latents. A chunk whose mode splits has its secondary latents (NOOP
     delta, every position stored) in the same layout in sec_rows, from row
-    sec_row0[ci] on."""
+    sec_row0[ci] on; a chunk whose delta is lookback has its primary's
+    toggled deltas after a state_n front in rows, its state in moments and
+    its u32 lookbacks from column 0 in lb_rows, from row lb_row0[ci] on."""
 
     rows: torch.Tensor  # (n_chunks * rows_per_chunk, page_n) int64, u64 bits
-    moments: torch.Tensor  # (n_chunks * rows_per_chunk, max order) int64: each page's delta moments
+    # (n_chunks * rows_per_chunk, max order or state_n) int64: each page's
+    # delta state (a consecutive delta's moments, a lookback's front latents)
+    moments: torch.Tensor
     rows_per_chunk: int
     sec_rows: Optional[torch.Tensor] = None  # (split chunks * rows_per_chunk, page_n) int64, u64 bits
     sec_row0: dict = field(default_factory=dict)  # split chunk -> its first row of sec_rows
+    lb_rows: Optional[torch.Tensor] = None  # (lookback chunks * rows_per_chunk, page_n - state_n) int32
+    lb_row0: dict = field(default_factory=dict)  # lookback chunk -> its first row of lb_rows
 
 
 @dataclass
@@ -259,7 +265,8 @@ class EncodeLaunch:
 
 def _page_bodies(cn: int, order: int, page_n: int):
     """(skip, body_n) per page of a chunk of cn numbers: page p codes its
-    latents from min(order, page length) on (its stored range)."""
+    latents from min(order, page length) on (its stored range; order is
+    the var's delta-state latents a page)."""
     lens = np.asarray(ctn._exact_split(cn, page_n), np.int64)
     skip = np.minimum(order, lens)
     return skip, lens - skip
@@ -281,20 +288,21 @@ def _var_rows(cc: ChunkCompressor, key: str, page_n: int):
 
 
 def _rows_on_card(dev: DeviceRows, src_row: np.ndarray, skip: np.ndarray, body_n: np.ndarray,
-                  sec: np.ndarray) -> torch.Tensor:
+                  src: np.ndarray) -> torch.Tensor:
     """(n_chains, page_n) int64 on the rows' device: chain c takes row
-    src_row[c] of the device rows (of the secondary rows where sec[c]) from
-    column skip[c] on, body_n[c] latents, zeros after (the JAX
-    `_build_launch_args(dev_rows=...)`)."""
+    src_row[c] of the device rows src[c] names (0 the primary rows, 1 the
+    secondary rows, 2 the lookback rows) from column skip[c] on, body_n[c]
+    latents, zeros after (the JAX `_build_launch_args(dev_rows=...)`)."""
     page_n = dev.rows.shape[1]
     out = dev.rows.new_empty((len(src_row), page_n))
     col = torch.arange(page_n, device=dev.rows.device)[None, :]
-    for rows, sel in ((dev.rows, np.flatnonzero(~sec)), (dev.sec_rows, np.flatnonzero(sec))):
+    for k, rows in enumerate((dev.rows, dev.sec_rows, dev.lb_rows)):
+        sel = np.flatnonzero(src == k)
         if not len(sel):
             continue
-        src, sk, bn = (torch.from_numpy(a[sel]).to(rows.device) for a in (src_row, skip, body_n))
-        lat = rows[src].gather(1, (col + sk[:, None]).clamp(max=page_n - 1))
-        out[torch.from_numpy(sel).to(rows.device)] = torch.where(col < bn[:, None], lat, 0)
+        sr, sk, bn = (torch.from_numpy(a[sel]).to(rows.device) for a in (src_row, skip, body_n))
+        lat = rows[sr].gather(1, (col + sk[:, None]).clamp(max=rows.shape[1] - 1))
+        out[torch.from_numpy(sel).to(rows.device)] = torch.where(col < bn[:, None], lat, 0).to(out.dtype)
     return out
 
 
@@ -330,7 +338,7 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
     )
     src_row = np.zeros(n_chains, dtype=np.int64)
     skip = np.zeros(n_chains, dtype=np.int64)
-    sec = np.zeros(n_chains, dtype=bool)
+    src = np.zeros(n_chains, dtype=np.int64)  # _rows_on_card's rows of each chain
     pos = 0
     for tid, ((ci, vj), rows) in enumerate(zip(items, n_rows)):
         job = plan.jobs[ci]
@@ -349,9 +357,13 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         elif vj.key == "secondary":  # NOOP: every position stored
             L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], 0, page_n)[1]
             src_row[sl] = plan.dev.sec_row0[ci] + np.arange(n_pages[ci])
-            sec[sl] = True
-        else:
-            sk, L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], job.order, page_n)
+            src[sl] = 1
+        elif vj.key == "delta":  # the lookbacks, one for each primary latent stored
+            L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], job.primary.n_state, page_n)[1]
+            src_row[sl] = plan.dev.lb_row0[ci] + np.arange(n_pages[ci])
+            src[sl] = 2
+        else:  # stored after the page's delta-state front
+            sk, L.body_n[sl] = _page_bodies(plan.chunk_ns[ci], vj.n_state, page_n)
             src_row[sl] = ci * plan.dev.rows_per_chunk + np.arange(n_pages[ci])
             skip[sl] = sk
         L.table_id[pos : pos + rows] = tid
@@ -359,7 +371,7 @@ def build_encode_launch(plan: EncodePlan) -> EncodeLaunch:
         L.var_starts[ci][vj.key] = pos
         pos += rows
     if plan.dev is not None:
-        L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n, sec)
+        L.latents = _rows_on_card(plan.dev, src_row, skip, L.body_n, src)
     if multi:
         V = max(len(job.vars) for job in plan.jobs)
         L.row_chains = np.full((sum(n_pages), V), -1, dtype=np.int64)

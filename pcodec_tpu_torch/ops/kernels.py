@@ -27,13 +27,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
-           "row_sort", "lookback_recon", "dict_join", "histogram_walk",
+           "row_sort", "lookback_recon", "dict_join", "histogram_walk", "lookback_choose",
            # the microbenchmarks of pcodec_tpu_torch/experiments/
            "proto_realign", "proto_dma", "micro_gather", "proto_round_loop", "bitonic_cluster")
 # micro_gather's four routes (its `route` argument), each counted on its own
 GATHER_ROUTES = ("gather_take", "gather_taa", "gather_lane", "gather_row")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
 LB_MAX_BASES = 68  # tensors one K3 launch reads and writes; must match csrc/lookback_recon.cu
+# longest page whose maps and counts B5 keeps in shared memory (a block a
+# page); longer pages walk in device memory; must match csrc/lookback_choose.cu
+LB_CHOOSE_SMEM_MAX_N = 8192
+# device memory B5's longer pages may hold at once (a region a block)
+LB_CHOOSE_SCRATCH_BYTES = 1 << 30
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,6 +98,9 @@ _ARGTYPES = {
     # V, L, R, SL1, SR, s0, n, nb_log, lanes, counts, lowers, uppers, n_bins,
     # device, stream
     "histogram_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # x, lens, lanes, m, bits, window_n_log, state_n, lbs, prim, states,
+    # scratch, scratch_per_block, blocks, device, stream
+    "lookback_choose": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # raw2d, n_rows, starts_blk, out, n_groups, device, stream
     "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
     # raw, n_raw, starts, part, out, n_tiles, heavy_rounds, device, stream
@@ -327,6 +335,24 @@ def launch_histogram_walk(V, L, R, SL1, SR, s0, n, counts, lowers, uppers, n_bin
     _call("histogram_walk", V, V.data_ptr(), L.data_ptr(), R.data_ptr(), SL1.data_ptr(), SR.data_ptr(),
           s0.data_ptr(), n.data_ptr(), nb_log, V.shape[0], counts.data_ptr(), lowers.data_ptr(),
           uppers.data_ptr(), n_bins.data_ptr())
+
+
+def lookback_choose_page_bytes(m: int, window_n_log: int) -> int:
+    """Bytes of one page's maps and counts in B5 (page length m)."""
+    fn = _lib("lookback_choose").lookback_choose_page_bytes
+    fn.argtypes = [_L, _I]
+    fn.restype = _L
+    return fn(m, window_n_log)
+
+
+def launch_lookback_choose(x, lens, lbs, prim, states, bits: int, window_n_log: int, state_n: int,
+                           scratch=None, blocks: int = 0) -> None:
+    """B5 over x's (lanes, m) page rows; pages longer than
+    LB_CHOOSE_SMEM_MAX_N use `blocks` equal regions of `scratch`."""
+    per = scratch.numel() // blocks if scratch is not None else 0
+    _call("lookback_choose", x, x.data_ptr(), lens.data_ptr(), x.shape[0], x.shape[1], bits, window_n_log, state_n,
+          lbs.data_ptr(), prim.data_ptr(), states.data_ptr(), None if scratch is None else scratch.data_ptr(), per,
+          blocks)
 
 
 def launch_proto_realign(raw2d, starts_blk, out) -> None:

@@ -280,8 +280,8 @@ def test_chunks_outside_the_slice_raise(mode, delta, entry):
     """Chunks of several latent vars (IntMult's secondary, a lookback
     delta's lookbacks), which raised NotImplementedError before the
     multi-var image, now encode through both entry points to the JAX
-    package's container_compress bytes: pinned IntMult trained on the
-    card, TRY_LOOKBACK on the host."""
+    package's container_compress bytes, pinned IntMult and TRY_LOOKBACK
+    both trained on the card."""
     if mode == "try_int_mult":
         nums = (RNG.integers(0, 1000, 3000) * 1_000_000).astype(np.int64)
         spec, ref_spec = pt.ModeSpec(mode, 1_000_000), RefModeSpec(mode, 1_000_000)
@@ -296,5 +296,5 @@ def test_chunks_outside_the_slice_raise(mode, delta, entry):
         got = asm.file_image_to_bytes(*pt.encode_container_image_device(nums, cfg, page_n=256, device="cpu"))
     assert got == ref
     plan = asm.plan_image(nums, cfg, 256, 1 << 20, "cpu")
-    assert plan.trained_on == ("device" if mode == "try_int_mult" else "host") and plan.launch.row_chains is not None
+    assert plan.trained_on == "device" and plan.launch.row_chains is not None
     assert len(plan.enc.jobs[0].vars) == 2

@@ -101,6 +101,8 @@ def _port_files():
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = _port_files()
     assert any(f.endswith("chip_smoke.py") for f in files) and len(files) > 20
+    for name in ("cli.py", "inspect_mod.py", "entry.py", "__main__.py"):
+        assert os.path.join(REPO, "pcodec_tpu_torch", name) in files
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -123,6 +125,7 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
         "from pcodec_tpu_torch.experiments import proto_round_loop\n"
         "from pcodec_tpu_torch.codec import compress, decompress, standalone\n"
         "import pcodec_tpu_torch.standalone, pcodec_tpu_torch.ops.standalone_decode\n"
+        "import pcodec_tpu_torch.cli, pcodec_tpu_torch.inspect_mod, pcodec_tpu_torch.entry\n"
         "new = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'pcodec_tpu'))\n"
         "print(new); sys.exit(1 if new else 0)\n"

@@ -10,6 +10,7 @@ import re
 
 import pytest
 
+from pcodec_tpu_torch import constants
 from pcodec_tpu_torch.ops import assemble, decode, device_train, kernels, row_sort
 
 _CONSTEXPR = re.compile(r"constexpr\s+[\w ]+?\s+(\w+)\s*=\s*([^;]+);")
@@ -51,6 +52,8 @@ def _cu_constants(name: str) -> dict:
     ("histogram_walk", "NB_LOG_MAX", device_train.WALK_NB_LOG_MAX),
     ("histogram_walk", "X_BITS", device_train.WALK_X_BITS),
     ("histogram_walk", "NARROW_BITS", device_train.WALK_NARROW_BITS),
+    ("lookback_choose", "SMEM_MAX_N", kernels.LB_CHOOSE_SMEM_MAX_N),
+    ("lookback_choose", "WINDOW_N_LOG_MAX", constants.LOOKBACK_MAX_WINDOW_N_LOG),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value

@@ -231,11 +231,11 @@ def test_configurations_outside_the_slice_train_on_the_host(name):
 
 @pytest.mark.parametrize("name", ["int_mult_timestamps", "lookback_winner"])
 def test_decisions_outside_the_single_var_image_raise(name):
-    """An IntMult base (tests/test_pallas_encode.py's timestamps), which
-    raised NotImplementedError before the multi-var image and then trained
-    on the host, now trains on the card; an auto-delta lookback winner
-    still hands the configuration to host training. The plan says which,
-    and the image is the JAX package's container_compress bytes."""
+    """An IntMult base (tests/test_pallas_encode.py's timestamps) and an
+    auto-delta lookback winner, which raised NotImplementedError before the
+    multi-var image and then trained on the host, now train on the card.
+    The plan says so, and the image is the JAX package's
+    container_compress bytes."""
     from pcodec_tpu_torch.ops import assemble as asm
 
     rng = np.random.default_rng(23)
@@ -244,7 +244,7 @@ def test_decisions_outside_the_single_var_image_raise(name):
     else:
         nums = np.tile(rng.integers(0, 10**6, 700), 60)[:40_000].astype(np.int64) + rng.integers(0, 2, 40_000)
     plan = asm.plan_image(nums, pt.ChunkConfig(), 256, 32768, "cpu")
-    assert plan.trained_on == ("device" if name == "int_mult_timestamps" else "host")
+    assert plan.trained_on == "device"
     kinds = {(job.cc.meta.mode.kind, job.cc.meta.delta_encoding.kind) for job in plan.enc.jobs}
     assert ("int_mult" if name == "int_mult_timestamps" else "lookback") in {k for kind in kinds for k in kind}
     got = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cpu")))

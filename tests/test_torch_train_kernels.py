@@ -1,5 +1,6 @@
 """K9 (histogram_walk) of the port, on its own, and the extracts that feed
-it; on the card, device training of every mode through K8 and K9.
+it; on the card, B5 (lookback_choose) against its plain version and device
+training of every mode and of the lookback delta through K8, K9 and B5.
 
 The plain version runs here on the CPU against the host codec's
 histogram(); the tests marked `gpu` hold the CUDA kernel against the plain
@@ -227,3 +228,89 @@ def test_every_mode_trains_on_card_to_the_container(case):
             assert torch.equal(got, want)
     img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
     assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=20_480)
+
+
+def _lookback_rows(page_n: int, bits: int):
+    """Page rows of `bits`-bit latents (repeats with noise, then random
+    values), the last page ragged."""
+    rng = np.random.default_rng(43)
+    lanes = 3 if page_n > kernels.LB_CHOOSE_SMEM_MAX_N else 6
+    hi = 1 << bits
+    pat = rng.integers(0, hi, 97, dtype=np.uint64)
+    x = np.tile(pat, -(-lanes * page_n // 97))[: lanes * page_n] ^ rng.integers(0, 2, lanes * page_n, dtype=np.uint64)
+    x[len(x) // 2 :] = rng.integers(0, hi, len(x) - len(x) // 2, dtype=np.uint64)
+    lens = np.full(lanes, page_n, np.int64)
+    lens[-1] = page_n // 3 + 5
+    x = x.reshape(lanes, page_n)
+    x[-1, lens[-1] :] = 0
+    return torch.from_numpy(x.view(np.int64)), torch.from_numpy(lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32, 64])
+@pytest.mark.parametrize("page_n", [256, 1024, 65536])
+def test_lookback_choose_kernel_matches_plain_version_on_card(page_n, bits):
+    """Exact: B5 on the card (its maps in shared memory up to
+    kernels.LB_CHOOSE_SMEM_MAX_N numbers a page, in device memory at
+    65,536) equals its plain version (on the CPU, for speed): lookbacks,
+    primary rows and states, on full pages and a ragged last page."""
+    _need_card()
+    x, lens = _lookback_rows(page_n, bits)
+    wnl = min(max((page_n * 8 - 1).bit_length(), 4), 15)
+    before = kernels.LAUNCHES["lookback_choose"]
+    got = dt.lookback_choose(x.cuda(), lens.cuda(), bits, wnl, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lookback_choose"] == before + 1
+    for a, b in zip(got, dt.lookback_choose_plain(x, lens, bits, wnl, 1)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["try_lookback", "int_mult_lookback"])
+def test_lookback_trains_on_card_to_the_container(case):
+    """Exact: lookback training on the card (B5, K8, K9) plans the CPU's
+    chunk metas, and the image equals the port's container_compress bytes:
+    TRY_LOOKBACK, and IntMult with lookback (three vars)."""
+    _need_card()
+    rng = np.random.default_rng(44)
+    nums = np.tile(rng.integers(0, 10**6, 300), 200).astype(np.int64) + rng.integers(0, 2, 60_000)
+    spec = pt.ModeSpec("classic")
+    if case == "int_mult_lookback":
+        nums, spec = nums * 1000 + rng.integers(0, 7, len(nums)), pt.ModeSpec("try_int_mult", 1000)
+    cfg = pt.ChunkConfig(mode_spec=spec, delta_spec=pt.DeltaSpec("try_lookback"))
+    before = dict(kernels.LAUNCHES)
+    plan = asm.plan_image(nums, cfg, 256, 20_480, "cuda")
+    cpu = asm.plan_image(nums, cfg, 256, 20_480, "cpu")
+    assert plan.trained_on == "device"
+    assert {j.cc.meta.delta_encoding.kind for j in plan.enc.jobs} == {"lookback"}
+    for name in ("lookback_choose", "row_sort", "histogram_walk"):
+        assert kernels.LAUNCHES[name] > before[name]
+    assert [_meta(j.cc) for j in plan.enc.jobs] == [_meta(j.cc) for j in cpu.enc.jobs]
+    img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
+    assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=20_480)
+
+
+@pytest.mark.gpu
+def test_lookback_choose_kernel_on_pages_of_a_chunk_matches_the_native_chooser():
+    """Exact: B5's route for pages past 2^16 numbers (device memory, 64-bit
+    slots), on two pages of 2^20 (the second ragged), gives the native
+    chooser's lookbacks on each page and the plain store of them. The plain
+    chooser's 2^20 steps a page are too slow to run here; it equals the
+    native chooser (tests/test_torch_train_lookback.py)."""
+    _need_card()
+    from pcodec_tpu_torch.native.kernels import choose_lookbacks_native
+
+    rng = np.random.default_rng(45)
+    m = 1 << 20
+    x = (np.tile(rng.integers(0, 10**6, 512).astype(np.uint64), 2 * m // 512)
+         + rng.integers(0, 2, 2 * m).astype(np.uint64)).reshape(2, m)
+    lens = np.array([m, m - 1000], np.int64)
+    x[1, lens[1] :] = 0
+    xt, lt = torch.from_numpy(x.view(np.int64)), torch.from_numpy(lens)
+    lbs, prim, states = (t.cpu() for t in dt.lookback_choose(xt.cuda(), lt.cuda(), 64, 15, 1))
+    for k in range(2):
+        want = choose_lookbacks_native(15, 1, x[k, : lens[k]])
+        assert np.array_equal(lbs[k, : lens[k] - 1].numpy().astype(np.uint32), want)
+        assert not lbs[k, lens[k] - 1 :].any()
+    for a, b in zip((prim, states), dt.lookback_store_plain(xt, lt, lbs, 64, 1)):
+        assert torch.equal(a, b)

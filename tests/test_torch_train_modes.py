@@ -120,9 +120,11 @@ def test_phase_dict_matches_jax_and_host(dtype):
 
 def test_device_train_supported_covers_every_mode_but_lookback():
     """Decided from the type and configuration alone: every mode spec
-    trains on the card under NOOP, consecutive or auto delta; TRY_LOOKBACK,
-    a float mode on integers, IntMult on floats, a FloatQuant k outside 1
-    .. bits - 1 and a FloatMult base whose inverse is not normal do not."""
+    trains on the card under NOOP, consecutive, lookback or auto delta
+    (TRY_LOOKBACK, which trained on the host before lookback training came
+    to the card, included); a float mode on integers, IntMult on floats, a
+    FloatQuant k outside 1 .. bits - 1 and a FloatMult base whose inverse
+    is not normal do not."""
     f32, i64 = number_type_from_np(np.dtype(np.float32)), number_type_from_np(np.dtype(np.int64))
 
     def ok(nt, mode=("auto", 0.0), delta=("auto", 0)):
@@ -132,7 +134,7 @@ def test_device_train_supported_covers_every_mode_but_lookback():
     for nt in (f32, i64):
         for mode in ("auto", "classic", "try_dict"):
             assert all(ok(nt, (mode, 0.0), d) for d in (("auto", 0), ("no_op", 0), ("try_consecutive", 2)))
-        assert not ok(nt, delta=("try_lookback", 0))
+        assert ok(nt, delta=("try_lookback", 0))
     assert ok(i64, ("try_int_mult", 7.0)) and not ok(f32, ("try_int_mult", 7.0)) and not ok(i64, ("try_int_mult", 1.0))
     assert ok(f32, ("try_float_quant", 5.0)) and not ok(f32, ("try_float_quant", 32.0))
     assert not ok(i64, ("try_float_quant", 5.0))
