@@ -9,6 +9,10 @@
                                    one decode (through the package beside
                                    the script, so a copy of the script in
                                    another tree measures that tree)
+    python3 chip_smoke.py --sharded
+                                   only phase 11, over 4 shards of the first
+                                   card and then over every visible card
+                                   (on a machine of several cards)
     python3 chip_smoke.py --train  only the device training of the main
                                    path's 64M numbers and of phase 8's
                                    IntMult 32M and lookback 32M inputs,
@@ -201,9 +205,35 @@ Phases, one line each (numbers beside the card's name and power limit):
                   path's numbers saved as .npy in a temporary directory
                   (the file equals the main path's container, the decode the
                   numbers), and pcodec_tpu_torch.entry.entry()'s decode on
-                  the card (its checksum equals numpy's); then the run's
-                  wall time
-  10. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
+                  the card (its checksum equals numpy's)
+  10. resident    the main path's 64M numbers (order-1 delta, 1M-number
+                  chunks; then ChunkConfig() at 2M) and phase 8's
+                  intmult_i64_timestamps, f64_auto_multichunk, dict_i64 and
+                  wrapped_lookback_multipage as CUDA tensors, each planned
+                  by plan_image without and with its host copy (nums_host)
+                  and by the numpy route: each image equal to the numpy
+                  route's bytes, trained on the card; each route's
+                  plan_image seconds with its training part, the numbers it
+                  copied to the host and the host-to-card and card-to-host
+                  bytes of one plan_image (the memcpy events of an exported
+                  torch.profiler trace; the main path's tensor route must
+                  move under 10% of the numbers either way and copy none);
+                  the 64M IntMult screening on the card and its GCD loop
+                  timed; the 64M image decoded by decode_container_tensor
+                  and compared with the source tensor on the card
+  11. sharded     parallel/sharding.py over 4 shards of the card: every
+                  per-shard K1, K2, K5 and K6 call held against its plain
+                  version on small containers (a row a chain, and IntMult's
+                  joint rows); the main path's container decoded sharded
+                  (equal to the single-device decode) and its image encoded
+                  sharded (equal to the container's bytes), the counts set
+                  to 0 just before each and read just after, each shard's
+                  uploaded words beside the container's, the sharded and
+                  single-device ms and the peak memory;
+                  dryrun_multichip(4, devices=[cuda] * 4); where there are
+                  two or more cards, the same over the cards (else "1 card:
+                  shards share it"); then the run's wall time
+  12. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
@@ -216,10 +246,13 @@ Phases, one line each (numbers beside the card's name and power limit):
      version's pages (the first two chunks) and the kernel's time on them,
      and one page's time alone and its steps; a phase-6 row adds its
      `device_ms` and, for E4a, `library_device_ms` (torch.gather on the
-     card alone).
+     card alone). K1's, K2's, K5's and K6's rows add a `sharded` object
+     (phase 11: the launches of the sharded main-path run, the shards, the
+     sharded and single-device ms).
 
 Launch counts are set to 0 just before each main-path run, each of phase
-7's and 8's full-size runs and phase 6's runs at the experiments' shapes,
+7's and 8's full-size runs, phase 11's sharded runs and phase 6's runs at
+the experiments' shapes,
 and read just after. Any
 failure exits non-zero before the `ok` line. Without a CUDA device, or
 without the package beside this script, it fails at once.
@@ -1236,6 +1269,214 @@ def experiment_runs(dev) -> dict:
     return {r["name"]: r for mod in mods for r in mod.main(dev)}
 
 
+# phase 10's inputs of phase 8, kept there with their config, bytes and chunk size
+RESIDENT_KEPT = ("intmult_i64_timestamps", "f64_auto_multichunk", "dict_i64", "wrapped_lookback_multipage")
+SHARDS = 4  # phase 11's shards of the main path
+
+
+def memcpy_bytes(torch, fn):
+    """(host-to-card bytes, card-to-host bytes, copies) of one call of fn:
+    the memcpy events of an exported torch.profiler trace (CUDA activity)
+    of that call, the card synchronised at its end, after a warm-up call
+    the profiler traces and drops (as profiled_kernels does)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    up = down = copies = 0
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        n = int(e.get("args", {}).get("bytes", 0))
+        if "HtoD" in e.get("name", ""):
+            up += n
+        elif "DtoH" in e.get("name", ""):
+            down += n
+        copies += 1
+    return up, down, copies
+
+
+def moved_line(moved: dict, nbytes_in: int) -> str:
+    """The bytes each route's plan_image moved, as memcpy_bytes counts them."""
+    return "; ".join(f"{k}: {up} B up ({up / nbytes_in:.2%} of the numbers), {down} B down ({down / nbytes_in:.2%}), "
+                     f"{c} copies" for k, (up, down, c) in moved.items())
+
+
+def resident_run(torch, asm, nums, cfg, ref, chunk_n, dev, measure_bytes=True):
+    """Phase 10 on one input: plan_image of the numbers as a CUDA tensor,
+    without and with their host copy, each image == ref (the numpy
+    route's bytes) and trained on the card; each route's plan_image host
+    seconds (the card synchronised) with its training part, the numbers it
+    copied to the host, and (measure_bytes) the bytes each route, the
+    numpy one too, moves between host and card. Returns (the tensor,
+    {route: (plan s, training s, copied)}, {route: memcpy_bytes})."""
+    x = torch.from_numpy(nums).to(dev)
+    routes = {"numpy": (nums, None), "tensor": (x, None), "tensor+mirror": (x, nums)}
+    times = {}
+    for route, (arg, mirror) in routes.items():
+        torch.cuda.synchronize()
+        with timed_call(asm, "plan_encode_device") as t_train:
+            t0 = time.time()
+            plan = asm.plan_image(arg, cfg, 1024, chunk_n, dev, nums_host=mirror)
+            torch.cuda.synchronize()
+            t_plan = time.time() - t0
+        if plan.trained_on != "device":
+            raise AssertionError(f"the {route} route trained on the {plan.trained_on}")
+        if route != "numpy" and asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, dev))) != ref:
+            raise AssertionError(f"the {route} route's image differs from the numpy route's bytes")
+        times[route] = (t_plan, t_train[0], plan.enc.host_copied)
+        del plan
+    moved = {}
+    if measure_bytes:
+        for route, (arg, mirror) in routes.items():
+            moved[route] = memcpy_bytes(torch, lambda: asm.plan_image(arg, cfg, 1024, chunk_n, dev, nums_host=mirror))
+        if moved["numpy"][0] < nums.nbytes:  # the numpy route uploads the numbers: a trace without it is broken
+            raise AssertionError(f"the trace of the numpy route's plan_image shows {moved['numpy'][0]} B up in "
+                                 f"{moved['numpy'][2]} copies, not the numbers' {nums.nbytes} B: the bytes are "
+                                 f"not measured")
+    return x, times, moved
+
+
+def times_line(times: dict) -> str:
+    return "; ".join(f"{k}: plan_image {t:.3f} s, training {tr:.3f} s, {c} numbers copied to the host"
+                     for k, (t, tr, c) in times.items())
+
+
+def shard_kernel_checks(torch, pt, asm, cd, ce, sh, mesh) -> str:
+    """Every per-shard K1 and K2 call of a small sharded decode, and every
+    per-shard K5 and K6 call of small sharded encodes (a row a chain, and
+    IntMult's joint rows), held against their plain versions; the decode
+    equals the source and each image container_compress's bytes."""
+    rng = np.random.default_rng(SEED + 13)
+    n = 5 * 8192 + 300
+    cases = (("classic_delta1", np.cumsum(rng.integers(0, 3000, n)).astype(np.int64),
+              pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_CONSECUTIVE, 1))),
+             ("intmult", (np.cumsum(rng.integers(1, 30, n)) * 1000 + rng.integers(0, 4, n)).astype(np.int64),
+              pt.ChunkConfig(mode_spec=pt.ModeSpec(pt.ModeSpec.TRY_INT_MULT, 1000))))
+    calls = {"K1": 0, "K2": 0, "K5": 0, "K6": 0}
+    for name, nums, cfg in cases:
+        data = pt.container_compress(nums, cfg, page_n=256, chunk_n=8192)
+        plan = cd.plan_container(data)
+        sd = sh.upload_sharded(plan, mesh)
+        for s in sd.shards:
+            cp, a = plan.launches[s.lkey], s.arrays
+            stg = cd.section_gather(s.words, a["word0"], cp.stage_words)
+            check_equal(stg, cd.section_gather_plain(s.words, a["word0"], cp.stage_words), f"{name}: a shard's K1")
+            args = (stg, a["word0"], a["curs"], a["states0"], a["body_n"], a["table_id"], a["node"], a["lower"],
+                    a["moment0"], cp.page_n, cp.fuse)
+            check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args), f"{name}: a shard's K2")
+            calls["K1"] += 1
+            calls["K2"] += 1
+        got = cd.to_numbers(sh.decode_sharded(plan, sd), plan.nt)
+        if not np.array_equal(got, nums):
+            raise AssertionError(f"{name}: the sharded decode differs from the source")
+        iplan = asm.plan_image(nums, cfg, 256, 8192, mesh[0])
+        img = sh.upload_sharded_image(iplan, mesh)
+        for s in img.shards:
+            a = s.arrays
+            p1, off, st = ce.bin_ans_encode(*k5_args(a))
+            for g, w in zip((p1, off, st), ce.bin_ans_encode_plain(*k5_args(a))):
+                check_equal(g, w, f"{name}: a shard's K5")
+            rc = a.get("row_chains")
+            for g, w in zip(ce.section_pack(p1, off, iplan.launch.sec_words, rc),
+                            ce.section_pack_plain(p1, off, iplan.launch.sec_words, rc)):
+                check_equal(g, w, f"{name}: a shard's K6")
+            calls["K5"] += 1
+            calls["K6"] += 1
+        if asm.file_image_to_bytes(*sh.run_image_sharded(iplan, img)) != data:
+            raise AssertionError(f"{name}: the sharded image differs from container_compress")
+    return f"per-shard calls == plain: {calls} on {len(cases)} small containers of 6 chunks"
+
+
+def sharded_main(torch, kernels, asm, cd, sh, plan, iplan, data, single_bits, mesh):
+    """The main path's container decoded and its image encoded sharded over
+    mesh, with the counts set to 0 just before each and read just after:
+    (decode launches, encode launches, the shards' uploaded words, decode
+    ms, encode ms (each median, min, max), peak bytes). The decode must
+    equal single_bits and the image the container's bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sd = sh.upload_sharded(plan, mesh)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    res = sh.decode_sharded(plan, sd)
+    torch.cuda.synchronize()
+    dec_l = {k: kernels.LAUNCHES[k] for k in ("section_gather", "chain_decode")}
+    if not torch.equal(res, single_bits):
+        raise AssertionError(f"the sharded decode differs from the single-device decode at "
+                             f"{int((res != single_bits).sum())} numbers")
+    del res
+    img = sh.upload_sharded_image(iplan, mesh)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    out = sh.run_image_sharded(iplan, img)
+    torch.cuda.synchronize()
+    enc_l = {k: kernels.LAUNCHES[k] for k in ("bin_ans_encode", "section_pack", "image_stitch")}
+    if asm.file_image_to_bytes(*out) != data:
+        raise AssertionError("the sharded image differs from the container's bytes")
+    del out
+    if (set(dec_l.values()) != {len(sd.shards)} or enc_l["bin_ans_encode"] != len(img.shards)
+            or enc_l["section_pack"] != len(img.shards) or not enc_l["image_stitch"]):
+        raise AssertionError(f"a sharded kernel was not launched once a shard: {dec_l}, {enc_l}")
+    spans = [(str(s.device), s.chains, s.span[1] - s.span[0]) for s in sd.shards]
+    t_dec = time_ms(lambda: sh.decode_sharded(plan, sd))
+    t_enc = time_ms(lambda: sh.run_image_sharded(iplan, img))
+    peak = torch.cuda.max_memory_allocated()
+    return dec_l, enc_l, spans, t_dec, t_enc, peak, [(str(s.device), s.chains, s.rows) for s in img.shards]
+
+
+def sharded_phase(torch, pt, kernels, asm, cd, ce, sh, plan, iplan, data, single, dev, card):
+    """Phase 11 over SHARDS shards of the first card, then over every
+    visible card where there are two or more: the per-shard kernel checks,
+    the main path's decode and image sharded (sharded_main) beside the
+    single-device times, and dryrun_multichip. Returns the first mesh's
+    (decode launches, encode launches, the kernels line's sharded object)."""
+    from pcodec_tpu_torch.entry import dryrun_multichip
+
+    arrays1, ia1 = cd.upload_plan(plan, dev), asm.upload_image(iplan, dev)
+    one_dec = time_ms(lambda: cd.decode_plan(plan, arrays1))
+    one_enc = time_ms(lambda: asm.run_image(iplan, ia1))
+    del arrays1, ia1
+    n_cards = torch.cuda.device_count()
+    # (label, mesh, dryrun's devices: None needs that many visible cards)
+    meshes = [(f"{SHARDS} shards of one card", [dev] * SHARDS, [dev] * SHARDS)]
+    if n_cards >= 2:
+        meshes.append((f"{n_cards} cards", sh.make_mesh(), None))
+    first = None
+    for label, mesh, dry_devices in meshes:
+        mesh = sh.make_mesh(mesh)
+        print(f"sharded: {label}: {shard_kernel_checks(torch, pt, asm, cd, ce, sh, mesh)} [{card}]", flush=True)
+        d, e, spans, td, te, peak, eshards = sharded_main(torch, kernels, asm, cd, sh, plan, iplan, data, single, mesh)
+        print(f"sharded: {label}: main path decode == the single-device decode (torch.equal), image == the "
+              f"container's bytes; launches {d}, {e}; each shard's words uploaded (device, chains, words) {spans} of "
+              f"the container's {len(plan.words)}; encode shards (device, chains, rows) {eshards}; "
+              f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+        print(f"sharded: {label}: main path decode {td[0]:.3f} ms (min {td[1]:.3f}, max {td[2]:.3f}) sharded, "
+              f"{one_dec[0]:.3f} ms single-device; encode device part {te[0]:.3f} ms (min {te[1]:.3f}, max "
+              f"{te[2]:.3f}) sharded, {one_enc[0]:.3f} ms single-device [{card}]", flush=True)
+        dry = dryrun_multichip(len(mesh), devices=dry_devices)
+        call = f"{len(mesh)}" if dry_devices is None else f"{len(mesh)}, devices=[cuda] * {len(mesh)}"
+        print(f"sharded: {label}: dryrun_multichip({call}): encode == container_compress, decode == source for "
+              f"{', '.join(dry)} [{card}]", flush=True)
+        if first is None:
+            first = (d, e, {"shards": len(mesh), "decode_ms": td[0], "single_decode_ms": one_dec[0],
+                            "encode_ms": te[0], "single_encode_ms": one_enc[0]})
+    if n_cards < 2:
+        print("sharded: 1 card: shards share it", flush=True)
+    return first
+
+
 def main() -> int:
     import torch
 
@@ -1847,7 +2088,7 @@ def main() -> int:
           f"{', '.join(f'{t:.4f}' for t in k9_c)} ms [{card}]", flush=True)
     for shape, ways, plan8 in k8_c:
         print(f"auto: K8 row_sort {shape}: {k8_line(ways, plan8)} [{card}]", flush=True)
-    del plan_c, data_c
+    del plan_c  # data_c: phase 10's reference for this configuration
     torch.cuda.empty_cache()
 
     # 7. standalone .pco decode: small files of each mode x delta kind, then
@@ -1964,6 +2205,7 @@ def main() -> int:
     print(f"multi: {long_pages_line(torch, dt, kept['wrapped_lookback_multipage'][0][: 2 << 20], dev)} [{card}]",
           flush=True)
     multi_rows, train_rows, lb_rows = {}, {}, {}
+    resident = {}  # phase 10's inputs: numbers, config, container_compress bytes, chunk size
     for case, m in MULTI_INPUTS:
         t0 = time.time()
         chunk8 = MULTI_CHUNK_N.get(case, 1 << 20)
@@ -1977,6 +2219,8 @@ def main() -> int:
             nums8 = nums8[:m]
             ref8 = pt.container_compress(nums8, cfg8, page_n=1024, chunk_n=chunk8)
         t_ref8 = time.time() - t0
+        if case in RESIDENT_KEPT:
+            resident[case] = (nums8, cfg8, ref8, chunk8)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.LAUNCHES:
@@ -2094,23 +2338,82 @@ def main() -> int:
           f"[{card}]", flush=True)
     b5 = lb_rows["wrapped_lookback_multipage"]
 
+    # 10. device-resident encode: the numbers already on the card as a CUDA
+    # tensor, planned without and with their host copy, each image against
+    # the numpy route's bytes
+    t_ph = time.time()
+    x_main, times10, moved10 = resident_run(torch, asm, nums, cfg, data, 1 << 20, dev)
+    print(f"resident: main path {N} i64 (order-1 delta, 1M-number chunks): both tensor routes' images == the numpy "
+          f"route's bytes; {times_line(times10)} [{card}]", flush=True)
+    print(f"resident: main path, the host/card bytes of one plan_image (torch.profiler memcpy events): "
+          f"{moved_line(moved10, nums.nbytes)} [{card}]", flush=True)
+    up10, down10, _ = moved10["tensor"]
+    if max(up10, down10) >= nums.nbytes // 10:
+        raise AssertionError(f"the tensor route moved {up10} B up and {down10} B down, not under 10% of the numbers")
+    if times10["tensor"][2]:
+        raise AssertionError(f"the tensor route copied {times10['tensor'][2]} numbers to the host")
+    nt_main = iplan.enc.nt
+    lat_main = dt.latents_on_card(x_main, nt_main, dev)
+    starts_main = np.arange(0, N, 1 << 20)
+    screen = time_ms(lambda: dt._screen_int_mult(lat_main, nt_main, [1 << 20] * (N >> 20), starts_main), runs=3,
+                     warmup=1)
+    idx_main = np.concatenate([dt.sampling.choose_sample_indices(1 << 20) + st for st in starts_main])
+    mode_s = lat_main[torch.from_numpy(idx_main).to(dev)]
+    m_s = len(idx_main) // (N >> 20)
+    gcd_t = time_ms(lambda: dt.phase_int_gcd(mode_s, np.arange(0, len(idx_main), m_s), [m_s] * (N >> 20)), runs=3,
+                    warmup=1)
+    print(f"resident: main path, IntMult screening on the card (no host copy) {screen[0]:.2f} ms a plan (min "
+          f"{screen[1]:.2f}, max {screen[2]:.2f}, 3 runs), of it phase_int_gcd (the triple GCDs' loop, "
+          f"{len(idx_main) // 3} triples) {gcd_t[0]:.2f} ms [{card}]", flush=True)
+    del lat_main, mode_s
+    res10 = cd.decode_container_tensor(data, dev)
+    if not torch.equal(res10, x_main):  # one bool read back
+        raise AssertionError("the 64M image decoded on the card differs from the source tensor")
+    del res10
+    _, times10c, _ = resident_run(torch, asm, nums, auto_cfg, data_c, 2 << 20, dev, measure_bytes=False)
+    print(f"resident: main path at ChunkConfig(), 2M-number chunks: images == the numpy route's bytes; "
+          f"{times_line(times10c)}; the 64M image decoded by decode_container_tensor == the source tensor "
+          f"(torch.equal on the card) [{card}]", flush=True)
+    del x_main, data_c
+    for case, (nums10, cfg10, ref10, chunk10) in resident.items():
+        x10, t10, m10 = resident_run(torch, asm, nums10, cfg10 or pt.ChunkConfig(), ref10, chunk10, dev)
+        print(f"resident: {case} {len(nums10)} {nums10.dtype}: images == the numpy route's bytes; {times_line(t10)}; "
+              f"{moved_line(m10, nums10.nbytes)} [{card}]", flush=True)
+        del x10
+    del resident
+    torch.cuda.empty_cache()
+    print(f"resident: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
+
+    # 11. decode and encode sharded over a list of devices
+    from pcodec_tpu_torch.parallel import sharding as sh
+
+    t_ph = time.time()
+    single = cd.decode_container_tensor(data, dev, plan)
+    dec11, enc11, sharded11 = sharded_phase(torch, pt, kernels, asm, cd, ce, sh, plan, iplan, data, single, dev, card)
+    del single
+    print(f"sharded: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
+
     rows = [
         {"name": "section_gather", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_gather.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:132", "launches": dec_launches["section_gather"],
          "max_abs_err": k1_err, "ms": k1[0], "plain_ms": k1_plain[0], "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": k1_lib[0]},
+         "bound_by": "bytes", "library_ms": k1_lib[0],
+         "sharded": {"launches": dec11["section_gather"], **sharded11}},
         {"name": "chain_decode", "route": "cuda", "source": "pcodec_tpu_torch/csrc/chain_decode.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:222", "launches": dec_launches["chain_decode"],
          "max_abs_err": k2_err, "ms": k2[0], "plain_ms": k2_plain[0], "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None, "device_ms": k2_alone, "status": "redesigned"},
+         "bound_by": k2_by, "library_ms": None, "device_ms": k2_alone, "status": "redesigned",
+         "sharded": {"launches": dec11["chain_decode"], **sharded11}},
         {"name": "bin_ans_encode", "route": "cuda", "source": "pcodec_tpu_torch/csrc/bin_ans_encode.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:142", "launches": enc_launches["bin_ans_encode"],
          "max_abs_err": st["err"]["bin_ans_encode"], "ms": k5[0], "plain_ms": k5_plain[0], "bound_ms": k5_bound,
-         "bound_by": k5_by, "library_ms": None, "device_ms": k5_alone, "status": "redesigned"},
+         "bound_by": k5_by, "library_ms": None, "device_ms": k5_alone, "status": "redesigned",
+         "sharded": {"launches": enc11["bin_ans_encode"], **sharded11}},
         {"name": "section_pack", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_pack.cu",
          "replaces": "pcodec_tpu/ops/pallas_encode.py:268", "launches": enc_launches["section_pack"],
          "max_abs_err": st["err"]["section_pack"], "ms": k6[0], "plain_ms": k6_plain[0], "bound_ms": k6_bound,
          "bound_by": k6_by, "library_ms": None, "device_ms": k6_alone, "status": "redesigned",
+         "sharded": {"launches": enc11["section_pack"], **sharded11},
          "multivar": {k: multi_rows["intmult_i64_timestamps"][k] for k in ("n", "k6_ms", "k6_device_ms",
                                                                            "k6_bound_ms")}},
         {"name": "image_stitch", "route": "cuda", "source": "pcodec_tpu_torch/csrc/image_stitch.cu",
@@ -2265,6 +2568,41 @@ def train_only() -> int:
     return 0
 
 
+def sharded_only() -> int:
+    """Phase 11 alone (sharded_phase): the main path's numbers encoded on
+    the card (encode_container_device, whose bytes phase 5 holds against
+    container_compress in every run), that container decoded and its
+    image encoded sharded, each against the single-device path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.ops import assemble as asm
+    from pcodec_tpu_torch.ops import container_decode as cd
+    from pcodec_tpu_torch.ops import container_encode as ce
+    from pcodec_tpu_torch.ops import kernels
+    from pcodec_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda")
+    card = card_line()
+    n_cards = torch.cuda.device_count()
+    names = sorted({torch.cuda.get_device_name(i) for i in range(n_cards)})
+    print(f"sharded: {n_cards} card(s) {names} [{card}]", flush=True)
+    kernels.build()
+    nums = make_data()
+    cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_CONSECUTIVE, 1))
+    data = pt.encode_container_device(nums, cfg, 1024, 1 << 20, device=dev)
+    plan = cd.plan_container(data)
+    iplan = asm.plan_image(nums, cfg, 1024, 1 << 20, dev)
+    single = cd.decode_container_tensor(data, dev, plan)
+    if not torch.equal(single, torch.from_numpy(nums).to(dev)):
+        raise AssertionError("the single-device decode differs from the source")
+    sharded_phase(torch, pt, kernels, asm, cd, ce, sh, plan, iplan, data, single, dev, card)
+    return 0
+
+
 if __name__ == "__main__":
-    modes = {"--lookback-decode": lookback_decode_only, "--train": train_only}
+    modes = {"--lookback-decode": lookback_decode_only, "--train": train_only, "--sharded": sharded_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

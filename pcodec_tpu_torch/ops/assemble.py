@@ -46,7 +46,7 @@ bits, zero directory entries and zero indices.
 import struct
 from dataclasses import dataclass
 from functools import cached_property
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,7 +54,6 @@ import torch
 from pcodec_tpu_torch.codec import container as ctn
 from pcodec_tpu_torch.codec.chunk_config import ChunkConfig
 from pcodec_tpu_torch.codec.wrapped import FileCompressor
-from pcodec_tpu_torch.dtypes import number_type_from_np
 from pcodec_tpu_torch.format.bitio import BitWriter
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.container_decode import BATCH, _resolve_device
@@ -69,7 +68,9 @@ from pcodec_tpu_torch.ops.container_encode import (
     upload_launch,
 )
 from pcodec_tpu_torch.ops.decode import _check_cuda
-from pcodec_tpu_torch.ops.device_train import device_train_supported, plan_encode_device
+from pcodec_tpu_torch.ops.device_train import (
+    check_host_mirror, device_train_supported, number_type_of, plan_encode_device, to_host,
+)
 
 i64 = torch.int64
 
@@ -173,21 +174,32 @@ def _host_states(enc: EncodePlan, lay: ImageLayout) -> np.ndarray:
     return out
 
 
-def plan_image(nums: np.ndarray, config=None, page_n: int = 1024, chunk_n: int = 1 << 20,
-               device="cuda") -> ImagePlan:
+def plan_image(nums, config=None, page_n: int = 1024, chunk_n: int = 1 << 20, device="cuda",
+               nums_host: Optional[np.ndarray] = None) -> ImagePlan:
     """Planning of the device file image (the JAX `plan_image` and
     `_plan_image_multi`): training, the launch, and the host-serialized
     bytes. Training runs on `device` through device_train.plan_encode_device
     where device_train_supported covers the number type and configuration
-    (`trained_on` "device"; it hands a configuration whose auto delta
-    picks lookback to the host), else on the host through
+    (`trained_on` "device"), else on the host through
     container_encode.plan_encode, whose sorts run on `device` (`trained_on`
-    "host")."""
+    "host").
+
+    nums is a numpy array or a tensor on any device (the numbers already on
+    the card: no upload); nums_host is a tensor's host copy, which codes
+    the chunks that fall back (plan_encode_device). A tensor that trains on
+    the host is copied there whole unless nums_host is given
+    (`enc.host_copied`)."""
     if len(nums) == 0:
         raise ValueError("plan_image needs at least one number")
     config = config or ChunkConfig()
-    if device_train_supported(number_type_from_np(nums.dtype), config, page_n, chunk_n):
-        enc = plan_encode_device(nums, config, page_n, chunk_n, device)
+    nt = number_type_of(nums)
+    if device_train_supported(nt, config, page_n, chunk_n):
+        enc = plan_encode_device(nums, config, page_n, chunk_n, device, nums_host)
+    elif isinstance(nums, torch.Tensor):
+        host = check_host_mirror(nums, nt, nums_host)
+        host = to_host(nums, nt) if host is None else host
+        enc = plan_encode(host, config, page_n, chunk_n, device)
+        enc.host_copied = len(nums) if nums_host is None else 0
     else:
         enc = plan_encode(nums, config, page_n, chunk_n, device)
     L = build_encode_launch(enc)
@@ -296,24 +308,27 @@ def image_desc(plan: ImagePlan):
     return desc, pfx.view(np.uint32)
 
 
-def upload_image(plan: ImagePlan, device="cuda") -> dict:
-    """The launch arrays and what K7 reads besides the launch's outputs (its
-    descriptor rows, the prefix words, the head's host words, the page
-    states), on `device`."""
+def upload_stitch(plan: ImagePlan, device="cuda") -> dict:
+    """What K7 reads besides the launch's outputs (its descriptor rows, the
+    prefix words, the head's host words, the page states), on `device`."""
     device = _resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     desc, pfx = image_desc(plan)
-    a = upload_launch(plan.launch, device)
-    a.update({
+    return {
         "image_desc": t(desc),
         "image_pfx": t(pfx.view(np.int32)),
         "head_host": t(np.frombuffer(plan.head_host, np.int32).copy()),
         "moments": plan.moments.to(device),
-    })
-    return a
+    }
+
+
+def upload_image(plan: ImagePlan, device="cuda") -> dict:
+    """The launch arrays and K7's (upload_stitch), on `device`."""
+    device = _resolve_device(device)
+    return {**upload_launch(plan.launch, device), **upload_stitch(plan, device)}
 
 
 def upload_prep(plan: ImagePlan, device) -> dict:
@@ -574,20 +589,21 @@ def file_image_to_bytes(head_words, body_words, head_bytes: int, body_bytes: int
     return hb.tobytes() + bb.tobytes()
 
 
-def encode_container_image_device(nums: np.ndarray, config=None, page_n: int = 1024,
-                                  chunk_n: int = 1 << 20, device="cuda"):
-    """Encode `nums` to a PCT file image on `device` (the GPU unless the
-    caller asks for the CPU). Returns (head_words, body_words, head_bytes,
-    body_bytes); file_image_to_bytes of it equals container_compress's
-    bytes."""
+def encode_container_image_device(nums, config=None, page_n: int = 1024, chunk_n: int = 1 << 20, device="cuda",
+                                  nums_host: Optional[np.ndarray] = None):
+    """Encode `nums` (a numpy array, or a tensor already on the card; see
+    plan_image for nums_host) to a PCT file image on `device` (the GPU
+    unless the caller asks for the CPU). Returns (head_words, body_words,
+    head_bytes, body_bytes); file_image_to_bytes of it equals
+    container_compress's bytes."""
     device = _resolve_device(device)
-    plan = plan_image(nums, config, page_n, chunk_n, device)
+    plan = plan_image(nums, config, page_n, chunk_n, device, nums_host)
     return run_image(plan, upload_image(plan, device))
 
 
-def encode_container_device(nums: np.ndarray, config=None, page_n: int = 1024,
-                            chunk_n: int = 1 << 20, device="cuda") -> bytes:
+def encode_container_device(nums, config=None, page_n: int = 1024, chunk_n: int = 1 << 20, device="cuda",
+                            nums_host: Optional[np.ndarray] = None) -> bytes:
     """Encode `nums` on `device` (the GPU unless the caller asks for the
     CPU) to PCT container bytes equal to container_compress's: the file
     image, read back."""
-    return file_image_to_bytes(*encode_container_image_device(nums, config, page_n, chunk_n, device))
+    return file_image_to_bytes(*encode_container_image_device(nums, config, page_n, chunk_n, device, nums_host))

@@ -700,7 +700,7 @@ def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor],
             continue
         if vp.trivial:
             lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
-                             device=dev.words.device)
+                             device=dev.device)
         else:
             lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
             if plan.launches[vp.launch_key].fuse:
@@ -730,7 +730,7 @@ def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "Devi
     the output (the others' latents into a scratch); the remaining chunks
     are joined in torch and copied into the output, and one K4 launch
     joins every Dict chunk into it."""
-    device = dev.words.device
+    device = dev.device
     k3_chunks = plan.lookback_chunks
     if not plan.dict_chunks and not k3_chunks:
         return _concat([chunk_result(plan, cp, chunk_latents(plan, ci, outs, dev, None))
@@ -791,7 +791,7 @@ def _resolve_device(device) -> torch.device:
 
 @dataclass
 class DeviceArrays:
-    words: torch.Tensor
+    words: torch.Tensor  # the container's words (empty where shards hold them: upload_post)
     launches: Dict[tuple, Dict[str, torch.Tensor]] = field(default_factory=dict)
     # per chunk: "moments_<var>" (n_pages, state_n)
     chunks: List[Dict[str, torch.Tensor]] = field(default_factory=list)
@@ -799,31 +799,80 @@ class DeviceArrays:
     lookback_desc: Optional[torch.Tensor] = None  # K3's rows (plan.lookback_desc)
     lookback_moments: Optional[torch.Tensor] = None  # every K3 row's stored state, back to back
 
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
 
-def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
-    """Copy the container words and each launch's plan arrays to `device`."""
+
+def _launch_arrays(cp: ChainPlan, device, chains: slice = slice(None), word0=None, curs=None) -> Dict[str, torch.Tensor]:
+    """K1 and K2's arrays of a launch's chains (all, or a range) on `device`;
+    word0 and curs as given, else the plan's."""
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {
+        "word0": t(cp.word0[chains] if word0 is None else word0),
+        "curs": t(cp.curs[chains] if curs is None else curs),
+        "states0": t(cp.states0[chains]),
+        "body_n": t(cp.body_n[chains]),
+        "table_id": t(cp.table_id[chains]),
+        "node": t(cp.node.view(np.int32)),
+        "lower": t(cp.lower.view(np.int64)),
+        "moment0": t(cp.moment0[chains].view(np.int64)),
+    }
+
+
+def upload_post(plan: ContainerPlan, device="cuda") -> DeviceArrays:
+    """Copy what the post reads (K3's and K4's tables, each chunk's stored
+    delta states) to `device`; no container words and no launch."""
     device = _resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dev = DeviceArrays(words=t(plan.words.view(np.int32)), dict_table=t(plan.dict_table),
+    dev = DeviceArrays(words=torch.zeros(0, dtype=torch.int32, device=device), dict_table=t(plan.dict_table),
                        lookback_desc=t(plan.lookback_desc),
                        lookback_moments=_u64_to_tensor(plan.lookback_moments, device))
-    for lkey, cp in plan.launches.items():
-        dev.launches[lkey] = {
-            "word0": t(cp.word0),
-            "curs": t(cp.curs),
-            "states0": t(cp.states0),
-            "body_n": t(cp.body_n),
-            "table_id": t(cp.table_id),
-            "node": t(cp.node.view(np.int32)),
-            "lower": t(cp.lower.view(np.int64)),
-            "moment0": t(cp.moment0.view(np.int64)),
-        }
     for ch in plan.chunks:
         dev.chunks.append({"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()})
     return dev
+
+
+def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:
+    """Copy the container words, each launch's plan arrays and the post's
+    tables to `device`."""
+    dev = upload_post(plan, device)
+    dev.words = torch.from_numpy(plan.words.view(np.int32)).to(dev.device)
+    for lkey, cp in plan.launches.items():
+        dev.launches[lkey] = _launch_arrays(cp, dev.device)
+    return dev
+
+
+def upload_launch_shard(plan: ContainerPlan, lkey: tuple, c0: int, c1: int, device):
+    """K1 and K2's arrays of chains [c0, c1) of one launch on `device`, with
+    only the container words they stage: [lo, hi) from the first word a
+    coded chain (body_n > 0) stages to stage_words past the last one's
+    first, zero padded to a whole number of 4-word groups (at least 4),
+    those chains' word0 and curs rebased to lo (an inert chain, which K2
+    reads nothing of, stages from word lo). c0 and c1 are multiples of
+    CHAINS_PER_BLOCK, so each K2 block keeps its one table. Returns (words
+    (int32 tensor), arrays, (lo, hi))."""
+    cp = plan.launches[lkey]
+    if c0 % CHAINS_PER_BLOCK or c1 % CHAINS_PER_BLOCK or not 0 <= c0 <= c1 <= cp.n_chains:
+        raise ValueError(f"a shard's chains must be whole blocks of {CHAINS_PER_BLOCK} within the launch")
+    device = _resolve_device(device)
+    sl = slice(c0, c1)
+    coded = cp.body_n[sl] > 0
+    w0 = cp.word0[sl]
+    lo = int(w0[coded].min()) if coded.any() else 0
+    hi = int(w0[coded].max()) + cp.stage_words if coded.any() else lo
+    w = np.zeros(max(4, -(-(hi - lo) // 4) * 4), np.uint32)
+    w[: hi - lo] = plan.words[lo:hi]
+    words = torch.from_numpy(w.view(np.int32)).to(device)
+    word0 = np.where(coded, w0 - lo, 0)
+    curs = np.where(coded[:, None], cp.curs[sl] - (lo << 5), 0)
+    return words, _launch_arrays(cp, device, sl, word0, curs), (lo, hi)
 
 
 def run_launch(cp: ChainPlan, words: torch.Tensor, a: Dict[str, torch.Tensor]) -> torch.Tensor:

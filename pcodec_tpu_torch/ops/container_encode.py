@@ -170,6 +170,9 @@ class EncodePlan:
     jobs: List[ChunkJob]
     trained_on: str = "host"  # "device": ops/device_train.py; "host": plan_encode
     dev: Optional[DeviceRows] = None  # device training's page rows
+    # numbers copied from the card to the host: a tensor's chunks that fell
+    # back to the baseline compressor, or all of them when it trained on the host
+    host_copied: int = 0
 
 
 def chunk_job(cc: ChunkCompressor, page_n: int) -> ChunkJob:
@@ -426,25 +429,38 @@ def enc_launch_from_jax(schema, dev_args) -> EncodeLaunch:
     )
 
 
-def upload_launch(L: EncodeLaunch, device) -> dict:
-    """Copy a launch's arrays to `device` (u64 as int64 bits)."""
+def upload_launch(L: EncodeLaunch, device, chains: Optional[tuple] = None, rows: Optional[tuple] = None) -> dict:
+    """Copy a launch's arrays to `device` (u64 as int64 bits): every chain,
+    or the chains [c0, c1) = `chains` (whole blocks of CHAINS_PER_BLOCK, so
+    each K5 block keeps its one table) and K6's rows [r0, r1) = `rows` (the
+    same range where a row is a chain; else pages whose vars' chains all
+    lie in [c0, c1), their row_chains rebased to c0). The tables go whole."""
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    c0, c1 = chains or (0, L.n_chains)
+    r0, r1 = rows or ((c0, c1) if L.row_chains is None else (0, L.n_rows))
+    if chains and (c0 % CHAINS_PER_BLOCK or c1 % CHAINS_PER_BLOCK or not 0 <= c0 <= c1 <= L.n_chains):
+        raise ValueError(f"a shard's chains must be whole blocks of {CHAINS_PER_BLOCK} within the launch")
+    lat = L.latents[c0:c1]
     a = {
-        "latents": (L.latents.to(device) if isinstance(L.latents, torch.Tensor)
-                    else t(L.latents.view(np.int64))),
-        "body_n": t(L.body_n),
-        "table_id": t(L.table_id),
-        "states0": t(L.states0),
+        "latents": lat.to(device) if isinstance(lat, torch.Tensor) else t(lat.view(np.int64)),
+        "body_n": t(L.body_n[c0:c1]),
+        "table_id": t(L.table_id[c0:c1]),
+        "states0": t(L.states0[c0:c1]),
         "nexts": t(L.nexts),
         "lowers": t(L.lowers.view(np.int64)),
         "t1": t(L.t1),
         "t2": t(L.t2),
     }
     if L.row_chains is not None:
-        a["row_chains"] = t(L.row_chains)
+        rc = L.row_chains[r0:r1]
+        if ((rc >= 0) & ((rc < c0) | (rc >= c1))).any():
+            raise ValueError("a shard's rows must name only its own chains")
+        a["row_chains"] = t(np.where(rc >= 0, rc - c0, -1))
+    elif (r0, r1) != (c0, c1):
+        raise ValueError("where a row is a chain, a shard's rows are its chains")
     return a
 
 
@@ -700,14 +716,16 @@ def section_pack(p1, offsets, sec_words: int, row_chains=None):
 
 
 def encode_launch(L: EncodeLaunch, a: dict):
-    """K5 -> K6 for one launch. Returns (sections (L.n_rows, sec_words)
-    int32, final states (n_chains, 4), ans_len, off_len, total_bits): K6's
-    rows (section_pack)."""
-    if not L.n_chains:  # every chunk trivial: nothing to launch, K6's rows empty
+    """K5 -> K6 for the chains and rows uploaded in `a` (upload_launch: a
+    launch, or a shard of it). Returns (sections (rows, sec_words) int32,
+    final states (chains, 4), ans_len, off_len, total_bits): K6's rows
+    (section_pack)."""
+    if not a["body_n"].shape[0]:  # no chain: nothing to launch, K6's rows empty
         z = a["latents"].new_zeros
         B = L.page_n // BATCH
-        R = L.n_rows
-        lens = (R, B) if L.row_chains is None else (R, L.row_chains.shape[1], B)
+        rc = a.get("row_chains")
+        R = 0 if rc is None else rc.shape[0]
+        lens = (R, B) if rc is None else (R, rc.shape[1], B)
         return z((R, L.sec_words), dtype=torch.int32), z((0, 4)), z(lens), z(lens), z(R)
     p1, offsets, states = bin_ans_encode(a["latents"], a["body_n"], a["table_id"], a["states0"],
                                          a["nexts"], a["lowers"], a["t1"], a["t2"])

@@ -9,10 +9,14 @@ once; the host reads back O(bins) per chunk and decides with the host
 pipeline's own functions, so the bins, the tables and the file equal the
 host's.
 
-    (host)            the mode of every chunk: IntMult screening of the
-                      host's sample of the numbers, the float bids on the
-                      host's sample of |x|, or the pinned spec
-    latents_on_card   card: the bijection (integer or float)
+    latents_on_card   card: the bijection (integer or float), of a numpy
+                      array uploaded once or of a tensor where it lies
+    (host)            the mode of every chunk: IntMult screening or the
+                      float bids on samples gathered on the card at the
+                      host sampler's index sets (phase_int_gcd,
+                      phase_int_est and int_bases_collect screen IntMult
+                      there, phase_float_keep flags the float draws), so
+                      the decisions are the host's; or the pinned spec
     phase_dict        card: TRY_DICT's split, each chunk's dictionary and
                       the numbers' u32 indices, which the rest trains on
     split_primary     card: the mode split's primary latents (IntMult and
@@ -93,7 +97,7 @@ from pcodec_tpu_torch.ops.container_decode import BATCH, _resolve_device
 from pcodec_tpu_torch.ops.container_encode import DeviceRows, EncodePlan, chunk_job
 from pcodec_tpu_torch.ops.decode import _MIN64, _check_cuda
 from pcodec_tpu_torch.ops.row_sort import row_sort
-from pcodec_tpu_torch.ops.softfloat import _i64, _srl, _ult
+from pcodec_tpu_torch.ops.softfloat import _i64, _srl, _srl_t, _ult
 
 i64 = torch.int64
 STAGE1_ORDERS = 2  # auto-delta orders of the first candidate pass; the chain breaks there for most chunks
@@ -151,13 +155,65 @@ def _toggle(x: torch.Tensor, bits: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def latents_on_card(nums: np.ndarray, nt: NumberType, device) -> torch.Tensor:
+# the numbers' dtypes a tensor may hold, and the signed dtype of each width
+# that reads a number's bits (a float's bits are never computed on as floats)
+_TORCH_NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64,
+             torch.uint8: np.uint8, torch.uint16: np.uint16, torch.uint32: np.uint32, torch.uint64: np.uint64,
+             torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+_SIGNED = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
+
+
+def number_type_of(nums) -> NumberType:
+    """The number type of a numpy array, or of a 1-D tensor of one of the
+    port's dtypes on any device (ValueError for bfloat16 and the rest)."""
+    if not isinstance(nums, torch.Tensor):
+        return number_type_from_np(nums.dtype)
+    if nums.dtype not in _TORCH_NP:
+        raise ValueError(f"no number type holds {nums.dtype}; the port encodes "
+                         f"{', '.join(str(d) for d in _TORCH_NP)}")
+    if nums.dim() != 1:
+        raise ValueError(f"the numbers must be 1-D, not of shape {tuple(nums.shape)}")
+    return number_type_from_np(_TORCH_NP[nums.dtype])
+
+
+def bits_of(nums: torch.Tensor) -> torch.Tensor:
+    """A tensor's numbers as the signed integers of their width holding the
+    same bits (a view: the values are not read)."""
+    return nums.contiguous().view(_SIGNED[nums.element_size() * 8])
+
+
+def to_card(nums, device) -> torch.Tensor:
+    """The numbers on `device`: a tensor moved there (not copied if it lies
+    there), a numpy array uploaded as the signed integers of its width
+    holding its bits (bits_of's view)."""
+    if isinstance(nums, torch.Tensor):
+        return nums.to(device)
+    sdt = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}[nums.dtype.itemsize]
+    return torch.from_numpy(np.ascontiguousarray(nums).view(sdt)).to(device)
+
+
+def check_host_mirror(nums: torch.Tensor, nt: NumberType, nums_host: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """nums_host, a tensor's host copy, after checking that it has the
+    numbers' dtype and length (ValueError otherwise); None stays None."""
+    if nums_host is not None and (nums_host.dtype != nt.np_dtype or nums_host.shape != (len(nums),)):
+        raise ValueError("nums_host must hold the same numbers as nums, in their dtype")
+    return nums_host
+
+
+def to_host(nums: torch.Tensor, nt: NumberType) -> np.ndarray:
+    """A tensor's numbers copied to a numpy array of nt's dtype, by their
+    bits."""
+    return bits_of(nums).cpu().numpy().view(nt.np_dtype)
+
+
+def latents_on_card(nums, nt: NumberType, device) -> torch.Tensor:
     """The order-preserving bijection on the card (signed: the top bit
     toggled; unsigned: as is; float: the sign bit toggled, negative floats'
-    bits inverted, data_types/float.rs:396-416), widened to int64 u64 bits."""
+    bits inverted, data_types/float.rs:396-416), widened to int64 u64 bits.
+    nums a numpy array (uploaded) or a tensor (read where it lies on
+    `device`, moved there otherwise)."""
     bits = nt.latent.bits
-    sdt = {8: np.int8, 16: np.int16, 32: np.int32, 64: np.int64}[bits]
-    x = torch.from_numpy(np.ascontiguousarray(nums).view(sdt)).to(device).to(i64)
+    x = bits_of(to_card(nums, device)).to(i64)
     if nt.kind == "float":
         return sf.ordered_from_bits(_wrap(x, bits), bits)
     if bits == 64:
@@ -172,7 +228,7 @@ def page_layout(lat: torch.Tensor, total_rows: int, page_n: int) -> torch.Tensor
     return torch.cat([lat, lat.new_zeros(total_rows * page_n - len(lat))]).view(total_rows, page_n)
 
 
-def phase_latents(nums: np.ndarray, nt: NumberType, total_rows: int, page_n: int,
+def phase_latents(nums, nt: NumberType, total_rows: int, page_n: int,
                   delta_idx: Optional[np.ndarray], device):
     """latents_on_card in the page layout, and the gather of the auto-delta
     sample at delta_idx (the JAX `_phase_latents`)."""
@@ -864,37 +920,13 @@ def _lookback_costs(samples: List[np.ndarray], ubls: List[int], lt: LatentType) 
     return costs
 
 
-def _screen_int_mult(nums: np.ndarray, nt: NumberType, chunk_ns, starts) -> List[Optional[int]]:
-    """The IntMult screening of auto mode on the host's sample of each
-    chunk (the JAX host screening thread, device_train.py:1983-1997): the
-    sample and function of the host pipeline's int_mult.choose_base. Each
-    chunk's base, None where it has none."""
-    sample_idx, bases = {}, []
-    for cn, st in zip(chunk_ns, starts):
-        if cn not in sample_idx:
-            sample_idx[cn] = sampling.choose_sample_indices(cn)
-        idx = sample_idx[cn]
-        bases.append(None if idx is None else int_mult.choose_base_from_sample(nt.to_latent_ordered(nums[st + idx])))
-    return bases
-
-
-def _float_auctions(nums: np.ndarray, nt: NumberType, chunk_ns, starts) -> List[Optional[Split]]:
+def _float_auctions(samples: List[Optional[np.ndarray]], nt: NumberType) -> List[Optional[Split]]:
     """The float auto mode of every chunk (data_types/float.rs:83-134, the
-    host's choose_mode_and_split): FloatMult's and FloatQuant's bids on
-    the host's sample of |x|, normal floats under the sampling cap, taken
-    from host gathers at the sampler's draws only (JAX
-    device_train.py:1760-1795); FloatQuant wins a tie, a chunk without a
-    winning bid is Classic."""
-    draws, cap, out = {}, cmp._max_for_sampling(nt), []
-    for cn, st in zip(chunk_ns, starts):
-        if cn not in draws:
-            draws[cn] = sampling.sample_draws(cn)
-        sample = None
-        if draws[cn] is not None:
-            x = nums[st + draws[cn][0]]
-            idx = sampling.select_sample_indices(*draws[cn], cmp._is_normal(nt, x) & (np.abs(x) <= cap))
-            if idx is not None:
-                sample = np.abs(nums[st + idx]).astype(nt.np_dtype)
+    host's choose_mode_and_split): FloatMult's and FloatQuant's bids on the
+    chunk's sample of |x|; FloatQuant wins a tie, a chunk without a winning
+    bid is Classic."""
+    out = []
+    for sample in samples:
         best, split = 0.0, None
         if sample is not None:
             fm = float_mult.compute_bid(nt, sample)
@@ -907,11 +939,14 @@ def _float_auctions(nums: np.ndarray, nt: NumberType, chunk_ns, starts) -> List[
     return out
 
 
-def mode_splits(nums: np.ndarray, nt: NumberType, config: ChunkConfig, chunk_ns, starts) -> List[Optional[Split]]:
+def mode_splits(nums: torch.Tensor, nt: NumberType, config: ChunkConfig, chunk_ns, starts,
+                lat: torch.Tensor) -> List[Optional[Split]]:
     """Each chunk's mode split (JAX device_train.py:2321-2372): a pinned
     TRY_INT_MULT, TRY_FLOAT_QUANT or TRY_FLOAT_MULT spec for every chunk,
     auto mode's IntMult screening or float auction, None for Classic (and
-    TRY_DICT, which phase_dict splits)."""
+    TRY_DICT, which phase_dict splits). The samples are gathered on the
+    numbers' card: nums the numbers (bits_of's dtypes), lat their latents
+    from latents_on_card, which the IntMult screening reads."""
     ms = config.mode_spec
     n = len(chunk_ns)
     if ms.kind == ModeSpec.TRY_INT_MULT:
@@ -924,22 +959,230 @@ def mode_splits(nums: np.ndarray, nt: NumberType, config: ChunkConfig, chunk_ns,
     if ms.kind != ModeSpec.AUTO:
         return [None] * n
     if nt.kind == "float":
-        return _float_auctions(nums, nt, chunk_ns, starts)
-    return [None if b is None else _int_mult_split(b) for b in _screen_int_mult(nums, nt, chunk_ns, starts)]
+        return _float_auctions(_float_samples(nums, nt, chunk_ns, starts), nt)
+    return [None if b is None else _int_mult_split(b) for b in _screen_int_mult(lat, nt, chunk_ns, starts)]
 
 
-def _delta_sample_index(chunk_ns, starts):
-    """The auto-delta sample of every chunk (cmp.choose_delta_sample's
-    groups): positions in the numbers, and each chunk's (start, length) in
-    the concatenated sample."""
-    parts, spans, pos = [], [], 0
+# ---------------------------------------------------------------------------
+# mode decisions from samples gathered on the card: the host sampler's index
+# sets, so the host's decisions
+# ---------------------------------------------------------------------------
+
+GCD_K = 256  # distinct GCDs a chunk reads back (JAX `_GCD_K`); a chunk with more reads back its sample
+
+
+def _umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(a ^ _MIN64, b ^ _MIN64) ^ _MIN64
+
+
+def _umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(a ^ _MIN64, b ^ _MIN64) ^ _MIN64
+
+
+def _usort(x: torch.Tensor) -> torch.Tensor:
+    """Each row of u64 bit patterns sorted unsigned (zeros first)."""
+    return torch.sort(x ^ _MIN64, 1).values ^ _MIN64
+
+
+def _ctz63(x: torch.Tensor) -> torch.Tensor:
+    """Trailing zeros of u64 bit patterns, 63 for 0 (the JAX `ctz63`): the
+    exponent of the lowest set bit x & -x, which float64 holds exactly
+    (2^63 reads as -2^63, whose exponent is the same)."""
+    low = x & -x
+    return torch.where(low == 0, 63, torch.frexp(low.double())[1].to(i64) - 1)
+
+
+def gcd_u64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """GCD of u64 bit patterns held in int64, elementwise (the JAX
+    `_gcd_u64`: Stein's binary GCD, shifts and subtractions only; gcd(0, b)
+    is b)."""
+    trivial = (a == 0) | (b == 0)
+    ca, cb = _ctz63(a), _ctz63(b)
+    shift = torch.where(trivial, 0, torch.minimum(ca, cb))
+    x = torch.where(trivial, 1, _srl_t(a, ca))  # odd
+    y = torch.where(trivial, 0, _srl_t(b, cb))  # odd, or 0: done
+    while bool((y != 0).any()):
+        small = _umin(x, y)
+        diff = _umax(x, y) - small
+        ny = torch.where(diff == 0, 0, _srl_t(diff, _ctz63(diff)))
+        x, y = torch.where(y == 0, x, small), torch.where(y == 0, 0, ny)
+    return torch.where(trivial, a | b, x << shift)
+
+
+def _sample_rows(mode_s: torch.Tensor, starts, lens):
+    """Each chunk's sample as a row (n_chunks, longest), zeros past its
+    length, and the mask of its positions."""
+    dev = mode_s.device
+    st, ln = (torch.as_tensor(np.asarray(a, np.int64), device=dev) for a in (starts, lens))
+    pos = torch.arange(int(ln.max()) if len(ln) else 0, device=dev)[None, :]
+    valid = pos < ln[:, None]
+    idx = (st[:, None] + pos).clamp(0, max(len(mode_s) - 1, 0))
+    return torch.where(valid, mode_s[idx], 0), valid
+
+
+def phase_int_gcd(mode_s: torch.Tensor, starts, lens, k: int = GCD_K):
+    """The IntMult triple-GCD screening of each chunk's sample, reduced on
+    the card (the JAX `_phase_int_gcd`, int_mult.rs:114-136): consecutive
+    sample positions in threes, each triple sorted, the GCD of its two
+    differences; the distinct GCDs above 1 ascending (unsigned) with their
+    counts, the first k of them. mode_s the samples back to back (int64 u64
+    bits), starts and lens each chunk's. Returns (vals (n_chunks, k) int64
+    u64 bits, cnts (n_chunks, k) int64, n_unique (n_chunks,) int64); zeros
+    past each chunk's distinct GCDs."""
+    sm, valid = _sample_rows(mode_s, starts, lens)
+    n, m = sm.shape
+    nt3 = m // 3
+    t = sm[:, : nt3 * 3].reshape(n, nt3, 3)
+    tvalid = valid[:, : nt3 * 3].reshape(n, nt3, 3).all(2)
+    tx = t ^ _MIN64
+    lo, hi = tx.amin(2) ^ _MIN64, tx.amax(2) ^ _MIN64
+    mid = t.sum(2) - lo - hi
+    g = gcd_u64(mid - lo, hi - lo)
+    gs = _usort(torch.where(tvalid & (g != 0) & (g != 1), g, 0))
+    nonzero = gs != 0
+    is_start = nonzero & torch.cat([torch.ones_like(nonzero[:, :1]), gs[:, 1:] != gs[:, :-1]], 1)
+    u = torch.where(nonzero, (torch.cumsum(is_start.to(i64), 1) - 1).clamp(max=k), k)  # slot k: dropped
+    flat = (torch.arange(n, device=sm.device)[:, None] * (k + 1) + u).reshape(-1)
+    cnts = sm.new_zeros(n * (k + 1)).index_add_(0, flat, nonzero.reshape(-1).to(i64))
+    vals = sm.new_zeros(n * (k + 1)).index_add_(0, flat, torch.where(is_start, gs, 0).reshape(-1))
+    return vals.view(n, k + 1)[:, :k], cnts.view(n, k + 1)[:, :k], is_start.sum(1)
+
+
+def phase_int_est(mode_s: torch.Tensor, starts, lens, bases, cutoffs) -> torch.Tensor:
+    """Each chunk's keep count of the IntMult acceptance test (the JAX
+    `_phase_int_est`, sampling.rs:71-101): the sample positions whose
+    primary latent // base occurs at most cutoff times in the chunk's
+    sample. bases (>= 2) and cutoffs per chunk. Returns (n_chunks,) int64."""
+    sm, valid = _sample_rows(mode_s, starts, lens)
+    d = torch.as_tensor(np.asarray(bases, np.uint64).view(np.int64), device=sm.device)[:, None]
+    prim = torch.where(valid, udivmod(sm, d)[0], -1)  # pads: the u64 maximum, above every primary
+    ps = _usort(prim) ^ _MIN64
+    run = torch.searchsorted(ps, ps, right=True) - torch.searchsorted(ps, ps)
+    cut = torch.as_tensor(np.asarray(cutoffs, np.int64), device=sm.device)[:, None]
+    return ((run <= cut) & valid).sum(1)
+
+
+def int_bases_collect(mode_s: torch.Tensor, starts, lens, lt: LatentType) -> List[Optional[int]]:
+    """Each chunk's IntMult base from the screening on the card, equal to
+    int_mult.choose_base_from_sample of its sample (the JAX
+    `_int_bases_collect`): phase_int_gcd's distinct GCDs and counts read
+    back in one copy, the host's choose_candidate_from_gcd_counts, the
+    keep counts of the candidates' chunks (phase_int_est) and
+    accept_candidate. A chunk with over GCD_K distinct GCDs reads back its
+    sample and decides on it. None where a chunk has no base."""
+    starts, lens = np.asarray(starts, np.int64), np.asarray(lens, np.int64)
+    vals, cnts, nuniq = phase_int_gcd(mode_s, starts, lens)
+    host = torch.cat([vals, cnts, nuniq[:, None]], 1).cpu().numpy()
+    vals_h, cnts_h, nuniq_h = host[:, :GCD_K].view(np.uint64), host[:, GCD_K : 2 * GCD_K], host[:, 2 * GCD_K]
+    bases: List[Optional[int]] = [None] * len(lens)
+    cands = {}
+    for ci, (a, m) in enumerate(zip(starts.tolist(), lens.tolist())):
+        if m // 3 == 0:
+            continue
+        if nuniq_h[ci] > GCD_K:  # many distinct GCDs: the chunk's sample itself
+            sample = mode_s[a : a + m].cpu().numpy().view(np.uint64).astype(lt.np_dtype)
+            bases[ci] = int_mult.choose_base_from_sample(sample)
+            continue
+        nu = int(nuniq_h[ci])
+        cand = int_mult.choose_candidate_from_gcd_counts(vals_h[ci, :nu].tolist(), cnts_h[ci, :nu].tolist(), m // 3)
+        if cand is not None:
+            cands[ci] = cand
+    if cands:
+        sel = sorted(cands)
+        cutoffs = [max(1, int(int(lens[ci]) / sampling.CLASSIC_MEMORIZABLE_BINS)) for ci in sel]
+        kc = phase_int_est(mode_s, starts[sel], lens[sel], [cands[ci][0] for ci in sel], cutoffs).tolist()
+        for ci, keep in zip(sel, kc):
+            if int_mult.accept_candidate(cands[ci][1], keep, int(lens[ci])):
+                bases[ci] = cands[ci][0]
+    return bases
+
+
+def chunk_positions(rel: dict, chunk_ns, starts, device):
+    """Each chunk's index set rel[cn] (positions from the chunk's start, by
+    chunk size; None for none) as positions in the numbers, back to back,
+    on `device`: each chunk size's set uploaded once and offset on the
+    card. Returns (positions int64 tensor, each chunk's (start, length) in
+    them)."""
+    up, parts, spans, pos = {}, [], [], 0
     for cn, st in zip(chunk_ns, starts):
+        m = 0 if rel.get(cn) is None else len(rel[cn])
+        if m:
+            if cn not in up:
+                up[cn] = torch.from_numpy(np.ascontiguousarray(rel[cn], np.int64)).to(device)
+            parts.append(up[cn] + int(st))
+        spans.append((pos, m))
+        pos += m
+    return (torch.cat(parts) if parts else torch.zeros(0, dtype=i64, device=device)), spans
+
+
+def _screen_int_mult(lat: torch.Tensor, nt: NumberType, chunk_ns, starts) -> List[Optional[int]]:
+    """The IntMult screening of auto mode (JAX device_train.py:1960-2010):
+    each chunk's sample (the host's sampling.choose_sample_indices, in draw
+    order) gathered from the latents, screened by int_bases_collect. Each
+    chunk's base, None where it has none."""
+    idx, spans = chunk_positions({cn: sampling.choose_sample_indices(cn) for cn in set(chunk_ns)}, chunk_ns, starts,
+                                 lat.device)
+    if not len(idx):
+        return [None] * len(chunk_ns)
+    return int_bases_collect(lat[idx], [a for a, _ in spans], [m for _, m in spans], nt.latent)
+
+
+def phase_float_keep(bits: torch.Tensor, draw_idx: torch.Tensor, mid: int, exp_mask: int, max_bits: int):
+    """Each draw's keep flag of the float mode sample (the JAX
+    `_phase_float_keep`): a normal float whose |x| is at most the sampling
+    cap, read from its bits alone (positive floats order as their bits).
+    bits the numbers' bits as signed integers of their width (bits_of),
+    draw_idx the positions drawn; mid the sign bit, exp_mask the exponent's
+    bits, max_bits the cap's bits. Returns a bool tensor of draw_idx's
+    shape."""
+    width = bits.element_size() * 8
+    b = bits[draw_idx].to(i64) & ((1 << width) - 1 if width < 64 else -1)
+    ab, ex = b & (mid - 1), b & exp_mask
+    return (ex != 0) & (ex != exp_mask) & (ab <= max_bits)
+
+
+def _float_samples(nums: torch.Tensor, nt: NumberType, chunk_ns, starts) -> List[Optional[np.ndarray]]:
+    """Each chunk's float mode sample (JAX device_train.py:1760-1795): |x|
+    of the normal floats under the sampling cap at the sampler's draws.
+    Every chunk's draws' keep flags (phase_float_keep) are read back in one
+    copy, the host's select_sample_indices runs on them, then the accepted
+    positions' |x| are gathered on the card and read back in one copy.
+    None where a chunk has no sample."""
+    lt = nt.latent
+    b = bits_of(nums)
+    draws = {cn: sampling.sample_draws(cn) for cn in set(chunk_ns)}
+    idx, spans = chunk_positions({cn: None if d is None else d[0] for cn, d in draws.items()}, chunk_ns, starts,
+                                 b.device)
+    out: List[Optional[np.ndarray]] = [None] * len(chunk_ns)
+    if not len(idx):
+        return out
+    exp_mask = ((1 << (lt.bits - nt.precision_bits - 1)) - 1) << nt.precision_bits
+    max_bits = int(np.asarray(cmp._max_for_sampling(nt), nt.np_dtype).view(lt.np_dtype))
+    keep = phase_float_keep(b, idx, lt.mid, exp_mask, max_bits).cpu().numpy()
+    acc, cuts = [], []
+    for ci, ((a, m), cn, st) in enumerate(zip(spans, chunk_ns, starts)):
+        sel = sampling.select_sample_indices(*draws[cn], keep[a : a + m]) if m else None
+        if sel is not None:
+            acc.append(sel + st)
+            cuts.append((ci, len(sel)))
+    if acc:  # |x|: the sign bit cleared, read back at the numbers' width
+        ab = (b[torch.from_numpy(np.concatenate(acc)).to(b.device)] & (lt.mid - 1)).cpu().numpy().view(nt.np_dtype)
+        a = 0
+        for ci, m in cuts:
+            out[ci] = ab[a : a + m]
+            a += m
+    return out
+
+
+def _delta_sample_index(chunk_ns, starts, device):
+    """The auto-delta sample of every chunk (cmp.choose_delta_sample's
+    groups): positions in the numbers on `device` (chunk_positions), and
+    each chunk's (start, length) in the concatenated sample."""
+    rel = {}
+    for cn in set(chunk_ns):
         sl = cmp.delta_sample_slices(cn, cmp.DELTA_GROUP_SIZE, 1 + cn // cmp.N_PER_EXTRA_DELTA_GROUP)
-        idx = np.concatenate([np.arange(a, b, dtype=np.int64) for a, b in sl]) + st
-        parts.append(idx)
-        spans.append((pos, len(idx)))
-        pos += len(idx)
-    return np.concatenate(parts), spans
+        rel[cn] = np.concatenate([np.arange(a, b, dtype=np.int64) for a, b in sl])
+    return chunk_positions(rel, chunk_ns, starts, device)
 
 
 def _auto_deltas(delta_s: torch.Tensor, spans, chunk_ns, ubls, lt: LatentType) -> List[DeltaEncoding]:
@@ -1064,17 +1307,25 @@ def _var_compressor(bins, n: int, ubl: int, lt: LatentType, cap):
             trained.counts)
 
 
-def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, page_n: int = 1024,
-                       chunk_n: int = 1 << 20, device="cuda") -> EncodePlan:
+def plan_encode_device(nums, config: Optional[ChunkConfig] = None, page_n: int = 1024,
+                       chunk_n: int = 1 << 20, device="cuda", nums_host: Optional[np.ndarray] = None) -> EncodePlan:
     """Train every chunk on `device` (the GPU unless the caller asks for the
     CPU) and build its encoder tables: the JAX `plan_encode_device` for the
     configurations device_train_supported covers. Returns the plan of
     container_encode.plan_encode, with trained_on "device" and the delta'd
     page rows, the secondary rows of split chunks, the lookback rows of
     lookback chunks and the page states left on the card (plan.dev), which
-    the launch slices its latents from."""
+    the launch slices its latents from.
+
+    nums is a numpy array (uploaded once) or a tensor (number_type_of's
+    dtypes), read where it lies. The mode decisions come from samples
+    gathered on the card either way (mode_splits). A chunk that falls back
+    to the baseline compressor is coded from the host's numbers: a numpy
+    nums, a tensor's nums_host (the caller's host copy of the same
+    numbers), or else the chunk alone copied to the host (plan.host_copied
+    counts such numbers)."""
     config = config or ChunkConfig()
-    nt = number_type_from_np(nums.dtype)
+    nt = number_type_of(nums)
     config.validate(nt.latent)
     if not device_train_supported(nt, config, page_n, chunk_n):
         raise ValueError("plan_encode_device does not cover this number type and configuration; "
@@ -1082,6 +1333,9 @@ def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, p
     if len(nums) == 0:
         raise ValueError("plan_encode_device needs at least one number")
     device = _resolve_device(device)
+    host = nums if isinstance(nums, np.ndarray) else check_host_mirror(nums, nt, nums_host)  # fallbacks' source
+    nums = to_card(nums, device)
+    host_copied = 0
     lt = nt.latent
     chunk_ns = ctn._n_per_chunk(len(nums), chunk_n)
     n_chunks = len(chunk_ns)
@@ -1095,19 +1349,19 @@ def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, p
     is_dict = config.mode_spec.kind == ModeSpec.TRY_DICT
     plt = U32 if is_dict else lt  # the primary's latent type
     fp = (lt.bits, lt.bits - nt.mantissa_digits, nt.mantissa_digits) if nt.kind == "float" else None
-    splits = mode_splits(nums, nt, config, chunk_ns, starts)
+    lat = latents_on_card(nums, nt, device)
+    splits = mode_splits(nums, nt, config, chunk_ns, starts, lat)
     split_any = any(sp is not None for sp in splits)
 
     ds = config.delta_spec
     auto = ds.kind == DeltaSpec.AUTO
-    lat = latents_on_card(nums, nt, device)
     dicts = None
     if is_dict:
         lat, dicts = phase_dict(lat, chunk_ns)
     delta_s = None
     if auto:
-        delta_idx, spans = _delta_sample_index(chunk_ns, starts)
-        delta_s = lat[torch.from_numpy(delta_idx).to(device)]
+        delta_idx, spans = _delta_sample_index(chunk_ns, starts, device)
+        delta_s = lat[delta_idx]
     lat2d = page_layout(lat, n_chunks * rpc, page_n)
     del lat
     prim2d = lat2d
@@ -1195,11 +1449,17 @@ def plan_encode_device(nums: np.ndarray, config: Optional[ChunkConfig] = None, p
         cc = cmp.ChunkCompressor(meta, lvcs, infos)
         if cc.should_fallback(lt, cn, all_counts):
             # the baseline compressor codes the raw latents: the rows before delta
-            cc = cmp.fallback_chunk_compressor(nt, nums[st : st + cn], pages[ci])
+            if host is None:
+                chunk = to_host(nums[st : st + cn], nt)
+                host_copied += cn
+            else:
+                chunk = host[st : st + cn]
+            cc = cmp.fallback_chunk_compressor(nt, chunk, pages[ci])
             rows[row0 : row0 + rpc] = (phase_latents(nums[st : st + cn], nt, rpc, page_n, None, device)[0]
                                        if is_dict else lat2d[row0 : row0 + rpc])
             moments[row0 : row0 + rpc] = 0
         jobs.append(chunk_job(cc, page_n))
     return EncodePlan(nt=nt, n=len(nums), page_n=page_n, chunk_ns=chunk_ns, jobs=jobs, trained_on="device",
+                      host_copied=host_copied,
                       dev=DeviceRows(rows=rows, moments=moments, rows_per_chunk=rpc, sec_rows=sec_rows,
                                      sec_row0=sec_row0, lb_rows=lb_rows, lb_row0=lb_row0))
