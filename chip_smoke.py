@@ -232,8 +232,20 @@ Phases, one line each (numbers beside the card's name and power limit):
                   single-device ms and the peak memory;
                   dryrun_multichip(4, devices=[cuda] * 4); where there are
                   two or more cards, the same over the cards (else "1 card:
-                  shards share it"); then the run's wall time
-  12. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
+                  shards share it")
+  12. bench/capi  `python -m pcodec_tpu_torch bench` in subprocesses on the
+                  card: the main path's 64M numbers saved as .npy with its
+                  delta (pct, the median of 3 calls; pco_tpu, one call after
+                  pct's, its host compress ~17 s a call), pct's size equal
+                  to the main path's container; the synthetic 2^20 numbers
+                  with pco_tpu, pct, zlib, lzma, bz2 and qco on the card and
+                  with --host, every size equal; each row's ratio and GB/s.
+                  The C ABI: Python.h found, the shim (native/cpcodec.cpp)
+                  and test_cpcodec.c built and run (ALL C ABI TESTS PASSED),
+                  a C ABI decode in this process equal to its numbers with
+                  the counts set to 0 just before it and K1 and K2 launched;
+                  `make syntax-check` of java/; then the run's wall time
+  13. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
      shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
@@ -251,8 +263,8 @@ Phases, one line each (numbers beside the card's name and power limit):
      sharded and single-device ms).
 
 Launch counts are set to 0 just before each main-path run, each of phase
-7's and 8's full-size runs, phase 11's sharded runs and phase 6's runs at
-the experiments' shapes,
+7's and 8's full-size runs, phase 11's sharded runs, phase 12's C ABI
+decode and phase 6's runs at the experiments' shapes,
 and read just after. Any
 failure exits non-zero before the `ok` line. Without a CUDA device, or
 without the package beside this script, it fails at once.
@@ -1210,6 +1222,133 @@ def cli_round_trip(nums, data) -> str:
             raise AssertionError("cli decompress: the numbers differ from the source")
     return (f"cli compress --format pct == the main path's container, decompress == source ({len(nums)} numbers; "
             f"subprocesses {secs[0]:.1f} s, {secs[1]:.1f} s)")
+
+# phase 12: the CLI bench's codecs at 2^20 (the JAX CLI's codec names)
+BENCH_CODECS = "pco_tpu,pct,zlib,lzma,bz2,qco"
+
+
+def bench_rows(root, argv, csv_path):
+    """`python -m pcodec_tpu_torch bench` in a subprocess on the card:
+    (its CSV rows, the subprocess's seconds)."""
+    import csv
+    import subprocess
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "pcodec_tpu_torch", "bench", *argv, "--csv", csv_path], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.time() - t0
+    if proc.returncode:
+        raise AssertionError(f"bench {argv} exited {proc.returncode}: {proc.stdout}{proc.stderr}")
+    with open(csv_path, newline="") as f:
+        return list(csv.DictReader(f)), secs
+
+
+def bench_row_line(r) -> str:
+    """A bench row's ratio and GB/s of input, as the CLI prints them, with
+    the row's own numbers."""
+    n, size = int(r["uncompressed_size"]), int(r["compressed_size"])
+    c, d = float(r["compress_dt"]), float(r["decompress_dt"])
+    return (f"{r['codec']} ratio {n / size:.4f}, compress {n / c / 1e9:.4f} GB/s, decompress {n / d / 1e9:.4f} GB/s "
+            f"({size} B, {c:.4f} s, {d:.4f} s)")
+
+
+def bench_phase(nums, data, card) -> None:
+    """The port's CLI bench in subprocesses on the card: the main path's
+    64M numbers with the main path's delta (pct: the median of 3 calls;
+    pco_tpu: one call, its host simple_compress taking ~17 s a call at 64M,
+    after pct's one call has warmed the process), then the synthetic 2^20
+    numbers with every codec on the card and on the host (--host). Every pct
+    size at 64M must be the main path's container (container_compress at
+    the same configuration), every 2^20 size the --host row's."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "main.npy")
+        np.save(src, nums)
+        flags = ["--input", src, "--delta", "consecutive:1"]
+        rows_a, s_a = bench_rows(root, [*flags, "--codecs", "pct", "--iters", "3"], os.path.join(tmp, "a.csv"))
+        rows_b, s_b = bench_rows(root, [*flags, "--codecs", "pct,pco_tpu", "--iters", "1"],
+                                 os.path.join(tmp, "b.csv"))
+        for r in rows_a + rows_b:
+            if r["codec"] == "pct" and int(r["compressed_size"]) != len(data):
+                raise AssertionError(f"bench pct at 64M: {r['compressed_size']} B, the main path's container "
+                                     f"{len(data)} B")
+        print(f"bench: main path {len(nums)} i64 (--delta consecutive:1), --iters 3: {bench_row_line(rows_a[0])}; "
+              f"--iters 1 after pct's call: {bench_row_line(rows_b[1])}; pct == the main path's container size "
+              f"(subprocesses {s_a:.1f} s, {s_b:.1f} s) [{card}]", flush=True)
+        rows_c, s_c = bench_rows(root, ["--codecs", BENCH_CODECS], os.path.join(tmp, "c.csv"))
+        rows_d, s_d = bench_rows(root, ["--codecs", BENCH_CODECS, "--host"], os.path.join(tmp, "d.csv"))
+    sizes = [[(r["input"], r["codec"], r["compressed_size"]) for r in rows] for rows in (rows_c, rows_d)]
+    if sizes[0] != sizes[1]:
+        raise AssertionError(f"bench at 2^20: the card's sizes {sizes[0]} differ from --host's {sizes[1]}")
+    for where, rows, secs in (("the card", rows_c, s_c), ("the host (--host)", rows_d, s_d)):
+        print(f"bench: {rows[0]['input']} on {where}, --iters 3: "
+              f"{'; '.join(bench_row_line(r) for r in rows)} (subprocess {secs:.1f} s) [{card}]", flush=True)
+    print(f"bench: every 2^20 size on the card == --host's [{card}]", flush=True)
+
+
+def capi_phase(torch, kernels, card) -> None:
+    """The port's C ABI: Python.h found, the shim (native/cpcodec.cpp) and
+    its C test program built with g++/gcc and run on the card (it must
+    print ALL C ABI TESTS PASSED), the shim loaded into this process and a
+    C ABI decode of the bench's synthetic 2^20 numbers (compressed through
+    the C ABI) equal to them, the counts set to 0 just before it and K1
+    and K2 launched; then `make syntax-check` of the Java binding's JNI
+    source."""
+    import ctypes
+    import os
+    import subprocess
+    import tempfile
+
+    from pcodec_tpu_torch.native import capi_build
+
+    t0 = time.time()
+    inc = capi_build.python_headers()
+    with tempfile.TemporaryDirectory() as tmp:
+        capi_build.build_shim(tmp, embed=True)
+        exe = capi_build.build_test_program(tmp, tmp)
+        lib = capi_build.load_shim(capi_build.build_shim(tmp, embed=False))
+        t_build = time.time() - t0
+        t0 = time.time()
+        proc = capi_build.run_test_program(exe)
+        t_run = time.time() - t0
+        if proc.returncode or "ALL C ABI TESTS PASSED" not in proc.stdout:
+            raise AssertionError(f"test_cpcodec exited {proc.returncode}: {proc.stdout}{proc.stderr}")
+        rng = np.random.default_rng(0)
+        n = 1 << 20
+        x = np.cumsum(rng.integers(0, 120, n) + (rng.random(n) < 0.001) * rng.integers(0, 10**6, n)).astype(np.int64)
+        cap = lib.pco_standalone_guarantee_file_size(4, n)
+        blob = np.zeros(cap, np.uint8)
+        written = ctypes.c_size_t(0)
+        rc = lib.pco_standalone_simple_compress_into(x.ctypes.data, n, 4, 8, blob.ctypes.data, cap,
+                                                     ctypes.byref(written))
+        if rc:
+            raise AssertionError(f"C ABI compress returned {rc}")
+        out = np.zeros(n, np.int64)
+        n_out = ctypes.c_size_t(0)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t1 = time.time()
+        rc = lib.pco_standalone_simple_decompress_into(blob.ctypes.data, written.value, 4, out.ctypes.data, n,
+                                                       ctypes.byref(n_out))
+        t_dec = time.time() - t1
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if rc or n_out.value != n or not np.array_equal(out, x):
+        raise AssertionError(f"C ABI decode on the card: rc {rc}, {n_out.value} numbers, equal "
+                             f"{np.array_equal(out, x)}")
+    if not (launches.get("section_gather") and launches.get("chain_decode")):
+        raise AssertionError(f"the C ABI decode launched {launches}, not K1 and K2")
+    java = subprocess.run(["make", "syntax-check"], cwd=os.path.join(os.path.dirname(capi_build.NATIVE), "java"),
+                          capture_output=True, text=True, timeout=120)
+    if java.returncode:
+        raise AssertionError(f"make syntax-check of java/ exited {java.returncode}: {java.stdout}{java.stderr}")
+    print(f"capi: Python.h in {inc}; shim, its in-process build and test_cpcodec built in {t_build:.1f} s; "
+          f"test_cpcodec on the card: ALL C ABI TESTS PASSED ({t_run:.1f} s, its process's start and kernel load "
+          f"included); C ABI decode in this process of {n} i64 ({written.value} B) == source, {t_dec:.3f} s, "
+          f"launches {launches}; java: make syntax-check passed [{card}]", flush=True)
 
 
 def experiment_checks(torch, dev) -> None:
@@ -2392,6 +2531,12 @@ def main() -> int:
     dec11, enc11, sharded11 = sharded_phase(torch, pt, kernels, asm, cd, ce, sh, plan, iplan, data, single, dev, card)
     del single
     print(f"sharded: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
+
+    # 12. the CLI's bench on the card, the C ABI and the Java binding's JNI source
+    t_ph = time.time()
+    bench_phase(nums, data, card)
+    capi_phase(torch, kernels, card)
+    print(f"bench/capi: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
 
     rows = [
         {"name": "section_gather", "route": "cuda", "source": "pcodec_tpu_torch/csrc/section_gather.cu",

@@ -1,8 +1,9 @@
-"""pcodec_tpu_torch command line: compress / decompress / inspect.
+"""pcodec_tpu_torch command line: compress / decompress / inspect / bench.
 
     python -m pcodec_tpu_torch compress in.npy out.pct --format pct
     python -m pcodec_tpu_torch decompress out.pct back.npy
     python -m pcodec_tpu_torch inspect out.pct [--json]
+    python -m pcodec_tpu_torch bench [--input x.npy] --codecs pct,pco_tpu,zlib
 
 The counterpart of the JAX package's `pcodec_tpu/cli.py` (its flags and
 input readers), with the card as the default: `--device cuda` (the
@@ -17,9 +18,20 @@ at the same flags; standalone `.pco` files compress on the host
 (simple_compress: there is no device encoder of them). Both formats
 decompress on the device (decode_container_device,
 decode_standalone_with_device).
+
+`bench` prints the JAX CLI's CSV (same schema, codec names, synthetic
+input and round-trip assertion): pct and pco_tpu decompress on the device
+and pct compresses there (at container_compress's page_n and chunk_n, so
+its size is the host's); pco_tpu compresses on the host, zlib, lzma, bz2
+and qco (the copied `legacy` codec) are host codecs. A time is the median
+wall seconds of --iters calls, each from a numpy array to a numpy array:
+on the card it includes the host's planning, the upload and the result's
+download, not the kernels alone (`chip_smoke.py` times those).
 """
 
 import argparse
+import csv
+import sys
 import time
 
 import numpy as np
@@ -213,6 +225,126 @@ def cmd_inspect(args):
         print(format_report(report, verbose=args.verbose))
 
 
+def _bench_codecs(config, device):
+    """Codec surfaces like the reference bench's CodecInternal
+    (ref: pco_cli/src/bench/codecs/mod.rs:47-93), under the JAX CLI's names;
+    pct and pco_tpu decompress on `device` (pct also compresses there), or
+    on the host where `device` is None (--host)."""
+    import bz2
+    import lzma
+    import zlib
+
+    from pcodec_tpu_torch.codec.container import (DEFAULT_CHUNK_N, DEFAULT_PAGE_N, container_compress,
+                                                  container_decompress)
+    from pcodec_tpu_torch.legacy import auto_compress, auto_decompress
+
+    # standalone files compress on the host: neither package has a device encoder of them
+    if device is None:
+        pct = (lambda nums: container_compress(nums, config), lambda data, dtype: container_decompress(data))
+        pco_tpu = (lambda nums: simple_compress(nums, config), lambda data, dtype: simple_decompress(data)[0])
+    else:
+        from pcodec_tpu_torch.ops.assemble import encode_container_device
+        from pcodec_tpu_torch.ops.container_decode import decode_container_device
+        from pcodec_tpu_torch.ops.standalone_decode import decode_standalone_device
+
+        pct = (lambda nums: encode_container_device(nums, config, page_n=DEFAULT_PAGE_N, chunk_n=DEFAULT_CHUNK_N,
+                                                    device=device),
+               lambda data, dtype: decode_container_device(data, device))
+        pco_tpu = (lambda nums: simple_compress(nums, config),
+                   lambda data, dtype: decode_standalone_device(data, device))
+    return {
+        "pco_tpu": pco_tpu,
+        "zlib": (
+            lambda nums: zlib.compress(nums.tobytes(), 6),
+            lambda data, dtype: np.frombuffer(zlib.decompress(data), dtype=dtype),
+        ),
+        "lzma": (
+            lambda nums: lzma.compress(nums.tobytes(), preset=1),
+            lambda data, dtype: np.frombuffer(lzma.decompress(data), dtype=dtype),
+        ),
+        "bz2": (
+            lambda nums: bz2.compress(nums.tobytes(), 9),
+            lambda data, dtype: np.frombuffer(bz2.decompress(data), dtype=dtype),
+        ),
+        # wrapped multi-page container, the analog of the reference's
+        # `pcopage` bench codec (ref: pco_cli/src/bench/codecs/pcopage.rs)
+        "pct": pct,
+        # the reference's frozen predecessor, behind `full_bench` there
+        # (ref: pco_cli/src/bench/codecs/qcompress.rs)
+        "qco": (
+            lambda nums: auto_compress(nums, level=config.compression_level),
+            lambda data, dtype: auto_decompress(data)[0],
+        ),
+    }
+
+
+def cmd_bench(args):
+    device = _device(args)
+    if args.input:
+        nums = load_input(args.input, args.dtype, getattr(args, "col", None))
+        name = args.input
+    else:
+        rng = np.random.default_rng(0)
+        n = args.n
+        incs = rng.integers(0, 120, n) + (rng.random(n) < 0.001) * rng.integers(0, 10**6, n)
+        nums = np.cumsum(incs).astype(np.int64)
+        name = f"synthetic_i64_{n}"
+    config = build_config(args)
+    surfaces = _bench_codecs(config, device)
+    codecs = [c.strip() for c in args.codecs.split(",") if c.strip()]
+    unknown = [c for c in codecs if c not in surfaces]
+    if unknown:
+        raise SystemExit(f"unknown codecs {unknown}; available: {sorted(surfaces)}")
+    print(
+        "note: reference bench codecs zstd/snappy/parquet are unavailable in "
+        "this environment; comparing against zlib/lzma/bz2/qco instead",
+        file=sys.stderr,
+    )
+
+    rows = []
+    for codec in codecs:
+        comp, decomp = surfaces[codec]
+        compress_dts, decompress_dts = [], []
+        data = None
+        for _ in range(args.iters):
+            t0 = time.perf_counter()
+            data = comp(nums)
+            compress_dts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            out = decomp(data, nums.dtype)
+            decompress_dts.append(time.perf_counter() - t0)
+            if not args.no_assertions:
+                if nums.dtype.kind == "f":
+                    w = {2: np.uint16, 4: np.uint32, 8: np.uint64}[nums.dtype.itemsize]
+                    same = np.array_equal(out.view(w), nums.view(w))
+                else:
+                    same = np.array_equal(out, nums)
+                if not same:
+                    raise AssertionError(f"{codec}: the decoded numbers differ from the input")
+        compress_dt = float(np.median(compress_dts))
+        decompress_dt = float(np.median(decompress_dts))
+        rows.append(
+            {
+                "input": name,
+                "codec": codec,
+                "compress_dt": compress_dt,
+                "decompress_dt": decompress_dt,
+                "compressed_size": len(data),
+                "uncompressed_size": nums.nbytes,
+            }
+        )
+        print(
+            f"{name} [{codec}]: ratio {nums.nbytes / len(data):.3f}, compress "
+            f"{nums.nbytes / compress_dt / 1e9:.3f} GB/s, decompress "
+            f"{nums.nbytes / decompress_dt / 1e9:.3f} GB/s"
+        )
+    if args.csv:
+        with open(args.csv, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+            w.writeheader()
+            w.writerows(rows)
+
+
 def _devices(sp):
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default): the CUDA kernels; cpu: their plain PyTorch versions")
@@ -223,14 +355,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m pcodec_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp):
+        sp.add_argument("--level", type=int, default=8)
+        sp.add_argument("--mode", default=None, help="auto|classic|dict|int-mult:B|float-mult:B|float-quant:K")
+        sp.add_argument("--delta", default=None, help="auto|none|consecutive:K|lookback|conv1:K")
+        sp.add_argument("--chunk-n", type=int, default=1 << 18)
+        sp.add_argument("--ans-cap", type=int, default=None, help="cap the trained ans_size_log")
+        sp.add_argument("--dtype", default=None, help="i32/i64/u32/u64/f32/f64/...")
+        sp.add_argument("--col", default=None, help="column name (csv/parquet inputs)")
+
     sp = sub.add_parser("compress", help="compress a column of numbers to .pco/.pct")
-    sp.add_argument("--level", type=int, default=8)
-    sp.add_argument("--mode", default=None, help="auto|classic|dict|int-mult:B|float-mult:B|float-quant:K")
-    sp.add_argument("--delta", default=None, help="auto|none|consecutive:K|lookback|conv1:K")
-    sp.add_argument("--chunk-n", type=int, default=1 << 18)
-    sp.add_argument("--ans-cap", type=int, default=None, help="cap the trained ans_size_log")
-    sp.add_argument("--dtype", default=None, help="i32/i64/u32/u64/f32/f64/...")
-    sp.add_argument("--col", default=None, help="column name (csv/parquet inputs)")
+    common(sp)
     sp.add_argument("input")
     sp.add_argument("output")
     sp.add_argument("--format", choices=("pco", "pct"), default="pco",
@@ -251,6 +386,21 @@ def main(argv=None):
     sp.add_argument("-v", "--verbose", action="store_true")
     sp.add_argument("--json", action="store_true", help="machine-readable report")
     sp.set_defaults(fn=cmd_inspect)
+
+    sp = sub.add_parser(
+        "bench", help="codec benchmark (median of iters)",
+        description="Median wall seconds of --iters compress and decompress calls per codec, each from a numpy "
+                    "array to a numpy array: on the card (pct, pco_tpu) a time includes the host's planning, the "
+                    "upload and the download, not the kernels alone.")
+    common(sp)
+    sp.add_argument("--input", default=None)
+    sp.add_argument("--n", type=int, default=1 << 20)
+    sp.add_argument("--iters", type=int, default=3)
+    sp.add_argument("--csv", default=None)
+    sp.add_argument("--no-assertions", action="store_true")
+    sp.add_argument("--codecs", default="pco_tpu", help="comma list: pco_tpu,pct,zlib,lzma,bz2,qco")
+    _devices(sp)
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

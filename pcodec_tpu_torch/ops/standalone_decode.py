@@ -18,13 +18,16 @@ from its one stored state and K4 joins the Dict chunks. No chunk is
 decoded on the host instead of the card, and no extent is refused.
 
     plan_standalone   host, numpy: the walk, the chains, their tables
+    plan_standalone_runs
+                      the same, a plan a run of chunks of one number type
+                      (the C ABI's decode, `capi.py`)
     decode_standalone_device, decode_standalone_with_device
                       the entry points; the GPU unless the caller asks for
                       the CPU
 """
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -101,16 +104,15 @@ def _chain_moments(de_v: DeltaEncoding, key: str, lat: np.ndarray, pd, n: int, n
     return np.zeros((n_chains, 0), dtype=np.uint64)
 
 
-def plan_standalone(data: bytes) -> ContainerPlan:
-    """Chain-major decode plan of a standalone `.pco` file (the JAX
-    `plan_standalone` without its host fallbacks and fetch limit): every
-    chunk walked once on the host, cut into chains of CHAIN_N numbers."""
+def _walk(data: bytes, max_n: Optional[int], entries: list):
+    """The host's walk of a standalone file: appends a (number type,
+    ChunkPlan, [(launch key, chain table)]) entry a chunk to `entries` and
+    returns the header's uniform type. With `max_n` the walk stops after
+    the chunk that brings the count to max_n, where the host's
+    simple_decompress_into stops once its destination is full."""
     reader = BitReader(np.frombuffer(data, dtype=np.uint8))
     fd = FileDecompressor.new(reader)
-    nt = fd.uniform_type
-    groups: Dict[tuple, list] = {}
-    chunks: List[ChunkPlan] = []
-    ci = 0
+    ci = n_seen = 0
     while True:
         pre = fd.chunk_preamble(reader)
         if pre is None:
@@ -137,6 +139,7 @@ def plan_standalone(data: bytes) -> ContainerPlan:
         boundaries = np.arange(n_chains, dtype=np.int64) * CHAIN_N
         first_batch = boundaries // BATCH
         var_plans: Dict[str, VarPlan] = {}
+        items = []
         for v, spec in enumerate(specs):
             key = spec["key"]
             vm = meta.per_latent_var.get(key)
@@ -169,7 +172,7 @@ def plan_standalone(data: bytes) -> ContainerPlan:
             moment0 = np.zeros(n_chains, dtype=np.uint64)
             if fuse:  # the fused chain starts from the numbers' stream at its boundary
                 moment0 = vp.moments[:, 0].astype(np.uint64)
-            groups.setdefault(vp.launch_key, []).append({
+            items.append((vp.launch_key, {
                 "var": vp,
                 "node": node,
                 "lower": lowers,
@@ -179,21 +182,68 @@ def plan_standalone(data: bytes) -> ContainerPlan:
                 "states0": bst[np.minimum(first_batch, n_batches - 1), v].astype(np.int64),
                 "body_n": np.clip(count_v - boundaries, 0, CHAIN_N),
                 "moment0": moment0,
-            })
+            }))
         mode = meta.mode
         table = None
         if mode.kind == Mode.DICT:
             table = dec.dict_table(nt, mode.payload)
-        chunks.append(ChunkPlan(
+        entries.append((nt, ChunkPlan(
             n_pages=n_chains, page_ns=page_ns, page_n=CHAIN_N, delta=meta.delta_encoding, mode_kind=mode.kind,
             mode_scalar=int(mode.payload) if mode.kind in (Mode.INT_MULT, Mode.FLOAT_MULT, Mode.FLOAT_QUANT) else 0,
             var_plans=var_plans, dict_table=table,
             flat_lookback=meta.delta_encoding.kind == DeltaEncoding.LOOKBACK,
-        ))
+        ), items))
         ci += 1
-    if nt is None:  # a file of no chunk and no uniform type
+        n_seen += n
+        if max_n is not None and n_seen >= max_n:
+            break
+    return fd.uniform_type
+
+
+def _plan(data: bytes, nt, entries) -> ContainerPlan:
+    groups: Dict[tuple, list] = {}
+    for _, _, items in entries:
+        for lkey, item in items:
+            groups.setdefault(lkey, []).append(item)
+    return _finish_plan(data, nt, [chunk for _, chunk, _ in entries], groups)
+
+
+def plan_standalone(data: bytes) -> ContainerPlan:
+    """Chain-major decode plan of a standalone `.pco` file (the JAX
+    `plan_standalone` without its host fallbacks and fetch limit): every
+    chunk walked once on the host, cut into chains of CHAIN_N numbers, and
+    decoded as the last chunk's number type (as JAX's)."""
+    entries = []
+    nt = _walk(data, None, entries)
+    if entries:
+        nt = entries[-1][0]
+    elif nt is None:  # a file of no chunk and no uniform type
         nt = number_type_from_np(np.dtype(np.float64))
-    return _finish_plan(data, nt, chunks, groups)
+    return _plan(data, nt, entries)
+
+
+def plan_standalone_runs(data: bytes, max_n: Optional[int] = None):
+    """A plan for each run of consecutive chunks of one number type, each
+    decoded as its own type: what the host's simple_decompress_into reads
+    chunk by chunk (the C ABI's decode). A file that simple_compress wrote
+    is one run; a file of no chunk, no run. `max_n`: see `_walk`.
+
+    Returns (plans, error): a chunk the walk cannot read ends it, `error`
+    is what it raised (else None), and the plans hold the chunks before it,
+    the numbers the host's decode has written when it raises."""
+    entries = []
+    try:
+        _walk(data, max_n, entries)
+        error = None
+    except Exception as e:  # handed to the caller with the chunks walked before it
+        error = e
+    runs: List[list] = []
+    for e in entries:
+        if runs and runs[-1][-1][0] is e[0]:
+            runs[-1].append(e)
+        else:
+            runs.append([e])
+    return [_plan(data, run[0][0], run) for run in runs], error
 
 
 def decode_standalone_device(data: bytes, device="cuda") -> np.ndarray:

@@ -84,3 +84,44 @@ def test_entry_checksum_equals_numpy():
     got = fn(*args)
     assert got.shape == (1,) and got.dtype == torch.int64
     assert int(got.item()) & (2**64 - 1) == int(entry_numbers().view(np.uint64).sum())
+
+
+BENCH_FLAGS = ["bench", "--n", "4096", "--iters", "1", "--codecs", "pco_tpu,pct,zlib,qco"]
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+@pytest.fixture(scope="module")
+def jax_bench_rows(tmp_path_factory):
+    path = tmp_path_factory.mktemp("bench") / "jax.csv"
+    ref_main([*BENCH_FLAGS, "--csv", str(path)])
+    return _csv_rows(path)
+
+
+@pytest.mark.parametrize("where", [["--device", "cpu"], ["--host"]])
+def test_bench_csv_equals_the_jax_cli(jax_bench_rows, tmp_path, where):
+    """Exact: `bench` writes the JAX CLI's CSV header, and per codec the
+    same input name, compressed_size and uncompressed_size (the round trip
+    asserted inside, bitwise), on the plain versions and on the host."""
+    main([*BENCH_FLAGS, "--csv", str(tmp_path / "port.csv"), *where])
+    rows = _csv_rows(tmp_path / "port.csv")
+    assert rows[0] == jax_bench_rows[0] == ["input", "codec", "compress_dt", "decompress_dt", "compressed_size",
+                                            "uncompressed_size"]
+    assert [(r[0], r[1], r[4], r[5]) for r in rows[1:]] == [(r[0], r[1], r[4], r[5]) for r in jax_bench_rows[1:]]
+    assert [r[1] for r in rows[1:]] == ["pco_tpu", "pct", "zlib", "qco"]
+
+
+@pytest.mark.parametrize("argv", [["--codecs", "pco_tpu,zstd", "--host"], []])
+def test_bench_exits_non_zero_on_an_unknown_codec_or_without_a_card(argv):
+    """An unknown codec exits non-zero, as in the JAX CLI; without CUDA
+    and without --device cpu or --host, so does the default device."""
+    if not argv and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device runs")
+    with pytest.raises(SystemExit, match="unknown codecs" if argv else "no CUDA device") as e:
+        main(["bench", "--n", "4096", "--iters", "1", *argv])
+    assert e.value.code != 0

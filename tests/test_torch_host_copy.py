@@ -8,6 +8,7 @@ neither JAX nor anything of pcodec_tpu.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -101,7 +102,8 @@ def _port_files():
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = _port_files()
     assert any(f.endswith("chip_smoke.py") for f in files) and len(files) > 20
-    for name in ("cli.py", "inspect_mod.py", "entry.py", "__main__.py"):
+    for name in ("cli.py", "inspect_mod.py", "entry.py", "__main__.py", "capi.py", "legacy/qco.py",
+                 "legacy/__init__.py", "native/capi_build.py"):
         assert os.path.join(REPO, "pcodec_tpu_torch", name) in files
     bad = []
     for path in files:
@@ -126,6 +128,7 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
         "from pcodec_tpu_torch.codec import compress, decompress, standalone\n"
         "import pcodec_tpu_torch.standalone, pcodec_tpu_torch.ops.standalone_decode\n"
         "import pcodec_tpu_torch.cli, pcodec_tpu_torch.inspect_mod, pcodec_tpu_torch.entry\n"
+        "import pcodec_tpu_torch.capi, pcodec_tpu_torch.legacy, pcodec_tpu_torch.native.capi_build\n"
         "new = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'pcodec_tpu'))\n"
         "print(new); sys.exit(1 if new else 0)\n"
@@ -133,3 +136,21 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_native_and_java_sources_name_no_reference_module():
+    """The port's C, C++ and Makefile sources (the C ABI shim, its test
+    program, the JNI shim) name no module of the JAX package: the shim
+    imports pcodec_tpu_torch.capi, and every include and build rule points
+    into pcodec_tpu_torch/."""
+    files = []
+    for root, _, names in os.walk(os.path.join(REPO, "pcodec_tpu_torch")):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".cpp", ".c", ".h", ".cu")) or n == "Makefile"]
+    names = {os.path.relpath(f, os.path.join(REPO, "pcodec_tpu_torch")) for f in files}
+    assert {"native/cpcodec.cpp", "native/cpcodec.h", "native/test_cpcodec.c", "java/Makefile",
+            "java/jni/pco_jni.cpp"} <= names
+    bad = [(f, m) for f in files for m in re.findall(r"\bpcodec_tpu\.\w+|\bjax\w*", open(f).read())]
+    assert not bad, bad
+    shim = open(os.path.join(REPO, "pcodec_tpu_torch", "native", "cpcodec.cpp")).read()
+    assert 'PyImport_ImportModule("pcodec_tpu_torch.capi")' in shim
