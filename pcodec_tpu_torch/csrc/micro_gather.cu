@@ -16,23 +16,35 @@
 //   routes 0, 1: `steps` rounds of idx <- (idx + table[row * ts + idx]) & (ts - 1)
 //     on idx (rows, 4), table (rows, ts), ts a power of two; routes 0 and 1
 //     compute the same function;
-//   route 2: `steps` rounds of idx <- idx + tbl[r, idx & 127] on (rows, 128);
+//   route 2: `steps` rounds of idx <- idx + tbl[r, idx & 127] on (rows, 128),
+//     computed in ceil(log2(steps + 1)) rounds of pointer doubling;
 //   route 3: out[r, l] = tbl[r, idx[r, l]] on (rows, width).
 // A first index outside its table traps (routes 0, 1, 3).
 //
-// What bounds it on Hopper: the latency of one dependent load a round. Each
-// chain does `steps` loads in sequence, each address known only when the
-// previous load returns; the table's bytes (8 MiB at the experiment's shape)
-// and the few operations a round are far below what that costs.
+// What bounds routes 0, 1 and 3 on Hopper: the latency of one dependent load
+// a round. Each chain does `steps` loads in sequence, each address known only
+// when the previous load returns; the table's bytes (8 MiB at the
+// experiment's shape) and the few operations a round are far below what that
+// costs. What the design does about it: one thread per dependent chain, so
+// the card holds as many chains in flight as there are (8,192 at the
+// experiment's shape), and each route puts the table where its name says:
+// route 0 reads device memory through the read-only path, where the table
+// stays in L2; route 1 stages each block's rows (8 of 4 KB) in shared memory
+// first; route 3 is one load a thread.
 //
-// What the design does about it: one thread per dependent chain, so the card
-// holds as many chains in flight as there are (8,192 at the experiment's
-// shape), and each route puts the table where its name says: route 0 reads
-// device memory through the read-only path, where the table stays in L2;
-// route 1 stages each block's rows (8 of 4 KB) in shared memory first; route
-// 2 keeps a row's 128 entries in registers, 4 a lane, and reads them with
-// __shfl_sync, Hopper's counterpart of the TPU's lane gather (4 shuffles and
-// a select a lookup); route 3 is one load a thread.
+// Route 2 computes its function by pointer doubling, not by `steps` serial
+// lookups. The low 7 bits of x move on their own ((x + v) & 127 depends only
+// on x & 127), so S_k[s], the wrapped sum of the 2^k values added from
+// residue s, takes 2^k steps at once: S_0 = tbl[r], S_{k+1}[s] = S_k[s] +
+// S_k[(s + S_k[s]) & 127], and for each set bit k of `steps` every chain
+// takes x += S_k[x & 127] (jumps that are powers of one map commute). That
+// is ceil(log2(steps + 1)) rounds, 13 at the experiment's 6,144 steps and 31
+// at most, where a step loop takes 6,144 dependent lookups.
+// What bounds it now: the rounds' dependent shuffles (8 lookups a lane a
+// round, 4 for its chains and 4 for its S entries, each 4 __shfl_sync and a
+// select, Hopper's counterpart of the TPU's lane gather) and, past them, the
+// launch itself. A row is still one warp with S and its chains in
+// registers, 4 a lane; a block is one warp, so the rows spread over the SMs.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,20 +93,34 @@ __device__ __forceinline__ unsigned lane_take(unsigned t0, unsigned t1, unsigned
   return q == 0 ? v0 : q == 1 ? v1 : q == 2 ? v2 : v3;
 }
 
-__global__ void __launch_bounds__(THREADS) lane_kernel(const int* __restrict__ tbl, const int* __restrict__ idx,
-                                                      int* __restrict__ out, int rows, int steps) {
-  const long long row = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
+// One warp a row, a block a warp: S_k and the row's 128 chains in registers,
+// entry e in register e >> 5 of lane e & 31.
+__global__ void __launch_bounds__(32) lane_kernel(const int* __restrict__ tbl, const int* __restrict__ idx,
+                                                 int* __restrict__ out, int steps) {
+  const long long row = blockIdx.x;
+  const unsigned lane = threadIdx.x;
   const unsigned* t = reinterpret_cast<const unsigned*>(tbl) + row * 128;
   const unsigned* x = reinterpret_cast<const unsigned*>(idx) + row * 128;
-  const unsigned t0 = t[lane], t1 = t[lane + 32], t2 = t[lane + 64], t3 = t[lane + 96];
+  unsigned s0 = t[lane], s1 = t[lane + 32], s2 = t[lane + 64], s3 = t[lane + 96];
   unsigned x0 = x[lane], x1 = x[lane + 32], x2 = x[lane + 64], x3 = x[lane + 96];
-  for (int s = 0; s < steps; ++s) {
-    x0 += lane_take(t0, t1, t2, t3, x0);
-    x1 += lane_take(t0, t1, t2, t3, x1);
-    x2 += lane_take(t0, t1, t2, t3, x2);
-    x3 += lane_take(t0, t1, t2, t3, x3);
+  for (unsigned k = (unsigned)steps; k != 0;) {
+    if (k & 1) {  // the 2^round steps of S_round
+      x0 += lane_take(s0, s1, s2, s3, x0);
+      x1 += lane_take(s0, s1, s2, s3, x1);
+      x2 += lane_take(s0, s1, s2, s3, x2);
+      x3 += lane_take(s0, s1, s2, s3, x3);
+    }
+    k >>= 1;
+    if (k != 0) {  // S_{round + 1}[s] = S[s] + S[(s + S[s]) & 127]
+      const unsigned n0 = s0 + lane_take(s0, s1, s2, s3, lane + s0);
+      const unsigned n1 = s1 + lane_take(s0, s1, s2, s3, lane + 32 + s1);
+      const unsigned n2 = s2 + lane_take(s0, s1, s2, s3, lane + 64 + s2);
+      const unsigned n3 = s3 + lane_take(s0, s1, s2, s3, lane + 96 + s3);
+      s0 = n0;
+      s1 = n1;
+      s2 = n2;
+      s3 = n3;
+    }
   }
   int* o = out + row * 128;
   o[lane] = (int)x0;
@@ -146,7 +172,7 @@ extern "C" int micro_gather(int route, const void* table, const void* idx, void*
     taa_kernel<<<(unsigned)((rows + rpb - 1) / rpb), rpb * 4 < 32 ? 32 : rpb * 4, smem, s>>>(tb, ix, o, rows, width,
                                                                                            steps, rpb);
   } else if (route == 2) {
-    lane_kernel<<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, s>>>(tb, ix, o, rows, steps);
+    lane_kernel<<<(unsigned)rows, 32, 0, s>>>(tb, ix, o, steps);
   } else {
     const long long n = (long long)rows * width;
     row_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(tb, ix, o, n, width);

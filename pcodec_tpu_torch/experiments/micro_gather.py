@@ -10,7 +10,9 @@ dependent chain:
     gather_taa   the same function, each block's rows of the table staged
                  in shared memory first
     gather_lane  LSTEPS rounds of idx <- idx + tbl[r, idx & 127] on (8, 128),
-                 the table held in registers and read by __shfl_sync
+                 by pointer doubling (ceil(log2(LSTEPS + 1)) rounds), a
+                 warp a row, the table held in registers and read by
+                 __shfl_sync
     gather_row   one take_along_axis(tbl, idx, axis=1): out[r, l] = tbl[r, idx[r, l]]
 
 All int32 with wrap-around. They probe where K2 chain_decode keeps its
@@ -26,7 +28,8 @@ PyTorch loops, timed as yardsticks (`xla_variants`).
 
 runs the experiment's shapes (T = 2,048, TS = 1,024, STEPS = 192, LSTEPS =
 6,144) on the card: each route against its plain version bit for bit, M
-lookups/s, and one row's time alone.
+lookups/s (route lane: the function's chain-steps a second and the rounds
+its pointer doubling took), and one row's time alone.
 """
 
 import numpy as np
@@ -59,8 +62,39 @@ def lane_steps_plain(tbl: torch.Tensor, idx: torch.Tensor, steps: int) -> torch.
     """Plain version of route lane: tbl, idx (rows, 128) int32."""
     x = idx.long()
     for _ in range(steps):
-        x = x + tbl.gather(1, x & 127).long()
-        x = ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+        x = _wrap32(x + tbl.gather(1, x & 127).long())
+    return x.to(torch.int32)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def lane_rounds(steps: int) -> int:
+    """Rounds of route lane's pointer doubling: ceil(log2(steps + 1)), the
+    bits of `steps`."""
+    return int(steps).bit_length()
+
+
+def lane_steps_doubling_plain(tbl: torch.Tensor, idx: torch.Tensor, steps: int) -> torch.Tensor:
+    """Route lane's kernel in torch: the function of lane_steps_plain by
+    pointer doubling over a row's 128 residues.
+
+    The low 7 bits of x move on their own, so S_k[s], the wrapped sum of
+    the 2^k values added from residue s, gives 2^k steps at once: S_0 is the
+    row, S_{k+1}[s] = S_k[s] + S_k[(s + S_k[s]) & 127], and for each set bit
+    k of `steps` every chain takes x += S_k[x & 127]. lane_rounds(steps)
+    rounds."""
+    s = tbl.long()
+    res = torch.arange(128, device=tbl.device)
+    x = idx.long()
+    k = int(steps)
+    while k:
+        if k & 1:
+            x = _wrap32(x + s.gather(1, x & 127))
+        k >>= 1
+        if k:
+            s = _wrap32(s + s.gather(1, (res + s) & 127))
     return x.to(torch.int32)
 
 
@@ -107,7 +141,9 @@ def gather_taa(table2d: torch.Tensor, idx0: torch.Tensor, steps: int = STEPS) ->
 
 
 def lane_steps(tbl: torch.Tensor, idx: torch.Tensor, steps: int = LSTEPS) -> torch.Tensor:
-    """Route lane: as lane_steps_plain, a row's 128 entries in registers."""
+    """Route lane: as lane_steps_plain, by the pointer doubling of
+    lane_steps_doubling_plain, a warp a row with its 128 entries in
+    registers."""
     if tbl.device.type == "cpu":
         return lane_steps_plain(tbl, idx, steps)
     if tbl.dim() != 2 or tbl.shape[1] != 128 or idx.shape != tbl.shape:
@@ -202,7 +238,11 @@ def measure_steps(route: str, inp: dict) -> dict:
 
 
 def measure_lane(inp: dict) -> dict:
-    """Route lane at the experiment's shape against its plain version."""
+    """Route lane at the experiment's shape against its plain version. The
+    bound counts the doubling's operations, OPS_PER_LOOKUP a lookup: a
+    lane's chains at each set bit of LSTEPS and its S entries at each later
+    round (`doubling_ops`). `step_loop_bound_ms` counts the step loop's
+    instead, the bound of the route's first design."""
     n0 = kernels.LAUNCHES["gather_lane"]
     tbl, idx = inp["tbl_small"], inp["idx_l"]
     out = lane_steps(tbl, idx, LSTEPS)
@@ -211,11 +251,17 @@ def measure_lane(inp: dict) -> dict:
     one_t, one_i = tbl[:1].contiguous(), idx[:1].contiguous()
     one = common.time_ms(lambda: lane_steps(one_t, one_i, LSTEPS), hold=True)
     plain = common.time_plain_ms(lambda: lane_steps_plain(tbl, idx, LSTEPS))
-    lookups = idx.numel() * LSTEPS
+    chain_steps = idx.numel() * LSTEPS
+    rounds = lane_rounds(LSTEPS)
+    doubling = idx.numel() * (bin(LSTEPS).count("1") + rounds - 1)
+    n_bytes = common.nbytes(tbl, idx, out)
     return common.row("gather_lane", f"(8, 128) LSTEPS={LSTEPS}", kernels.LAUNCHES["gather_lane"] - n0, t,
-                      plain[0], None, common.bound(common.nbytes(tbl, idx, out), lookups * OPS_PER_LOOKUP),
-                      f"{lookups / t[1] / 1e3:.1f} M lookups/s (card alone); one row (one warp) alone {one[0]:.4f} ms",
-                      one_row_ms=one[0])
+                      plain[0], None, common.bound(n_bytes, doubling * OPS_PER_LOOKUP),
+                      f"{chain_steps / t[1] / 1e6:.1f} G chain-steps/s (card alone), {rounds} rounds of pointer "
+                      f"doubling ({doubling * OPS_PER_LOOKUP:,} operations, the step loop's "
+                      f"{chain_steps * OPS_PER_LOOKUP:,}); one row (one warp) alone {one[0]:.4f} ms",
+                      one_row_ms=one[0], rounds=rounds, doubling_ops=doubling * OPS_PER_LOOKUP,
+                      step_loop_bound_ms=common.bound(n_bytes, chain_steps * OPS_PER_LOOKUP)[0])
 
 
 def main(device="cuda") -> list:

@@ -260,15 +260,63 @@ def test_bound_and_check_equal():
 
 
 def test_cluster_sort_refuses_rows_longer_than_a_cluster_holds():
-    """E2 takes power-of-two rows of 2 to 2^18 keys: 1 block up to 2^15,
-    then 2^15 keys a block; longer rows raise a ValueError naming the limit."""
-    assert [pallas_bitonic.cluster_blocks(m) for m in (2, 256, 1 << 15, 1 << 16, 1 << 18)] == [1, 1, 1, 2, 8]
-    with pytest.raises(ValueError, match="262144 keys"):
-        pallas_bitonic.cluster_blocks(1 << 21)
+    """E2 no longer refuses rows longer than one cluster holds: sort_plan
+    cuts them into tiles of 2^17 keys (8 blocks of 2^14), sorts each on
+    chip, then merges each longer run, its stages above the tile through
+    device memory (5 bits a pass at most) and those below on chip. Rows of
+    2^16 keys are one tile of 4 blocks, rows under 32 a thread each. Rows
+    that are not a power of two from 2 to 2^31, and tiles the kernel does
+    not hold, still raise a ValueError."""
+    pb = pallas_bitonic
+    assert pb.sort_plan(1 << 16) == dict(tile_keys=1 << 16, blocks=4, block_keys=1 << 14, launches=[("tile", 5, 16)])
+    assert pb.sort_plan(16) == dict(tile_keys=16, blocks=1, block_keys=16, launches=[("rows",)])
+    assert [(p["blocks"], p["block_keys"]) for p in map(pb.sort_plan, (32, 1 << 14, 1 << 15, 1 << 17))] == [
+        (1, 32), (1, 1 << 14), (2, 1 << 14), (8, 1 << 14)]
+    assert pb.sort_plan(1 << 19) == dict(tile_keys=1 << 17, blocks=8, block_keys=1 << 14, launches=[
+        ("tile", 5, 17), ("global", 18, 17, 1), ("tile", 18, 18), ("global", 19, 17, 2), ("tile", 19, 19)])
+    assert pb.sort_plan(1 << 21)["launches"][-2:] == [("global", 21, 17, 4), ("tile", 21, 21)]
+    assert pb.sort_plan(1 << 12, 32)["launches"][-3:] == [("global", 12, 7, 5), ("global", 12, 5, 2), ("tile", 12, 12)]
+    assert pb.tile_groups(16, 16) == [(11, 5), (6, 5), (1, 5), (0, 1)]
+    assert pb.tile_groups(19, 17) == [(12, 5), (7, 5), (2, 5), (0, 2)]
+    for m in (3000, 0, 1 << 32):
+        with pytest.raises(ValueError, match="power-of-two"):
+            pb.sort_plan(m)
+    with pytest.raises(ValueError, match="tile"):
+        pb.sort_plan(1 << 10, 1 << 18)
     with pytest.raises(ValueError, match="power-of-two"):
-        pallas_bitonic.cluster_blocks(3000)
-    with pytest.raises(ValueError, match="longer than one cluster holds"):
-        pallas_bitonic.sort_rows_u32(torch.zeros((1, 1 << 19), dtype=torch.int32))
+        pb.sort_rows_u32(torch.zeros((1, 3 << 10), dtype=torch.int32))
+    x = _t(np.random.default_rng(19).integers(0, 1 << 32, (1, 1 << 19), dtype=np.uint64).astype(np.uint32))
+    assert pb.sort_rows_u32(x.view(torch.int32)).shape == (1, 1 << 19)
+
+
+@pytest.mark.parametrize("rows,m,tile", [(4, 1 << 10, 1 << 6), (3, 1 << 8, 1 << 8)])
+def test_bitonic_tiled_plain_matches_network(rows, m, tile):
+    """Exact: E2's schedule in torch (tiles sorted on chip, longer runs
+    merged through device memory, descending runs held complemented) equals
+    the plain network and numpy's sort, on rows with runs of equal keys and
+    both ends of the u32 range."""
+    rng = np.random.default_rng(m + tile)
+    x = rng.integers(0, 1 << 32, (rows, m), dtype=np.uint64).astype(np.uint32)
+    x[:, 5: m // 3] = x[:, :1]
+    x[:, m // 2: m // 2 + 40] = rng.integers(0, 3, (rows, 40))
+    x[:, -2:] = [0xFFFFFFFF, 0]
+    xt = _t(x.view(np.int32))
+    got = pallas_bitonic.sort_rows_u32_tiled_plain(xt, tile)
+    assert torch.equal(got, pallas_bitonic.sort_rows_u32_plain(xt))
+    assert np.array_equal(got.numpy().view(np.uint32), np.sort(x, axis=1))
+
+
+@pytest.mark.parametrize("steps,rows", [(0, 1), (1, 19), (2, 8), (127, 3), (300, 19), (6144, 8)])
+def test_lane_doubling_plain_matches_step_loop(steps, rows):
+    """Exact: route lane's pointer doubling in torch (ceil(log2(steps + 1))
+    rounds) equals the step loop on full-range int32 tables, so the sums
+    wrap."""
+    rng = np.random.default_rng(steps + rows)
+    tbl = _t(rng.integers(-(2**31), 2**31, (rows, 128), dtype=np.int64).astype(np.int32))
+    idx = _t(rng.integers(-(2**31), 2**31, (rows, 128), dtype=np.int64).astype(np.int32))
+    assert micro_gather.lane_rounds(steps) == int(np.ceil(np.log2(steps + 1)))
+    got = micro_gather.lane_steps_doubling_plain(tbl, idx, steps)
+    assert torch.equal(got, micro_gather.lane_steps_plain(tbl, idx, steps))
 
 
 @pytest.mark.parametrize("mod", [proto_realign, proto_dma, micro_gather, proto_round_loop, pallas_bitonic],

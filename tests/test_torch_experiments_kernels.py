@@ -82,14 +82,16 @@ def test_gather_steps_kernels_match_plain_version(route, rows, ts):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 8, 19])
-def test_lane_kernel_matches_plain_version(rows):
-    """Exact: route lane on the card, wrapping int32 sums, rows beyond a
-    block of 8 warps."""
+@pytest.mark.parametrize("steps", [0, 1, 300, 6144])
+@pytest.mark.parametrize("rows", [1, 8, 19, 64])
+def test_lane_kernel_matches_plain_version(rows, steps):
+    """Exact: route lane's pointer doubling on the card against the step
+    loop, wrapping int32 sums, no step and one, the experiment's 6,144, and
+    up to 64 rows (a block a row)."""
     _need_card()
     tbl, idx = _cuda(_i32((rows, 128))), _cuda(_i32((rows, 128)))
-    got = _launched("gather_lane", lambda: micro_gather.lane_steps(tbl, idx, 300))
-    assert torch.equal(got, micro_gather.lane_steps_plain(tbl, idx, 300))
+    got = _launched("gather_lane", lambda: micro_gather.lane_steps(tbl, idx, steps))
+    assert torch.equal(got, micro_gather.lane_steps_plain(tbl, idx, steps))
 
 
 @pytest.mark.gpu
@@ -122,17 +124,27 @@ def test_round_loop_kernel_matches_plain_version(n_tiles, rounds, with_emit):
         assert torch.equal(a, b)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows,m", [(3, 2), (8, 256), (16, 1024), (2, 1 << 15), (5, 1 << 16), (2, 1 << 18)])
-def test_cluster_sort_matches_plain_version(rows, m):
-    """Exact: E2 on the card, clusters of 1, 2 and 8 blocks, keys with ties
-    and both ends of the u32 range, against the plain network and
-    torch.sort."""
-    _need_card()
+def _sort_keys(rows, m):
+    """u32 keys as int32 on the card: a run of ties, both ends of the range."""
     x = RNG.integers(0, 1 << 32, (rows, m), dtype=np.uint64).astype(np.uint32)
     x[:, : m // 3] = x[:, :1]
     x[:, -2:] = [0, 0xFFFFFFFF]
-    x = _cuda(x.view(np.int32))
+    return _cuda(x.view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m", [(3, 2), (5, 16), (8, 256), (16, 1024), (2, 1 << 15), (5, 1 << 16),
+                                    (140, 1 << 16), (2, 1 << 17), (2, 1 << 18), (2, 1 << 19), (1, 1 << 21),
+                                    (1, 1 << 22)])
+def test_cluster_sort_matches_plain_version(rows, m):
+    """Exact: E2 on the card, a thread a row under 32 keys, clusters of 1, 2,
+    4 and 8 blocks, 140 rows of 2^16 (more than one wave of 66 rows, two
+    blocks an SM's row, in the layout before), rows past a tile of 2^17
+    (2^18 to 2^22 keys: device-memory passes of 1 to 5 bits), keys with
+    ties and both ends of the u32 range, against the plain network and K8's
+    plain version."""
+    _need_card()
+    x = _sort_keys(rows, m)
     got = _launched("bitonic_cluster", lambda: pallas_bitonic.sort_rows_u32(x))
     assert torch.equal(got, pallas_bitonic.sort_rows_u32_plain(x))
     assert torch.equal(got, row_sort_u32_plain(x))
@@ -155,11 +167,16 @@ def test_k8_u32_route_matches_plain_version(rows, m):
 
 
 @pytest.mark.gpu
-def test_cluster_sort_refuses_rows_longer_than_a_cluster_holds():
-    """E2's wrapper raises for a row of 2^19 keys and launches nothing."""
+def test_cluster_sort_sorts_rows_longer_than_a_cluster_holds():
+    """E2's wrapper sorts rows of 2^19 and 2^21 keys (numpy's sort), one C
+    call each, and still raises for a row that is not a power of two,
+    launching nothing."""
     _need_card()
-    x = torch.zeros((1, 1 << 19), dtype=torch.int32, device="cuda")
+    for m in (1 << 19, 1 << 21):
+        x = _sort_keys(1, m)
+        got = _launched("bitonic_cluster", lambda: pallas_bitonic.sort_rows_u32(x))
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), np.sort(x.cpu().numpy().view(np.uint32), axis=1))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="longer than one cluster holds"):
-        pallas_bitonic.sort_rows_u32(x)
+    with pytest.raises(ValueError, match="power-of-two"):
+        pallas_bitonic.sort_rows_u32(torch.zeros((1, 3 << 17), dtype=torch.int32, device="cuda"))
     assert kernels.LAUNCHES == before

@@ -11,6 +11,7 @@ import re
 import pytest
 
 from pcodec_tpu_torch import constants
+from pcodec_tpu_torch.experiments import pallas_bitonic
 from pcodec_tpu_torch.ops import assemble, decode, device_train, kernels, row_sort
 
 _CONSTEXPR = re.compile(r"constexpr\s+[\w ]+?\s+(\w+)\s*=\s*([^;]+);")
@@ -54,6 +55,11 @@ def _cu_constants(name: str) -> dict:
     ("histogram_walk", "NARROW_BITS", device_train.WALK_NARROW_BITS),
     ("lookback_choose", "SMEM_MAX_N", kernels.LB_CHOOSE_SMEM_MAX_N),
     ("lookback_choose", "WINDOW_N_LOG_MAX", constants.LOOKBACK_MAX_WINDOW_N_LOG),
+    ("bitonic_cluster", "KEYS", pallas_bitonic.SET_KEYS),
+    ("bitonic_cluster", "TILE_LOG", pallas_bitonic.TILE_KEYS.bit_length() - 1),
+    ("bitonic_cluster", "BLOCK_LOG", pallas_bitonic.BLOCK_KEYS.bit_length() - 1),
+    ("bitonic_cluster", "MAX_CLUSTER", pallas_bitonic.MAX_CLUSTER),
+    ("bitonic_cluster", "MAX_LOG", pallas_bitonic.MAX_KEYS.bit_length() - 1),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value
