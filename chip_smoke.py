@@ -258,9 +258,11 @@ Phases, one line each (numbers beside the card's name and power limit):
      times, K8's bound); B5's row (lookback_choose, phase 8's 32M lookback
      training: launches, a call, `device_ms`) adds its pages, the plain
      version's pages (the first two chunks) and the kernel's time on them,
-     and one page's time alone and its steps; a phase-6 row adds its
-     `device_ms` and, for E4a, `library_device_ms` (torch.gather on the
-     card alone). K1's, K2's, K5's and K6's rows add a `sharded` object
+     one page's time alone and its steps, the device time of its hash-read
+     kernels and of its chain kernels a call (`hash_reads_ms`, `chain_ms`,
+     from the profiler's trace; null where it holds none) and the pages its
+     chain holds on an SM; a phase-6 row adds its `device_ms`, for E4a `library_device_ms`
+     (torch.gather on the card alone). K1's, K2's, K5's and K6's rows add a `sharded` object
      (phase 11: the launches of the sharded main-path run, the shards, the
      sharded and single-device ms).
 
@@ -562,6 +564,11 @@ MULTI_KEPT = ("wrapped_lookback_multipage", "dict_i64", "dict_i64_100k")
 # B5's operations a number, counted from csrc/lookback_choose.cu: ~16 in
 # each of the 16 proposals' scores, ~15 in each of the 6 hash queries
 B5_OPS_PER_NUMBER = 16 * 16 + 6 * 15
+# B5's card-alone ms on phase 8's 32,768 pages of 1,024 in its earlier
+# design, its hash maps on the chain, as PERF.md's kernel table records it
+# (NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's time, never
+# in the kernels line
+B5_EARLIER_DEVICE_MS = 15.050
 
 
 def standalone_small_cases(pt):
@@ -977,27 +984,48 @@ def long_pages_line(torch, dt, nums, dev) -> str:
             f"{ms[0]:.1f} ms (min {ms[1]:.1f}, max {ms[2]:.1f}), {ms[0] * 1e3 / (m - 1):.3f} us a step")
 
 
-def lookback_kernel_numbers(torch, dt, calls, lanes: int, launches: int) -> dict:
+def lookback_kernel_numbers(torch, dt, kernels, calls, lanes: int, launches: int) -> dict:
     """B5 on a device training's lookback calls: the pages of the first two
     chunks (`lanes` page rows) held against the plain version, then the
-    last call timed a call and on the card alone, its two chunks beside the
-    plain version, one page alone (a page's dependent steps), and its bound
+    last call timed a call and on the card alone, its hash-read kernels'
+    and its chain kernels' device time a call (the mean of their launches
+    in the profiler's trace of five calls, times the call's batches; a
+    trace without both passes taken again, up to TRACE_TRIES times; None
+    where none holds it),
+    its two chunks beside the plain version, one page alone (a page's
+    dependent steps), the pages its chain holds on an SM, and its bound
     from the call's inputs (8 bytes read, 12 written a number, the page
     lengths; B5_OPS_PER_NUMBER operations a number)."""
     err = check_lookback_calls(dt, calls, lanes)
-    x, lens, *rest = calls[-1]
-    sub = (x[:lanes].contiguous(), lens[:lanes].contiguous(), *rest)
-    one = (x[:1].contiguous(), lens[:1].contiguous(), *rest)
+    x, lens, bits, wnl, state_n = calls[-1]
+    sub = (x[:lanes].contiguous(), lens[:lanes].contiguous(), bits, wnl, state_n)
+    one = (x[:1].contiguous(), lens[:1].contiguous(), bits, wnl, state_n)
     n = int(lens.sum())
-    ms = time_ms(lambda: dt.lookback_choose(x, lens, *rest))
+    ms = time_ms(lambda: dt.lookback_choose(x, lens, bits, wnl, state_n))
     b_ms, by = bound(x.numel() * 20 + nbytes(lens), n * B5_OPS_PER_NUMBER)
+    for _ in range(TRACE_TRIES):  # a trace that holds neither pass is taken again
+        traced = traced_kernels(torch, lambda: dt.lookback_choose(x, lens, bits, wnl, state_n), calls=5)
+        if all(any(name.startswith(p) for name in traced) for p in ("hash_reads", "chain_kernel")):
+            break
+    batches = -(-x.shape[0] // dt.lookback_scratch(x, wnl)[1])  # each a hash-read and a chain launch
+
+    def pass_ms(prefix):  # a call's device ms of one pass: its traced launches' mean, times the batches
+        ms, n = (sum(v[k] for name, v in traced.items() if name.startswith(prefix)) for k in (0, 1))
+        return ms / n * batches if n else None
+
     return {"launches": launches, "err": err, "pages": x.shape[0], "page_n": x.shape[1], "ms": ms[0],
-            "device_ms": time_ms(lambda: dt.lookback_choose(x, lens, *rest), hold=True)[0],
+            "device_ms": time_ms(lambda: dt.lookback_choose(x, lens, bits, wnl, state_n), hold=True)[0],
+            "hash_reads_ms": pass_ms("hash_reads"), "chain_ms": pass_ms("chain_kernel"),
+            "resident_pages": kernels.lookback_choose_resident_pages(x.shape[1], bits, wnl, x.device),
             "bound_ms": b_ms, "bound_by": by, "plain_pages": lanes,
             "two_chunks_ms": time_ms(lambda: dt.lookback_choose(*sub))[0],
             "plain_ms": time_ms(lambda: dt.lookback_choose_plain(*sub), runs=3, warmup=1)[0],
             "one_page_ms": time_ms(lambda: dt.lookback_choose(*one), hold=True)[0],
-            "one_page_steps": int(lens[0]) - rest[-1]}
+            "one_page_steps": int(lens[0]) - state_n}
+
+
+def ms_or(ms) -> str:
+    return "not traced" if ms is None else f"{ms:.4f}"
 
 
 def meta_bytes(cc) -> bytes:
@@ -1050,22 +1078,32 @@ def k8_three_ways(torch, kernels, rs, x):
     return [(time_ms(f), time_ms(f, hold=True)[0]) for f in ways], (key_bytes, passes)
 
 
-def kernel_split(torch, fn) -> str:
-    """Device time of each kernel one call of fn launches, from the
-    profiler's trace of that call (warmed up first), largest first."""
+def traced_kernels(torch, fn, calls=1) -> dict:
+    """{kernel name: (device ms, launches)} summed over the launches of
+    `calls` calls of fn that the profiler's trace holds (fn warmed up
+    first; a trace of several calls may drop some launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    split = {}
+    got = {}
     for e in prof.key_averages():
         if getattr(e, "device_time_total", 0) > 0:
             name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
-            split[name] = split.get(name, 0) + e.device_time_total / 1e3
-    return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+            ms, n = got.get(name, (0.0, 0))
+            got[name] = (ms + e.device_time_total / 1e3, n + e.count)
+    return got
+
+
+def kernel_split(torch, fn) -> str:
+    """Device time of each kernel one call of fn launches, from the
+    profiler's trace of that call (warmed up first), largest first."""
+    split = traced_kernels(torch, fn)
+    return ", ".join(f"{k} {v[0]:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
 def profiled_kernels(torch, fn, calls=3):
@@ -2400,11 +2438,14 @@ def main() -> int:
         del img8
         metas8 = check_two_metas(pt, cmp, plan8, nums8, cfg8)
         if lookback:  # B5 on the pages of the first two chunks against plain, then timed
-            lb_rows[case] = lookback_kernel_numbers(torch, dt, tcalls8["lookback_choose"], 2 * plan8.enc.dev.rows_per_chunk,
+            lb_rows[case] = lookback_kernel_numbers(torch, dt, kernels, tcalls8["lookback_choose"],
+                                                    2 * plan8.enc.dev.rows_per_chunk,
                                                     train_launches8["lookback_choose"])
             lr = lb_rows[case]
             print(f"multi: {case}: B5 lookback_choose {lr['launches']} launch(es) on {lr['pages']} pages of "
-                  f"{lr['page_n']}: {lr['ms']:.4f} ms a call (card alone {lr['device_ms']:.4f}, bound "
+                  f"{lr['page_n']}: {lr['ms']:.4f} ms a call (card alone {lr['device_ms']:.4f}; PERF.md's record of its "
+                  f"earlier design {B5_EARLIER_DEVICE_MS:.3f}; the call's hash-read kernels {ms_or(lr['hash_reads_ms'])}, "
+                  f"its chain kernels {ms_or(lr['chain_ms'])} (profiler), {lr['resident_pages']} pages resident an SM; bound "
                   f"{lr['bound_ms']:.4f} by {lr['bound_by']}); the first two chunks' {lr['plain_pages']} pages == "
                   f"plain, {lr['two_chunks_ms']:.4f} ms (plain {lr['plain_ms']:.2f}); one page alone "
                   f"{lr['one_page_ms']:.4f} ms, {lr['one_page_steps']} steps [{card}]", flush=True)
@@ -2599,7 +2640,8 @@ def main() -> int:
          "replaces": "pcodec_tpu/ops/device_train.py:745", "launches": b5["launches"], "max_abs_err": b5["err"],
          "ms": b5["ms"], "plain_ms": b5["plain_ms"], "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
          "library_ms": None, "device_ms": b5["device_ms"],
-         **{k: b5[k] for k in ("pages", "page_n", "plain_pages", "two_chunks_ms", "one_page_ms", "one_page_steps")}},
+         **{k: b5[k] for k in ("pages", "page_n", "plain_pages", "two_chunks_ms", "one_page_ms", "one_page_steps",
+                               "hash_reads_ms", "chain_ms", "resident_pages")}},
     ]
     # phase 6's rows: the numbers of each kernel's last shape; launches at
     # that shape (its check, warm-ups and timed runs), beside the phase's
@@ -2611,7 +2653,8 @@ def main() -> int:
                      "ms": r["ms"][0], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
                      "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name],
-                     **{k: r[k] for k in ("device_ms", "library_device_ms", "step_loop_bound_ms", "long_rows") if k in r}})
+                     **{k: r[k] for k in ("device_ms", "library_device_ms", "step_loop_bound_ms", "long_rows")
+                        if k in r}})
     print(f"wall: {time.time() - t_wall:.1f} s from the start of main [{card}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

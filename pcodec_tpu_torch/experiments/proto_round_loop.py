@@ -45,6 +45,11 @@ TS = 1 << TS_LOG
 N_TILE_CHAINS = N_GROUPS * 8  # 256
 BENCH = ((False, 64), (False, 256), (False, 1024), (True, 256), (True, 1024))  # (with_emit, n_tiles)
 OPS_PER_SYMBOL = 16  # the function's integer operations a decoded symbol, the refill's share included
+# the kernel's earlier design (four window words reloaded a round, a block a
+# tile), card alone on an NVIDIA H100 80GB HBM3 at 700 W, ms by (with_emit,
+# n_tiles), as PERF.md records it: printed beside a run's time, not measured
+EARLIER_DEVICE_MS = {(False, 64): 0.0336, (False, 256): 0.0596, (False, 1024): 0.3328, (True, 256): 0.0911,
+                     (True, 1024): 0.3876}
 M32 = 0xFFFFFFFF
 
 
@@ -163,12 +168,14 @@ def measure(with_emit: bool, n_tiles: int, device="cuda", rounds: int = ROUNDS) 
     t = common.kernel_ms(lambda: round_loop(sec, node, state, rounds, with_emit))
     plain = common.time_plain_ms(lambda: round_loop_plain(sec, node, state, rounds, with_emit))
     syms = n_tiles * N_TILE_CHAINS * 4 * rounds
+    prev = EARLIER_DEVICE_MS.get((with_emit, n_tiles)) if rounds == ROUNDS else None
     outs = got if with_emit else (got,)
     return common.row("proto_round_loop", f"{'emit' if with_emit else 'noemit'} x{n_tiles} tiles",
                       kernels.LAUNCHES["proto_round_loop"] - n0, t, plain[0], None,
                       common.bound(touched * 4 + common.nbytes(node, state, *outs), syms * OPS_PER_SYMBOL),
                       f"{syms / t[1] / 1e3:.0f} M symbols/s (card alone); windows touched {touched / sec.numel():.1%} "
-                      f"of the section words")
+                      f"of the section words" + (f"; PERF.md's record of the earlier design card alone {prev} ms"
+                                                 if prev else ""))
 
 
 def main(device="cuda") -> list:

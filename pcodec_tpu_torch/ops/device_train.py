@@ -32,9 +32,11 @@ host's.
                       stored latents as one row sorted by K8, its quantile
                       extracts (consecutive and NOOP chunks)
     phase_lookback    card: B5, CUDA (csrc/lookback_choose.cu), the lookback
-                      chooser of every page row of the lookback chunks, a
-                      warp a page, storing each page's toggled deltas and
-                      its state; then the chunk's two stored rows (deltas
+                      chooser of every page row of the lookback chunks:
+                      the hash tables' reads of every position, then the
+                      chain of choices a half-warp a page, storing each
+                      page's toggled deltas and its state; then the
+                      chunk's two stored rows (deltas
                       and u32 lookbacks) sorted by K8, their extracts
     walk_bins         K9, CUDA (csrc/histogram_walk.cu): the histogram walk
                       over the extracts, a warp per row, its tables in
@@ -719,6 +721,79 @@ def choose_lookbacks_plain(x: torch.Tensor, lens: torch.Tensor, bits: int, windo
     return out.to(torch.int32)
 
 
+LOOKBACK_HASH_SLOTS = 6  # proposal slots 10-15, the hash queries; must match csrc/lookback_choose.cu
+
+
+def lookback_hash_props_plain(x: torch.Tensor, lens: torch.Tensor, window_n_log: int, state_n: int) -> torch.Tensor:
+    """B5's hash-read pass in torch (the JAX `lb_last_all`,
+    pcodec_tpu/ops/device_train.py:776-802): the tables' reads depend on no
+    choice, so each position's six queries are predecessor searches. For
+    each coarseness the inserts (hash << mlog | position, position in
+    [state_n, len)) are sorted, and each query's last insert j < i with its
+    hash is found by searchsorted (none: j = 0, the zeroed table's answer).
+    Returns (lanes, 6, m) int64: slot 10 + k's proposal at each position,
+    i - j where that is <= 2^window_n_log, else min(10 + k, i)."""
+    lanes, m = x.shape
+    col = torch.arange(m, device=x.device)
+    mlog = max(m - 1, 1).bit_length()
+    hmask = (2 << window_n_log) - 1
+    ins_ok = (col >= state_n) & (col < lens.to(i64)[:, None])
+    lb_last = []
+    for shift in (0, 8):
+        bucket = _srl(x, shift)
+        skey = torch.where(ins_ok, (_lb_hash(bucket, hmask) << mlog) | col, torch.iinfo(i64).max).sort(1).values
+        for d in (-1, 0, 1):
+            qh = _lb_hash(bucket + d, hmask)
+            idx = torch.searchsorted(skey, (qh << mlog) | col) - 1
+            cand = skey.gather(1, idx.clamp(min=0))
+            hit = (idx >= 0) & ((cand >> mlog) == qh)
+            lb_last.append(col - torch.where(hit, cand & ((1 << mlog) - 1), 0))
+    lb_last = torch.stack(lb_last, 1)
+    slot = torch.arange(10, 10 + LOOKBACK_HASH_SLOTS, device=x.device)[:, None]
+    return torch.where(lb_last <= 1 << window_n_log, lb_last, torch.minimum(slot, col))
+
+
+def choose_lookbacks_split_plain(x: torch.Tensor, lens: torch.Tensor, bits: int, window_n_log: int,
+                                 state_n: int) -> torch.Tensor:
+    """B5's structure in torch: lookback_hash_props_plain first, then the
+    chain, which carries only what depends on earlier choices (the counts,
+    the four repeat slots 6-9, the last choice). Each step takes the max of
+    the kernel's packed keys, goodness << (4 + pb) | (15 - slot) << pb |
+    lookback (pb the bits of a position), so the first best and its lookback
+    come out of one reduction, and only the winning slot bumps its count.
+    Arguments and result as choose_lookbacks_plain, the reference."""
+    lanes, m = x.shape
+    dev = x.device
+    lens = lens.to(i64)
+    props = lookback_hash_props_plain(x, lens, window_n_log, state_n)
+    pb = max(m - 1, 1).bit_length()
+    slot = torch.arange(PROPOSED_LOOKBACKS, device=dev)
+    tie = (PROPOSED_LOOKBACKS - 1 - slot) << pb
+    counts = torch.ones((lanes, min(1 << window_n_log, m)), dtype=i64, device=dev)
+    proposed = torch.minimum(slot + 1, torch.tensor(state_n, device=dev)).repeat(lanes, 1)
+    best_lb = torch.ones((lanes, 1), dtype=i64, device=dev)
+    rep = torch.zeros((lanes, 1), dtype=i64, device=dev)
+    out = torch.zeros((lanes, m - state_n), dtype=i64, device=dev)
+    for i in range(state_n, int(lens.max()) if lanes else 0):
+        active = (i < lens)[:, None]
+        nb = min(i, PROPOSED_LOOKBACKS)
+        proposed[:, nb - 1] = nb
+        proposed[:, 10:] = props[:, :, i]
+        lb = proposed.clamp(1, i)
+        l, other = x[:, i : i + 1], x.gather(1, i - lb)
+        d1, d2 = _wrap(l - other, bits), _wrap(other - l, bits)
+        cnt = counts.gather(1, lb - 1)
+        key = ((_bitlen(cnt) + bits - _bitlen(torch.where(_ult(d1, d2), d1, d2))) << (4 + pb)) | tie | lb
+        kmax = key.max(1, keepdim=True).values
+        best = torch.where(active, kmax & ((1 << pb) - 1), best_lb)
+        rep = rep + (best != best_lb).to(i64)
+        proposed.scatter_(1, 6 + rep % 4, best)
+        best_lb = best
+        counts.scatter_add_(1, lb - 1, (active & (key == kmax)).to(i64))
+        out[:, i - state_n : i - state_n + 1] = torch.where(active, best, 0)
+    return out.to(torch.int32)
+
+
 def lookback_store_plain(x: torch.Tensor, lens: torch.Tensor, lbs: torch.Tensor, bits: int, state_n: int):
     """What B5 stores beside the lookbacks (the JAX `_phase_lookback`
     :1180-1202): the primary's row, each body position's toggled delta
@@ -740,12 +815,24 @@ def lookback_choose_plain(x, lens, bits: int, window_n_log: int, state_n: int):
     return (lbs, *lookback_store_plain(x, lens, lbs, bits, state_n))
 
 
+def lookback_scratch(x: torch.Tensor, window_n_log: int):
+    """(scratch, blocks): B5's scratch for x's (lanes, m) page rows, `blocks`
+    regions of kernels.lookback_choose_page_bytes each, as many as
+    kernels.LB_CHOOSE_SCRATCH_BYTES holds (at most one a page)."""
+    lanes, m = x.shape
+    per = kernels.lookback_choose_page_bytes(m, window_n_log)
+    blocks = max(1, min(lanes, kernels.LB_CHOOSE_SCRATCH_BYTES // per))
+    return torch.empty(blocks * per, dtype=torch.uint8, device=x.device), blocks
+
+
 def lookback_choose(x: torch.Tensor, lens: torch.Tensor, bits: int, window_n_log: int, state_n: int):
     """B5, CUDA (csrc/lookback_choose.cu): the lookback chooser and the
     store of every page row; arguments and results as
-    lookback_choose_plain. Pages over kernels.LB_CHOOSE_SMEM_MAX_N numbers
-    keep their tables in device memory, a region of a scratch buffer for
-    each of as many pages at once as kernels.LB_CHOOSE_SCRATCH_BYTES holds."""
+    lookback_choose_plain. Pages of at most kernels.LB_CHOOSE_SMEM_MAX_N
+    numbers take two passes, the hash reads (lookback_hash_props_plain)
+    into a scratch buffer, then the chain (choose_lookbacks_split_plain's);
+    longer pages keep their tables in device memory. The scratch holds as
+    many pages at once as kernels.LB_CHOOSE_SCRATCH_BYTES does."""
     if x.device.type == "cpu":
         return lookback_choose_plain(x, lens, bits, window_n_log, state_n)
     lanes, m = x.shape
@@ -757,12 +844,9 @@ def lookback_choose(x: torch.Tensor, lens: torch.Tensor, bits: int, window_n_log
     lbs = torch.empty((lanes, m - state_n), dtype=torch.int32, device=x.device)
     prim = torch.empty_like(x)
     states = torch.empty((lanes, state_n), dtype=i64, device=x.device)
-    scratch, blocks = None, 0
-    if m > kernels.LB_CHOOSE_SMEM_MAX_N and lanes:
-        per = kernels.lookback_choose_page_bytes(m, window_n_log)
-        blocks = max(1, min(lanes, kernels.LB_CHOOSE_SCRATCH_BYTES // per))
-        scratch = torch.empty(blocks * per, dtype=torch.uint8, device=x.device)
-    kernels.launch_lookback_choose(x, lens, lbs, prim, states, bits, window_n_log, state_n, scratch, blocks)
+    if lanes:
+        kernels.launch_lookback_choose(x, lens, lbs, prim, states, bits, window_n_log, state_n,
+                                       *lookback_scratch(x, window_n_log))
     return lbs, prim, states
 
 

@@ -34,10 +34,12 @@ SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "
 GATHER_ROUTES = ("gather_take", "gather_taa", "gather_lane", "gather_row")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
 LB_MAX_BASES = 68  # tensors one K3 launch reads and writes; must match csrc/lookback_recon.cu
-# longest page whose maps and counts B5 keeps in shared memory (a block a
-# page); longer pages walk in device memory; must match csrc/lookback_choose.cu
+# longest page of B5's two-pass route (hash reads, then the chain over
+# latents and counts in shared memory); longer pages keep their maps on the
+# chain in device memory; must match csrc/lookback_choose.cu
 LB_CHOOSE_SMEM_MAX_N = 8192
-# device memory B5's longer pages may hold at once (a region a block)
+# device memory B5 may hold at once: a batch of pages' proposals, or the
+# longer pages' maps (a region a block)
 LB_CHOOSE_SCRATCH_BYTES = 1 << 30
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -338,21 +340,34 @@ def launch_histogram_walk(V, L, R, SL1, SR, s0, n, counts, lowers, uppers, n_bin
 
 
 def lookback_choose_page_bytes(m: int, window_n_log: int) -> int:
-    """Bytes of one page's maps and counts in B5 (page length m)."""
+    """B5's scratch bytes of one page of length m: its six rows of hash
+    proposals (m <= LB_CHOOSE_SMEM_MAX_N), or its maps and counts."""
     fn = _lib("lookback_choose").lookback_choose_page_bytes
     fn.argtypes = [_L, _I]
     fn.restype = _L
     return fn(m, window_n_log)
 
 
+def lookback_choose_resident_pages(m: int, bits: int, window_n_log: int, device) -> int:
+    """Pages of m `bits`-bit numbers B5's chain holds on an SM at once."""
+    lib = _lib("lookback_choose")
+    fn = lib.lookback_choose_resident_pages
+    fn.argtypes = [_L, _I, _I, _I]
+    fn.restype = _I
+    n = fn(m, bits, window_n_log, torch.device(device).index or 0)
+    if n < 0:
+        raise RuntimeError(f"lookback_choose_resident_pages: CUDA error {-n} "
+                           f"({lib.pcodec_cuda_error_string(-n).decode()})")
+    return n
+
+
 def launch_lookback_choose(x, lens, lbs, prim, states, bits: int, window_n_log: int, state_n: int,
-                           scratch=None, blocks: int = 0) -> None:
-    """B5 over x's (lanes, m) page rows; pages longer than
-    LB_CHOOSE_SMEM_MAX_N use `blocks` equal regions of `scratch`."""
-    per = scratch.numel() // blocks if scratch is not None else 0
+                           scratch, blocks: int) -> None:
+    """B5 over x's (lanes, m) page rows with `blocks` equal regions of
+    `scratch` (a batch of pages' hash proposals, or a longer-page block's
+    maps)."""
     _call("lookback_choose", x, x.data_ptr(), lens.data_ptr(), x.shape[0], x.shape[1], bits, window_n_log, state_n,
-          lbs.data_ptr(), prim.data_ptr(), states.data_ptr(), None if scratch is None else scratch.data_ptr(), per,
-          blocks)
+          lbs.data_ptr(), prim.data_ptr(), states.data_ptr(), scratch.data_ptr(), scratch.numel() // blocks, blocks)
 
 
 def launch_proto_realign(raw2d, starts_blk, out) -> None:

@@ -108,13 +108,16 @@ def test_row_gather_kernel_matches_plain_version(rows, width):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_emit", [False, True])
-@pytest.mark.parametrize("n_tiles,rounds", [(1, 0), (2, 7), (5, 64)])
+@pytest.mark.parametrize("n_tiles,rounds", [(1, 0), (2, 7), (5, 64), (3, 100)])
 def test_round_loop_kernel_matches_plain_version(n_tiles, rounds, with_emit):
     """Exact: E4b on the card, node entries of the full int32 range and
-    initial states outside the table."""
+    initial states outside the table; tile counts that leave the last
+    block's second tile empty; at 100 rounds every node's bits are 15, so
+    the cursors pass word 127 and the windows wrap to the row's start."""
     _need_card()
     sec = _cuda(_i32((n_tiles, 256, 128)))
-    node = _cuda(_i32((8, 1024)))
+    node = _i32((8, 1024))
+    node = _cuda(node | 15 if rounds == 100 else node)
     state = RNG.integers(0, 1024, (n_tiles, 8, 128)).astype(np.int32)
     state[0, :, :5] = [-7, 1024, 5000, -(2**31), 2**31 - 1]
     state = _cuda(state)

@@ -88,6 +88,34 @@ def test_standalone_bytes_and_host_decode_match_reference(name):
     assert port_standalone.header_size() == ref_standalone.header_size()
 
 
+def _reference_top_level_names():
+    """The public names pcodec_tpu/__init__.py binds, read from its source."""
+    tree = ast.parse(open(os.path.join(REPO, "pcodec_tpu", "__init__.py")).read())
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return names
+
+
+@pytest.mark.parametrize("name", _reference_top_level_names())
+def test_port_namespace_has_every_reference_top_level_name(name):
+    """`from pcodec_tpu_torch import <name>` works for every public name of
+    the JAX package's top level, and names the port's own object: a module
+    or a function or class of pcodec_tpu_torch, or an equal constant."""
+    import pcodec_tpu
+
+    ours, ref = getattr(pt, name), getattr(pcodec_tpu, name)
+    if isinstance(ours, type(os)):
+        assert ours.__name__ == ref.__name__.replace("pcodec_tpu", "pcodec_tpu_torch", 1)
+    elif callable(ours):
+        assert ours.__module__.split(".")[0] == "pcodec_tpu_torch" and ours.__qualname__ == ref.__qualname__
+    else:
+        assert ours == ref
+
+
 def _forbidden(mod: str) -> bool:
     return mod.split(".")[0] in ("jax", "jaxlib", "pcodec_tpu")
 
@@ -120,6 +148,7 @@ def test_importing_port_loads_no_jax_and_no_reference_package():
     code = (
         "import sys; before = set(sys.modules)\n"
         "import pcodec_tpu_torch, pcodec_tpu_torch.ops.container_decode\n"
+        "from pcodec_tpu_torch import PagingSpec, PcoError, __version__, guarantee, simple_compress\n"
         "import pcodec_tpu_torch.ops.container_encode, pcodec_tpu_torch.ops.assemble\n"
         "import pcodec_tpu_torch.ops.row_sort, pcodec_tpu_torch.ops.decode, pcodec_tpu_torch.ops.softfloat\n"
         "import pcodec_tpu_torch.ops.device_train\n"

@@ -55,6 +55,8 @@ def _cu_constants(name: str) -> dict:
     ("histogram_walk", "NARROW_BITS", device_train.WALK_NARROW_BITS),
     ("lookback_choose", "SMEM_MAX_N", kernels.LB_CHOOSE_SMEM_MAX_N),
     ("lookback_choose", "WINDOW_N_LOG_MAX", constants.LOOKBACK_MAX_WINDOW_N_LOG),
+    ("lookback_choose", "HASH_SLOTS", device_train.LOOKBACK_HASH_SLOTS),
+    ("lookback_choose", "POS_BITS", (kernels.LB_CHOOSE_SMEM_MAX_N - 1).bit_length()),
     ("bitonic_cluster", "KEYS", pallas_bitonic.SET_KEYS),
     ("bitonic_cluster", "TILE_LOG", pallas_bitonic.TILE_KEYS.bit_length() - 1),
     ("bitonic_cluster", "BLOCK_LOG", pallas_bitonic.BLOCK_KEYS.bit_length() - 1),

@@ -234,7 +234,8 @@ def _lookback_rows(page_n: int, bits: int):
     """Page rows of `bits`-bit latents (repeats with noise, then random
     values), the last page ragged."""
     rng = np.random.default_rng(43)
-    lanes = 3 if page_n > kernels.LB_CHOOSE_SMEM_MAX_N else 6
+    # odd counts of pages, so the last block of the chain (two pages) is half full
+    lanes = 3 if page_n > kernels.LB_CHOOSE_SMEM_MAX_N else 5 if page_n == kernels.LB_CHOOSE_SMEM_MAX_N else 7
     hi = 1 << bits
     pat = rng.integers(0, hi, 97, dtype=np.uint64)
     x = np.tile(pat, -(-lanes * page_n // 97))[: lanes * page_n] ^ rng.integers(0, 2, lanes * page_n, dtype=np.uint64)
@@ -248,12 +249,13 @@ def _lookback_rows(page_n: int, bits: int):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [16, 32, 64])
-@pytest.mark.parametrize("page_n", [256, 1024, 65536])
+@pytest.mark.parametrize("page_n", [256, 1024, 8192, 65536])
 def test_lookback_choose_kernel_matches_plain_version_on_card(page_n, bits):
-    """Exact: B5 on the card (its maps in shared memory up to
-    kernels.LB_CHOOSE_SMEM_MAX_N numbers a page, in device memory at
-    65,536) equals its plain version (on the CPU, for speed): lookbacks,
-    primary rows and states, on full pages and a ragged last page."""
+    """Exact: B5 on the card (its hash reads, then its chain over latents and
+    counts in shared memory, up to kernels.LB_CHOOSE_SMEM_MAX_N numbers a
+    page; its maps in device memory at 65,536) equals its plain version (on
+    the CPU, for speed): lookbacks, primary rows and states, on full pages
+    and a ragged last page, an odd count of pages."""
     _need_card()
     x, lens = _lookback_rows(page_n, bits)
     wnl = min(max((page_n * 8 - 1).bit_length(), 4), 15)

@@ -56,6 +56,13 @@ def _chooser_lanes(name):
         return five[3:4], 16, _wlog(777)
     if name == "u8":
         return five[4:5], 8, _wlog(1300)
+    if name.startswith("w4_u"):  # window_n_log 4 (a 5-bit hash: collisions, predecessor misses), a ragged page
+        bits = int(name[4:])
+        rng = np.random.default_rng(8 + bits)
+        pat = rng.integers(0, 1 << bits, 11, dtype=np.uint64)
+        lanes = [np.tile(pat, 19)[:200] ^ rng.integers(0, 4, 200).astype(np.uint64),
+                 rng.integers(0, 1 << bits, 200, dtype=np.uint64), np.tile(pat[:3], 26)[:77]]
+        return [lane.astype(f"uint{bits}") for lane in lanes], bits, 4
     rng = np.random.default_rng(6)  # ragged lanes: repeats, full-range u64, the top values, a lane of one
     pat = rng.integers(0, 2**64, 40, dtype=np.uint64)
     return [np.tile(pat, 12)[:480] + rng.integers(0, 2, 480).astype(np.uint64),
@@ -64,7 +71,36 @@ def _chooser_lanes(name):
             np.tile(pat[:5], 40), np.array([7], np.uint64)], 64, 9
 
 
-@pytest.mark.parametrize("name", ["u64_three_cases", "u16", "u8", "ragged_lanes"])
+SPLIT_CASES = ["w4_u8", "w4_u16", "w4_u32", "w4_u64"]
+
+
+def _chooser_batch(name):
+    """(x (lanes, m) u64 rows, lens, bits, window_n_log) of a chooser case."""
+    lanes, bits, wnl = _chooser_lanes(name)
+    x = np.zeros((len(lanes), max(len(x) for x in lanes)), np.uint64)
+    for k, lane in enumerate(lanes):
+        x[k, : len(lane)] = lane
+    return x, np.array([len(lane) for lane in lanes], np.int64), bits, wnl
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_choose_lookbacks_split_plain_matches_jax_and_plain(name):
+    """Exact, lane by lane: B5's two-pass structure in torch (the hash reads
+    of every position, then the chain of counts and repeats) equals JAX's
+    `_choose_lookbacks_device` and choose_lookbacks_plain, and its hash pass
+    equals JAX's precomputed reads (slots 10-15) on every position."""
+    x, lens, bits, wnl = _chooser_batch(name)
+    xt, lt = torch.from_numpy(x.view(np.int64)), torch.from_numpy(lens)
+    got = dt.choose_lookbacks_split_plain(xt, lt, bits, wnl, 1)
+    want = np.asarray(jdt._choose_lookbacks_device(jnp.asarray(x), jnp.asarray(lens.astype(np.int32)), bits, wnl, 1))
+    assert np.array_equal(got.numpy(), want.astype(np.int32))
+    assert torch.equal(got, dt.choose_lookbacks_plain(xt, lt, bits, wnl, 1))
+    props = dt.lookback_hash_props_plain(xt, lt, wnl, 1)
+    assert props.shape == (len(lens), dt.LOOKBACK_HASH_SLOTS, x.shape[1])
+    assert int(props.max()) <= 1 << wnl and int(props[:, :, 1:].min()) >= 1
+
+
+@pytest.mark.parametrize("name", ["u64_three_cases", "u16", "u8", "ragged_lanes"] + SPLIT_CASES)
 def test_choose_lookbacks_plain_matches_jax_and_native(name):
     """Exact: every lane's lookbacks from choose_lookbacks_plain equal JAX's
     `_choose_lookbacks_device` on the same batch and the native chooser on
