@@ -129,16 +129,21 @@ Phases, one line each (numbers beside the card's name and power limit):
                   ports of the Pallas prototypes in experiments/: every
                   kernel first held bit for bit against its plain version
                   at small shapes (E2 also at (2, 2^19) and (1, 2^21),
-                  rows longer than one cluster holds; route lane at 0, 1,
+                  rows longer than one cluster holds; E1 on a ragged raw
+                  at 1,200 tiles and 512 rounds; route take also at 0
+                  steps and on rows of 2^16 entries; route lane at 0, 1,
                   300 and 6,144 steps);
                   then each experiment's own shapes, each kernel compared
                   with its plain version and timed beside it, printed in
                   the experiment's units: E5 proto_realign (256 and 2,048
                   groups, beside K1's main-path time), E1 proto_dma (its
-                  five tile and round counts), E3 micro_gather (the XLA
+                  five tile and round counts, its column-sum and tile
+                  kernels' device times a call from the profiler's trace
+                  and the bytes each reads), E3 micro_gather (the XLA
                   variants as plain PyTorch yardsticks, routes take and
                   taa at T 2,048 x TS 1,024 x 192 steps, lane at 6,144
-                  steps by pointer doubling, each also one row alone),
+                  steps by pointer doubling, each also one row alone;
+                  take also its rows a block and the route that ran),
                   E4a gather_row, E4b proto_round_loop (64, 256 and 1,024
                   tiles, and 256 and 1,024 with emit), E2 bitonic_cluster
                   (its checks, then (96, 2^16) and (32, 2^21), each beside
@@ -249,7 +254,8 @@ Phases, one line each (numbers beside the card's name and power limit):
                   `make syntax-check` of java/; then the run's wall time
   13. a `kernels` JSON line, then the `ok` JSON line last. A phase-6 row
      holds the numbers of the kernel's last shape: `launches` made at that
-     shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`.
+     shape, `shape`, `timed_runs` behind `ms`, and `launches_all_shapes`
+     (both without the calls that the profiler traced).
      The rows of K2, K3, K5, K6, K7 and K9 add `device_ms` (the card alone)
      and the label `"status": "redesigned"`, K6's and K7's a `multivar`
      object (phase 8's IntMult 32M: numbers, times, bound), K9's also its
@@ -261,8 +267,11 @@ Phases, one line each (numbers beside the card's name and power limit):
      one page's time alone and its steps, the device time of its hash-read
      kernels and of its chain kernels a call (`hash_reads_ms`, `chain_ms`,
      from the profiler's trace; null where it holds none) and the pages its
-     chain holds on an SM; a phase-6 row adds its `device_ms`, for E4a `library_device_ms`
-     (torch.gather on the card alone). K1's, K2's, K5's and K6's rows add a `sharded` object
+     chain holds on an SM; a phase-6 row adds its `device_ms`, for E4a
+     `library_device_ms` (torch.gather on the card alone), for E1 its two
+     kernels' device ms (`colsum_ms`, `tile_ms`, from the profiler) and its
+     column-sum route (`colsum_route`), for E3 one row's `one_row_ms`, for E3a its `rows_per_block` and
+     `take_route`. K1's, K2's, K5's and K6's rows add a `sharded` object
      (phase 11: the launches of the sharded main-path run, the shards, the
      sharded and single-device ms).
 
@@ -284,7 +293,8 @@ from dataclasses import replace
 
 import numpy as np
 
-from pcodec_tpu_torch.experiments.common import RUNS, bound, card_line, check_equal, nbytes, time_ms
+from pcodec_tpu_torch.experiments.common import (RUNS, bound, card_line, check_equal, kernel_split_ms, nbytes,
+                                                 time_ms, traced_kernels)
 
 N = 64 * 1024 * 1024
 SEED = 1234
@@ -989,9 +999,8 @@ def lookback_kernel_numbers(torch, dt, kernels, calls, lanes: int, launches: int
     chunks (`lanes` page rows) held against the plain version, then the
     last call timed a call and on the card alone, its hash-read kernels'
     and its chain kernels' device time a call (the mean of their launches
-    in the profiler's trace of five calls, times the call's batches; a
-    trace without both passes taken again, up to TRACE_TRIES times; None
-    where none holds it),
+    in the profiler's trace of five calls, times the call's batches, by
+    `kernel_split_ms`; None where no trace holds it),
     its two chunks beside the plain version, one page alone (a page's
     dependent steps), the pages its chain holds on an SM, and its bound
     from the call's inputs (8 bytes read, 12 written a number, the page
@@ -1003,19 +1012,13 @@ def lookback_kernel_numbers(torch, dt, kernels, calls, lanes: int, launches: int
     n = int(lens.sum())
     ms = time_ms(lambda: dt.lookback_choose(x, lens, bits, wnl, state_n))
     b_ms, by = bound(x.numel() * 20 + nbytes(lens), n * B5_OPS_PER_NUMBER)
-    for _ in range(TRACE_TRIES):  # a trace that holds neither pass is taken again
-        traced = traced_kernels(torch, lambda: dt.lookback_choose(x, lens, bits, wnl, state_n), calls=5)
-        if all(any(name.startswith(p) for name in traced) for p in ("hash_reads", "chain_kernel")):
-            break
+    split = kernel_split_ms(lambda: dt.lookback_choose(x, lens, bits, wnl, state_n), ("hash_reads", "chain_kernel"))
     batches = -(-x.shape[0] // dt.lookback_scratch(x, wnl)[1])  # each a hash-read and a chain launch
-
-    def pass_ms(prefix):  # a call's device ms of one pass: its traced launches' mean, times the batches
-        ms, n = (sum(v[k] for name, v in traced.items() if name.startswith(prefix)) for k in (0, 1))
-        return ms / n * batches if n else None
-
+    passes = {key: None if split[p] is None else split[p] * batches  # a call's device ms of each pass
+              for key, p in (("hash_reads_ms", "hash_reads"), ("chain_ms", "chain_kernel"))}
     return {"launches": launches, "err": err, "pages": x.shape[0], "page_n": x.shape[1], "ms": ms[0],
             "device_ms": time_ms(lambda: dt.lookback_choose(x, lens, bits, wnl, state_n), hold=True)[0],
-            "hash_reads_ms": pass_ms("hash_reads"), "chain_ms": pass_ms("chain_kernel"),
+            **passes,
             "resident_pages": kernels.lookback_choose_resident_pages(x.shape[1], bits, wnl, x.device),
             "bound_ms": b_ms, "bound_by": by, "plain_pages": lanes,
             "two_chunks_ms": time_ms(lambda: dt.lookback_choose(*sub))[0],
@@ -1078,31 +1081,10 @@ def k8_three_ways(torch, kernels, rs, x):
     return [(time_ms(f), time_ms(f, hold=True)[0]) for f in ways], (key_bytes, passes)
 
 
-def traced_kernels(torch, fn, calls=1) -> dict:
-    """{kernel name: (device ms, launches)} summed over the launches of
-    `calls` calls of fn that the profiler's trace holds (fn warmed up
-    first; a trace of several calls may drop some launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    got = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_time_total", 0) > 0:
-            name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
-            ms, n = got.get(name, (0.0, 0))
-            got[name] = (ms + e.device_time_total / 1e3, n + e.count)
-    return got
-
-
 def kernel_split(torch, fn) -> str:
     """Device time of each kernel one call of fn launches, from the
     profiler's trace of that call (warmed up first), largest first."""
-    split = traced_kernels(torch, fn)
+    split = traced_kernels(fn)
     return ", ".join(f"{k} {v[0]:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
@@ -1395,8 +1377,10 @@ def capi_phase(torch, kernels, card) -> None:
 def experiment_checks(torch, dev) -> None:
     """Each microbenchmark kernel against its plain version at small shapes
     (ragged rows, wrapping sums, states outside the table, clusters of 1 to
-    8 blocks), route lane at 0, 1, 300 and 6,144 steps, and E2 on rows
-    longer than one cluster holds."""
+    8 blocks), E1 on a ragged raw at 1,200 tiles and 512 rounds and at 3
+    and 4 tiles on 2^20 + 100 words (its two column-sum routes), route take
+    on rows of 2^16 entries and at 0 steps, route lane at 0, 1, 300 and
+    6,144 steps, and E2 on rows longer than one cluster holds."""
     from pcodec_tpu_torch.experiments import micro_gather as mg
     from pcodec_tpu_torch.experiments import pallas_bitonic as pb
     from pcodec_tpu_torch.experiments import proto_dma as pd
@@ -1413,11 +1397,31 @@ def experiment_checks(torch, dev) -> None:
     raw, starts = i32(1 << 16), i32((40, 128), 0, (1 << 16) - 3071)
     for heavy in (0, 64):
         check_equal(pd.dma_checksum(starts, raw, heavy), pd.dma_checksum_plain(starts, raw, heavy))
-    for rows, ts in ((13, 64), (64, 1024), (3, 1 << 14)):
+    # a ragged raw, starts at 0, 1,023 and in the last fetchable block, more
+    # tiles than the tile pass holds in one wave, 512 rounds
+    n_raw = (1 << 16) + 100
+    last = (n_raw - 3072) // 1024 * 1024
+    raw, starts = i32(n_raw), i32((1200, 128), 0, last + 1024)
+    starts[0, :3] = torch.tensor([0, 1023, last + 1023], dtype=torch.int32)
+    check_equal(pd.dma_checksum(starts, raw, 512), pd.dma_checksum_plain(starts, raw, 512))
+    # 3 tiles on a raw of 2^20 + 100 words: the column sums of only the
+    # touched blocks (768 touches of 1,024 blocks), and of every block at 4
+    n_raw = (1 << 20) + 100
+    last = (n_raw - 3072) // 1024 * 1024
+    raw = i32(n_raw)
+    for n_tiles in (3, 4):
+        starts = i32((n_tiles, 128), 0, last + 1024)
+        starts[0, :3] = torch.tensor([0, 1023, last + 1023], dtype=torch.int32)
+        check_equal(pd.dma_checksum(starts, raw, 512), pd.dma_checksum_plain(starts, raw, 512))
+    # rows that fill no last block of route take's 4, no step, and rows of
+    # 2^16 entries (route take's read-only-path walk; route taa refuses them)
+    for rows, ts, steps in ((13, 64, 37), (64, 1024, 37), (3, 1 << 14, 37), (37, 1024, 37), (37, 1024, 0),
+                            (5, 1 << 16, 37)):
         table, idx0 = i32((rows, ts)), i32((rows, 4), 0, ts)
-        want = mg.gather_steps_plain(table, idx0, 37)
-        check_equal(mg.gather_take(table.flatten(), idx0, 37), want)
-        check_equal(mg.gather_taa(table, idx0, 37), want)
+        want = mg.gather_steps_plain(table, idx0, steps)
+        check_equal(mg.gather_take(table.flatten(), idx0, steps), want)
+        if ts < 1 << 16:
+            check_equal(mg.gather_taa(table, idx0, steps), want)
     tbl, idx = i32((19, 128)), i32((19, 128))
     for steps in (0, 1, 300, 6144):
         check_equal(mg.lane_steps(tbl, idx, steps), mg.lane_steps_plain(tbl, idx, steps))
@@ -1433,16 +1437,21 @@ def experiment_checks(torch, dev) -> None:
         check_equal(pb.sort_rows_u32(x), pb.sort_rows_u32_plain(x))
 
 
-def experiment_runs(dev) -> dict:
+def experiment_runs(dev) -> tuple:
     """Each microbenchmark's main(): the experiment's own shapes through its
     kernels, each checked against its plain version, timed and printed in
     the experiment's units. Returns {kernel: its row at its last shape, the
-    experiment's largest}."""
+    experiment's largest} and {kernel: the launches of the calls that the
+    profiler traced over all of its shapes}."""
     from pcodec_tpu_torch.experiments import micro_gather, pallas_bitonic, proto_dma, proto_realign
     from pcodec_tpu_torch.experiments import proto_round_loop
 
     mods = (proto_realign, proto_dma, micro_gather, proto_round_loop, pallas_bitonic)
-    return {r["name"]: r for mod in mods for r in mod.main(dev)}
+    rows = [r for mod in mods for r in mod.main(dev)]
+    traced = {}
+    for r in rows:
+        traced[r["name"]] = traced.get(r["name"], 0) + r.get("traced_launches", 0)
+    return {r["name"]: r for r in rows}, traced
 
 
 # phase 10's inputs of phase 8, kept there with their config, bytes and chunk size
@@ -2499,19 +2508,21 @@ def main() -> int:
     # 6. experiments: the microbenchmarks of pcodec_tpu_torch/experiments
     t_exp = time.time()
     experiment_checks(torch, dev)
-    print(f"experiments: every kernel == plain at small shapes, E2 at (2, 2^19) and (1, 2^21) too [{card}]",
-          flush=True)
+    print(f"experiments: every kernel == plain at small shapes, E1 at 1,200 tiles of a ragged raw and on both column-"
+          f"sum routes, route take on "
+          f"rows of 2^16, E2 at (2, 2^19) and (1, 2^21) too [{card}]", flush=True)
     torch.cuda.synchronize()
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
-    exp = experiment_runs(dev)
+    exp, exp_traced = experiment_runs(dev)
     torch.cuda.synchronize()
-    exp_launches = {k: kernels.LAUNCHES[k] for k in EXPERIMENT_ROWS}
+    # launches of the checks and timed calls; those the profiler traced apart
+    exp_launches = {k: kernels.LAUNCHES[k] - exp_traced.get(k, 0) for k in EXPERIMENT_ROWS}
     if any(v == 0 for v in exp_launches.values()):
         raise AssertionError(f"a kernel of the experiments was not launched: {exp_launches}")
     print(f"experiments: E5 proto_realign at 2048 groups {exp['proto_realign']['ms'][0]:.4f} ms beside K1 "
-          f"section_gather at the main path {k1[0]:.4f} ms; launches {exp_launches}; phase {time.time() - t_exp:.1f} s "
-          f"[{card}]", flush=True)
+          f"section_gather at the main path {k1[0]:.4f} ms; launches {exp_launches} (the profiler's traces apart: "
+          f"{exp_traced}); phase {time.time() - t_exp:.1f} s [{card}]", flush=True)
 
     # 9. entry points: the CLI in subprocesses on the main path's numbers, and
     # entry()
@@ -2653,8 +2664,9 @@ def main() -> int:
                      "ms": r["ms"][0], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
                      "timed_runs": r["timed_runs"], "launches_all_shapes": exp_launches[name],
-                     **{k: r[k] for k in ("device_ms", "library_device_ms", "step_loop_bound_ms", "long_rows")
-                        if k in r}})
+                     **{k: r[k] for k in ("device_ms", "library_device_ms", "step_loop_bound_ms", "long_rows",
+                                          "colsum_ms", "tile_ms", "colsum_route", "one_row_ms", "rows_per_block",
+                                          "take_route") if k in r}})
     print(f"wall: {time.time() - t_wall:.1f} s from the start of main [{card}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -27,19 +27,24 @@
 // experiment's shape) and the few operations a round are far below what that
 // costs. What the design does about it: one thread per dependent chain, so
 // the card holds as many chains in flight as there are (8,192 at the
-// experiment's shape), and each route puts the table where its name says:
-// route 0 reads device memory through the read-only path, where the table
-// stays in L2; route 1 stages each block's rows (8 of 4 KB) in shared memory
-// first; route 3 is one load a thread.
+// experiment's shape), and every load a step makes is one from shared
+// memory (~30 cycles) rather than one through the cache hierarchy (~70 ns
+// a step from L2). Route 0 stages each block's rows (TAKE_ROWS of them, 4
+// of 4 KB at the experiment's shape, so its 2,048 rows make 512 blocks,
+// about 4 an SM; 8 and 16 rows a block measured 2-3% slower) by one 1D bulk
+// copy (cp.async.bulk) a row, each completing on that row's mbarrier; each
+// warp waits only for its own rows, so its walk starts as soon as they
+// land. (A wait a chain splits the warp: its lanes leave the wait at
+// different times and walk in turns.) A row larger than a block's shared
+// memory (from 2^16 entries) keeps the walk through the read-only path,
+// with the table in L2 or device memory (`micro_gather_take_rows` says
+// which route a width takes). Route 1 stages each block's rows (8 of 4 KB)
+// with plain loads and a block barrier first; route 3 is one load a thread.
 //
-// Route 2 computes its function by pointer doubling, not by `steps` serial
-// lookups. The low 7 bits of x move on their own ((x + v) & 127 depends only
-// on x & 127), so S_k[s], the wrapped sum of the 2^k values added from
-// residue s, takes 2^k steps at once: S_0 = tbl[r], S_{k+1}[s] = S_k[s] +
-// S_k[(s + S_k[s]) & 127], and for each set bit k of `steps` every chain
-// takes x += S_k[x & 127] (jumps that are powers of one map commute). That
-// is ceil(log2(steps + 1)) rounds, 13 at the experiment's 6,144 steps and 31
-// at most, where a step loop takes 6,144 dependent lookups.
+// Route 2 computes its function by pointer doubling (lane_doubling.cuh), not
+// by `steps` serial lookups: ceil(log2(steps + 1)) rounds, 13 at the
+// experiment's 6,144 steps and 31 at most, where a step loop takes 6,144
+// dependent lookups.
 // What bounds it now: the rounds' dependent shuffles (8 lookups a lane a
 // round, 4 for its chains and 4 for its S entries, each 4 __shfl_sync and a
 // select, Hopper's counterpart of the TPU's lane gather) and, past them, the
@@ -48,13 +53,90 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lane_doubling.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int TAKE_ROWS = 4;         // rows a block of route take stages at most
+constexpr int TAKE_BAR_BYTES = 128;  // the rows' mbarriers (room for 16), ahead of the rows in shared memory
 
-__global__ void __launch_bounds__(THREADS) take_kernel(const int* __restrict__ table, const int* __restrict__ idx0,
-                                                      int* __restrict__ out, int rows, int ts, int steps) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_fetch(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Route 0: a block's rows_per_block rows bulk-copied into shared memory, a
+// row on its own mbarrier; a thread a chain walks its row once its warp's
+// rows have landed.
+__global__ void take_kernel(const int* __restrict__ table, const int* __restrict__ idx0, int* __restrict__ out,
+                            int rows, int ts, int steps, int rows_per_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const unsigned* tab = reinterpret_cast<const unsigned*>(smem + TAKE_BAR_BYTES);
+  const long long row0 = (long long)blockIdx.x * rows_per_block;
+  const int n = (int)(rows - row0 < rows_per_block ? rows - row0 : rows_per_block);
+  const unsigned row_bytes = (unsigned)ts * 4;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < n; ++r) mbar_init(&bar[r], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < n; ++r) {
+      mbar_expect_tx(&bar[r], row_bytes);
+      bulk_fetch(smem + TAKE_BAR_BYTES + (size_t)r * row_bytes, table + (row0 + r) * ts, row_bytes, &bar[r]);
+    }
+  }
+  // A warp waits for its own rows (8 at most), all lanes alike: lanes
+  // waiting on different barriers would leave the wait apart and walk in
+  // turns.
+  const int w0 = (threadIdx.x >> 5) * 8, w1 = w0 + 8 < n ? w0 + 8 : n;
+  for (int r = w0; r < w1; ++r) mbar_wait(&bar[r], 0);
+  const int c = threadIdx.x;
+  if (c >= n * 4) return;
+  const unsigned mask = (unsigned)ts - 1;
+  unsigned idx = (unsigned)idx0[row0 * 4 + c];
+  if (idx >= (unsigned)ts) __trap();
+  const unsigned* row = tab + (size_t)(c >> 2) * ts;
+  for (int s = 0; s < steps; ++s) idx = (idx + row[idx]) & mask;
+  out[row0 * 4 + c] = (int)idx;
+}
+
+// Route 0 for rows larger than a block's shared memory: the walk through the
+// read-only path.
+__global__ void __launch_bounds__(THREADS) take_global_kernel(const int* __restrict__ table,
+                                                             const int* __restrict__ idx0, int* __restrict__ out,
+                                                             int rows, int ts, int steps) {
   const long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (c >= (long long)rows * 4) return;
   const int* tab = table + (c >> 2) * ts;
@@ -83,16 +165,6 @@ __global__ void taa_kernel(const int* __restrict__ table, const int* __restrict_
   out[row0 * 4 + c] = (int)idx;
 }
 
-// tbl[r, x & 127] from the row's entries held 4 a lane (entry e in register
-// e >> 5 of lane e & 31).
-__device__ __forceinline__ unsigned lane_take(unsigned t0, unsigned t1, unsigned t2, unsigned t3, unsigned x) {
-  const int src = (int)(x & 31);
-  const unsigned q = (x >> 5) & 3;
-  const unsigned v0 = __shfl_sync(FULL, t0, src), v1 = __shfl_sync(FULL, t1, src);
-  const unsigned v2 = __shfl_sync(FULL, t2, src), v3 = __shfl_sync(FULL, t3, src);
-  return q == 0 ? v0 : q == 1 ? v1 : q == 2 ? v2 : v3;
-}
-
 // One warp a row, a block a warp: S_k and the row's 128 chains in registers,
 // entry e in register e >> 5 of lane e & 31.
 __global__ void __launch_bounds__(32) lane_kernel(const int* __restrict__ tbl, const int* __restrict__ idx,
@@ -100,33 +172,17 @@ __global__ void __launch_bounds__(32) lane_kernel(const int* __restrict__ tbl, c
   const long long row = blockIdx.x;
   const unsigned lane = threadIdx.x;
   const unsigned* t = reinterpret_cast<const unsigned*>(tbl) + row * 128;
-  const unsigned* x = reinterpret_cast<const unsigned*>(idx) + row * 128;
-  unsigned s0 = t[lane], s1 = t[lane + 32], s2 = t[lane + 64], s3 = t[lane + 96];
-  unsigned x0 = x[lane], x1 = x[lane + 32], x2 = x[lane + 64], x3 = x[lane + 96];
-  for (unsigned k = (unsigned)steps; k != 0;) {
-    if (k & 1) {  // the 2^round steps of S_round
-      x0 += lane_take(s0, s1, s2, s3, x0);
-      x1 += lane_take(s0, s1, s2, s3, x1);
-      x2 += lane_take(s0, s1, s2, s3, x2);
-      x3 += lane_take(s0, s1, s2, s3, x3);
-    }
-    k >>= 1;
-    if (k != 0) {  // S_{round + 1}[s] = S[s] + S[(s + S[s]) & 127]
-      const unsigned n0 = s0 + lane_take(s0, s1, s2, s3, lane + s0);
-      const unsigned n1 = s1 + lane_take(s0, s1, s2, s3, lane + 32 + s1);
-      const unsigned n2 = s2 + lane_take(s0, s1, s2, s3, lane + 64 + s2);
-      const unsigned n3 = s3 + lane_take(s0, s1, s2, s3, lane + 96 + s3);
-      s0 = n0;
-      s1 = n1;
-      s2 = n2;
-      s3 = n3;
-    }
+  const unsigned* x0 = reinterpret_cast<const unsigned*>(idx) + row * 128;
+  unsigned s[4], x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = t[lane + 32 * j];
+    x[j] = x0[lane + 32 * j];
   }
+  lane_steps_doubling(s, x, (unsigned)steps, lane);
   int* o = out + row * 128;
-  o[lane] = (int)x0;
-  o[lane + 32] = (int)x1;
-  o[lane + 64] = (int)x2;
-  o[lane + 96] = (int)x3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o[lane + 32 * j] = (int)x[j];
 }
 
 __global__ void __launch_bounds__(THREADS) row_kernel(const int* __restrict__ tbl, const int* __restrict__ idx,
@@ -138,9 +194,31 @@ __global__ void __launch_bounds__(THREADS) row_kernel(const int* __restrict__ tb
   out[i] = tbl[i - i % width + x];
 }
 
+// Rows a block of route 0 stages in shared memory at table width ts on
+// `device`: TAKE_ROWS, fewer where they do not fit the block's opt-in
+// shared memory, 0 where one row does not (the read-only-path walk).
+cudaError_t take_rows(int ts, int device, int* rows_per_block) {
+  int optin = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const long long fit = (optin - TAKE_BAR_BYTES) / ((long long)ts * 4);
+  *rows_per_block = (int)(fit < TAKE_ROWS ? fit : TAKE_ROWS);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// route 0/1: table (rows, width = ts), idx and out (rows, 4); route 2: table,
+// Rows a block of route take stages in shared memory at table width ts (a
+// power of two, at least 4), or 0 for the read-only-path route; a negative
+// CUDA error on failure.
+extern "C" int micro_gather_take_rows(int ts, int device) {
+  int rpb = 0;
+  const cudaError_t err = take_rows(ts, device, &rpb);
+  return err != cudaSuccess ? -(int)err : rpb;
+}
+
+// route 0/1: table (rows, width = ts), idx and out (rows, 4), route 0's table
+// 16-byte aligned where its rows are staged in shared memory; route 2: table,
 // idx and out (rows, 128), width 128; route 3: (rows, width), steps unused.
 extern "C" int micro_gather(int route, const void* table, const void* idx, void* out, int rows, int width, int steps,
                             int device, void* stream) {
@@ -155,8 +233,20 @@ extern "C" int micro_gather(int route, const void* table, const void* idx, void*
   auto ix = static_cast<const int*>(idx);
   auto o = static_cast<int*>(out);
   if (route == 0) {
-    take_kernel<<<(unsigned)(((long long)rows * 4 + THREADS - 1) / THREADS), THREADS, 0, s>>>(tb, ix, o, rows, width,
-                                                                                             steps);
+    int rpb = 0;
+    err = take_rows(width, device, &rpb);
+    if (err != cudaSuccess) return (int)err;
+    if (rpb == 0) {
+      take_global_kernel<<<(unsigned)(((long long)rows * 4 + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+          tb, ix, o, rows, width, steps);
+    } else {
+      if (reinterpret_cast<uintptr_t>(table) & 15) return (int)cudaErrorInvalidValue;
+      const int smem = TAKE_BAR_BYTES + rpb * width * 4;
+      err = cudaFuncSetAttribute(take_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      const int threads = (rpb * 4 + 31) & ~31;
+      take_kernel<<<(unsigned)((rows + rpb - 1) / rpb), threads, smem, s>>>(tb, ix, o, rows, width, steps, rpb);
+    }
   } else if (route == 1) {
     if (reinterpret_cast<uintptr_t>(table) & 15) return (int)cudaErrorInvalidValue;
     int optin = 0;

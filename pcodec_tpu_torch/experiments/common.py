@@ -1,12 +1,14 @@
 """Measurement helpers of the port, shared by the microbenchmarks of this
 package and by chip_smoke.py: the card they run on, CUDA-event timing, the
-bound of a function, the bit-for-bit check of a kernel against its plain
-version and the result row of one kernel at one shape.
+device time of each kernel in a profiler's trace, the bound of a function,
+the bit-for-bit check of a kernel against its plain version and the result
+row of one kernel at one shape.
 
 Every number here comes from the card: `cuda_device` raises when there is
 none, and no measurement falls back to the CPU.
 """
 
+import re
 import statistics
 import subprocess
 
@@ -59,6 +61,48 @@ def time_ms(fn, runs=RUNS, warmup=WARMUP, hold=False):
 
 def time_plain_ms(fn):
     return time_ms(fn, runs=3, warmup=1)
+
+
+def traced_kernels(fn, calls=1) -> dict:
+    """{kernel name: (device ms, launches)} summed over the launches of
+    `calls` calls of fn that torch.profiler's trace holds, after a first
+    step of one call that the profiler traces and drops (its warm-up). A
+    trace may still hold none of fn's kernels: in chip_smoke.py, after the
+    process's earlier traces, the first trace at each of E1's shapes held
+    neither of its kernels and the second held both. A caller that needs
+    named kernels traces again (`kernel_split_ms`)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in range(2):
+            for _ in range(calls if step else 1):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    got = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_time_total", 0) > 0:
+            name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
+            ms, n = got.get(name, (0.0, 0))
+            got[name] = (ms + e.device_time_total / 1e3, n + e.count)
+    return got
+
+
+def kernel_split_ms(fn, prefixes, calls=5, tries=3) -> dict:
+    """{prefix: device ms a launch} of fn's kernels whose names start with
+    each prefix: the mean of those launches in torch.profiler's trace of
+    `calls` calls, the trace taken again (up to `tries` traces) while it
+    holds none for a prefix; None for a prefix no trace held. Also "held",
+    the names of the last trace's kernels, and "tries", the traces taken."""
+    for k in range(1, tries + 1):
+        traced = traced_kernels(fn, calls)
+        if all(any(name.startswith(p) for name in traced) for p in prefixes):
+            break
+    got = {}
+    for p in prefixes:
+        ms, n = (sum(v[i] for name, v in traced.items() if name.startswith(p)) for i in (0, 1))
+        got[p] = ms / n if n else None
+    return got | {"held": sorted(traced), "tries": k}
 
 
 def nbytes(*ts) -> int:

@@ -6,9 +6,13 @@ Four routes of one kernel source (csrc/micro_gather.cu), one thread per
 dependent chain:
 
     gather_take  STEPS rounds of idx <- (idx + table[row * TS + idx]) & (TS - 1)
-                 on idx (T, 4), the flat table read from device memory (L2)
+                 on idx (T, 4) from the flat table, each block's rows (up
+                 to 4) bulk-copied into shared memory, a row on its own
+                 barrier, each warp walking once its rows land; rows larger
+                 than a block's shared memory (TS from 2^16) walk through
+                 the read-only path (`take_route`)
     gather_taa   the same function, each block's rows of the table staged
-                 in shared memory first
+                 in shared memory first by plain loads
     gather_lane  LSTEPS rounds of idx <- idx + tbl[r, idx & 127] on (8, 128),
                  by pointer doubling (ceil(log2(LSTEPS + 1)) rounds), a
                  warp a row, the table held in registers and read by
@@ -29,7 +33,8 @@ PyTorch loops, timed as yardsticks (`xla_variants`).
 runs the experiment's shapes (T = 2,048, TS = 1,024, STEPS = 192, LSTEPS =
 6,144) on the card: each route against its plain version bit for bit, M
 lookups/s (route lane: the function's chain-steps a second and the rounds
-its pointer doubling took), and one row's time alone.
+its pointer doubling took), and one row's time alone (route take: also its
+rows a block and the route that ran).
 """
 
 import numpy as np
@@ -43,6 +48,7 @@ STEPS = 192
 TS = 1024  # table entries a row
 LSTEPS = STEPS * 32
 OPS_PER_LOOKUP = 3  # index arithmetic, lookup, add/mask
+TAKE_ROWS = 4  # rows a block route take stages in shared memory at most; must match csrc/micro_gather.cu
 
 
 def gather_steps_plain(table: torch.Tensor, idx0: torch.Tensor, steps: int) -> torch.Tensor:
@@ -111,15 +117,26 @@ def _check(route: str, *tensors) -> None:
             raise ValueError(f"{route} takes contiguous int32 tensors on {dev}")
 
 
+def take_route(ts: int, device) -> tuple:
+    """(rows a block, route) of route take at table width ts on the card:
+    the rows staged in shared memory, or 0 and the read-only-path walk."""
+    rpb = kernels.micro_gather_take_rows(ts, device)
+    return rpb, "shared memory" if rpb else "read-only path"
+
+
 def gather_take(table_flat: torch.Tensor, idx0: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
-    """Route take: as gather_steps_plain, the table (rows * ts,) read from
-    device memory; on the card a first index outside [0, ts) traps."""
+    """Route take: as gather_steps_plain, the table (rows * ts,) staged a
+    block's rows at a time in shared memory (16-byte aligned), or walked
+    through the read-only path where a row does not fit; on the card a
+    first index outside [0, ts) traps."""
     if table_flat.device.type == "cpu":
         return gather_steps_plain(table_flat, idx0, steps)
     rows = idx0.shape[0]
     if table_flat.dim() != 1 or idx0.dim() != 2 or idx0.shape[1] != 4 or table_flat.numel() % max(rows, 1):
         raise ValueError("gather_take takes table (rows * ts,) and idx0 (rows, 4)")
     _check("gather_take", table_flat, idx0)
+    if table_flat.data_ptr() % 16:
+        raise ValueError("gather_take's table must start on a 16-byte boundary")
     out = torch.empty_like(idx0)
     kernels.launch_micro_gather("gather_take", table_flat, idx0, out, rows, table_flat.numel() // max(rows, 1), steps)
     return out
@@ -231,10 +248,14 @@ def measure_steps(route: str, inp: dict) -> dict:
     one = common.time_ms(lambda: fn(one_table, one_idx, STEPS), hold=True)
     plain = common.time_plain_ms(lambda: gather_steps_plain(table, idx0, STEPS))
     lookups = rows * 4 * STEPS
+    extra, units = {}, ""
+    if route == "gather_take":
+        rpb, how = take_route(ts, table.device)
+        extra, units = dict(rows_per_block=rpb, take_route=how), f"; {how}, {rpb} rows a block"
     return common.row(route, f"T={rows} TS={ts} STEPS={STEPS}", kernels.LAUNCHES[route] - n0, t, plain[0],
                       None, common.bound(common.nbytes(table_flat, idx0, out), lookups * OPS_PER_LOOKUP),
-                      f"{lookups / t[1] / 1e3:.1f} M lookups/s (card alone); one row (4 chains) alone {one[0]:.4f} ms",
-                      one_row_ms=one[0])
+                      f"{lookups / t[1] / 1e3:.1f} M lookups/s (card alone); one row (4 chains) alone {one[0]:.4f} ms "
+                      f"(card alone){units}", one_row_ms=one[0], **extra)
 
 
 def measure_lane(inp: dict) -> dict:

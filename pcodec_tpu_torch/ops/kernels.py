@@ -3,8 +3,8 @@
 Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface and loaded through ctypes. Libraries are built at first
 use into `build/pcodec_tpu_torch/` beside the package, named by a hash of
-the source and flags, with the `-Xptxas -v` report kept beside each one.
-Nothing here is compiled or loaded at import time.
+the source, the csrc/ headers it includes and the flags, with the `-Xptxas
+-v` report kept beside each one. Nothing here is compiled or loaded at import time.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; the launch functions below raise if it is non-zero
@@ -14,6 +14,7 @@ and count successful launches in LAUNCHES.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -105,7 +106,7 @@ _ARGTYPES = {
     "lookback_choose": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # raw2d, n_rows, starts_blk, out, n_groups, device, stream
     "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
-    # raw, n_raw, starts, part, out, n_tiles, heavy_rounds, device, stream
+    # raw, n_raw, starts, colsum, out, n_tiles, heavy_rounds, device, stream
     "proto_dma": [_P, _L, _P, _P, _P, _I, _I, _I, _P],
     # route, table, idx, out, rows, width, steps, device, stream
     "micro_gather": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -135,7 +136,11 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> str:
     with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src = f.read()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        with open(os.path.join(_CSRC, header.decode()), "rb") as f:
+            src += f.read()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{h}.so")
 
 
@@ -375,9 +380,23 @@ def launch_proto_realign(raw2d, starts_blk, out) -> None:
           out.shape[0])
 
 
-def launch_proto_dma(raw, starts, part, out, heavy_rounds: int) -> None:
-    _call("proto_dma", raw, raw.data_ptr(), raw.shape[0], starts.data_ptr(), part.data_ptr(), out.data_ptr(),
+def launch_proto_dma(raw, starts, colsum, out, heavy_rounds: int) -> None:
+    _call("proto_dma", raw, raw.data_ptr(), raw.shape[0], starts.data_ptr(), colsum.data_ptr(), out.data_ptr(),
           starts.shape[0], heavy_rounds)
+
+
+def micro_gather_take_rows(ts: int, device) -> int:
+    """Rows a block of route take stages in shared memory at table width
+    ts on `device`, or 0 where a row does not fit (the walk through the
+    read-only path)."""
+    lib = _lib("micro_gather")
+    fn = lib.micro_gather_take_rows
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    n = fn(ts, torch.device(device).index or 0)
+    if n < 0:
+        raise RuntimeError(f"micro_gather_take_rows: CUDA error {-n} ({lib.pcodec_cuda_error_string(-n).decode()})")
+    return n
 
 
 def launch_micro_gather(route: str, table, idx, out, rows: int, width: int, steps: int) -> None:

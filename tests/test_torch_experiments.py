@@ -79,7 +79,8 @@ def test_realign_plain_matches_pallas(load):
 
 @pytest.mark.usefixtures("interpret")
 def test_dma_plain_matches_pallas(load):
-    """Exact: E1's plain version equals proto_dma.py's kernel (3 tiles, 5
+    """Exact: E1's plain version and its kernel structure in torch
+    (dma_checksum_blocks_plain) equal proto_dma.py's kernel (3 tiles, 5
     heavy rounds, starts anywhere in their 1,024-word blocks)."""
     mod = load("proto_dma")
     rng = np.random.default_rng(12)
@@ -89,6 +90,46 @@ def test_dma_plain_matches_pallas(load):
         want = np.asarray(mod.make_run(3, 5)(jnp.asarray(starts), jnp.asarray(raw)))
     got = proto_dma.dma_checksum(_t(starts), _t(raw), 5)
     assert np.array_equal(got.numpy(), want)
+    assert torch.equal(proto_dma.dma_checksum_blocks_plain(_t(starts), _t(raw), 5), got)
+
+
+@pytest.mark.parametrize("heavy", [0, 1, 7, 512])
+def test_dma_blocks_plain_matches_plain(heavy):
+    """Exact: E1's kernel structure in torch (the blocks' column sums, each
+    tile's rows of them, the rounds by pointer doubling) equals the plain
+    version on a raw of 2^15 + 100 words (a trailing part-block), full-range
+    words so the sums wrap, starts at 0, 1,023 and in the last fetchable
+    block; both refuse a section past raw's end."""
+    rng = np.random.default_rng(heavy + 18)
+    n_raw = (1 << 15) + 100
+    last = (n_raw - 3072) // 1024 * 1024
+    raw = _t(rng.integers(-(2**31), 2**31, n_raw, dtype=np.int64).astype(np.int32))
+    starts = rng.integers(0, last + 1024, (3, 128), dtype=np.int32)
+    starts[0, :3] = [0, 1023, last + 1023]
+    got = proto_dma.dma_checksum_blocks_plain(_t(starts), raw, heavy)
+    assert torch.equal(got, proto_dma.dma_checksum_plain(_t(starts), raw, heavy))
+    starts[1, 5] = last + 1024
+    for fn in (proto_dma.dma_checksum_plain, proto_dma.dma_checksum_blocks_plain):
+        with pytest.raises(ValueError, match="outside raw"):
+            fn(_t(starts), raw, heavy)
+
+
+def test_dma_blocks_plain_sums_only_touched_blocks():
+    """Exact: where the chains touch fewer blocks than raw holds (one tile on
+    a raw of 2^20 + 100 words), E1's kernel structure in torch sums only the
+    touched blocks, as the kernel's column-sum pass then does, and still
+    equals the plain version at 512 rounds, with starts at 0, 1,023 and in
+    the last fetchable block."""
+    rng = np.random.default_rng(19)
+    n_raw = (1 << 20) + 100
+    last = (n_raw - 3072) // 1024 * 1024
+    raw = _t(rng.integers(-(2**31), 2**31, n_raw, dtype=np.int64).astype(np.int32))
+    starts = rng.integers(0, last + 1024, (1, 128), dtype=np.int32)
+    starts[0, :3] = [0, 1023, last + 1023]
+    assert proto_dma.colsum_rows(1, n_raw) == ("touched blocks", 256)
+    assert proto_dma.colsum_rows(4, n_raw) == ("every block", 1024)
+    got = proto_dma.dma_checksum_blocks_plain(_t(starts), raw, 512)
+    assert torch.equal(got, proto_dma.dma_checksum_plain(_t(starts), raw, 512))
 
 
 def _gather_prototypes(T, TS, steps, lsteps, tables):

@@ -6,6 +6,10 @@ no card. This file imports no JAX, so on a GPU machine without JAX it runs as
 `python -m pytest tests/test_torch_experiments_kernels.py --noconftest -m gpu`.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,7 @@ from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.row_sort import row_sort_u32, row_sort_u32_plain
 
 RNG = np.random.default_rng(51)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _need_card():
@@ -53,14 +58,21 @@ def test_realign_kernel_matches_plain_version(n_groups, n_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tiles,heavy", [(1, 0), (3, 5), (9, 64), (40, 0)])
-def test_dma_kernel_matches_plain_version(n_tiles, heavy):
-    """Exact: E1 on the card, more tiles than blocks a chain group so the
-    double buffer turns over, starts in the last fetchable block."""
+@pytest.mark.parametrize("n_tiles,heavy,n_raw", [(1, 0, 1 << 16), (3, 5, 1 << 16), (9, 64, 1 << 16),
+                                                 (40, 0, 1 << 16), (1200, 512, (1 << 16) + 100),
+                                                 (3, 512, (1 << 20) + 100), (4, 7, (1 << 20) + 100)])
+def test_dma_kernel_matches_plain_version(n_tiles, heavy, n_raw):
+    """Exact: E1 on the card, starts at 0, 1,023 and anywhere in the last
+    fetchable block, full-range words so the sums wrap; a raw with a
+    trailing part-block, 512 rounds and more tiles than the tile pass holds
+    in one wave (8 blocks of 256 threads an SM); the column sums of only
+    the touched blocks (3 tiles' 768 touches of 1,024 blocks) and of every
+    block from 4 tiles on."""
     _need_card()
-    raw = _cuda(_i32(1 << 16))
-    starts = RNG.integers(0, (1 << 16) - 3072, (n_tiles, 128)).astype(np.int32)
-    starts[0, :3] = [(1 << 16) - 3072, 0, 1023]
+    raw = _cuda(_i32(n_raw))
+    last = (n_raw - 3072) // 1024 * 1024
+    starts = RNG.integers(0, last + 1024, (n_tiles, 128)).astype(np.int32)
+    starts[0, :4] = [last, 0, 1023, last + 1023]
     starts = _cuda(starts)
     got = _launched("proto_dma", lambda: proto_dma.dma_checksum(starts, raw, heavy))
     assert torch.equal(got, proto_dma.dma_checksum_plain(starts, raw, heavy))
@@ -68,17 +80,60 @@ def test_dma_kernel_matches_plain_version(n_tiles, heavy):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["gather_take", "gather_taa"])
-@pytest.mark.parametrize("rows,ts", [(1, 4), (13, 64), (64, 1024), (3, 1 << 14)])
-def test_gather_steps_kernels_match_plain_version(route, rows, ts):
-    """Exact: routes take and taa on the card, ragged row counts and tables
-    from 16 bytes to 64 KB a row (fewer rows a block in shared memory)."""
+@pytest.mark.parametrize("rows,ts,steps", [(1, 4, 37), (13, 64, 37), (64, 1024, 37), (3, 1 << 14, 37),
+                                           (37, 1024, 37), (37, 1024, 0), (5, 1 << 16, 37)])
+def test_gather_steps_kernels_match_plain_version(route, rows, ts, steps):
+    """Exact: routes take and taa on the card, ragged row counts (37 rows
+    fill no last block of route take's 4), no step, and tables from 16
+    bytes to 64 KB a row (fewer rows a block in shared memory). Rows of
+    2^16 entries (256 KB) fit no block: route take walks them through the
+    read-only path, and route taa refuses them, launching nothing."""
     _need_card()
     table = _cuda(_i32((rows, ts)))
     idx0 = _cuda(RNG.integers(0, ts, (rows, 4)).astype(np.int32))
     fn = micro_gather.gather_take if route == "gather_take" else micro_gather.gather_taa
     tab = table.flatten() if route == "gather_take" else table
-    got = _launched(route, lambda: fn(tab, idx0, 37))
-    assert torch.equal(got, micro_gather.gather_steps_plain(table, idx0, 37))
+    if route == "gather_taa" and ts == 1 << 16:
+        before = dict(kernels.LAUNCHES)
+        with pytest.raises(RuntimeError, match="gather_taa kernel launch failed"):
+            fn(tab, idx0, steps)
+        assert kernels.LAUNCHES == before
+        return
+    got = _launched(route, lambda: fn(tab, idx0, steps))
+    assert torch.equal(got, micro_gather.gather_steps_plain(table, idx0, steps))
+    if route == "gather_take":  # TAKE_ROWS rows a block, 3 of 64 KB in an H100's 227 KB, none of 256 KB
+        want_rows = {1 << 14: 3, 1 << 16: 0}.get(ts, micro_gather.TAKE_ROWS)
+        assert micro_gather.take_route(ts, table.device)[0] == want_rows
+
+
+# a call whose first index lies outside its table, on a fresh process's card
+_OUTSIDE = {
+    "proto_dma": "from pcodec_tpu_torch.experiments import proto_dma as m\n"
+                 "raw = torch.zeros(1 << 16, dtype=torch.int32, device='cuda')\n"
+                 "m.dma_checksum(torch.full((2, 128), (1 << 16) - 2048, dtype=torch.int32, device='cuda'), raw, 0)",
+    "proto_dma, touched blocks": "from pcodec_tpu_torch.experiments import proto_dma as m\n"
+                                 "raw = torch.zeros(1 << 20, dtype=torch.int32, device='cuda')\n"
+                                 "m.dma_checksum(torch.full((1, 128), -1024, dtype=torch.int32, device='cuda'), raw, 0)",
+    "gather_take": "from pcodec_tpu_torch.experiments import micro_gather as m\n"
+                   "table = torch.zeros(4 * 1024, dtype=torch.int32, device='cuda')\n"
+                   "m.gather_take(table, torch.full((4, 4), 1024, dtype=torch.int32, device='cuda'), 5)",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(_OUTSIDE))
+def test_kernel_traps_on_an_index_outside_its_table(kernel):
+    """E1 (a section past raw's end, or before its start where the column
+    sums read only the touched blocks) and route take (a first index of TS)
+    trap on the card: the process's next synchronize fails with a CUDA
+    error and nothing after it runs. In a subprocess, since a trap spoils
+    its process's CUDA context."""
+    _need_card()
+    code = f"import torch\n{_OUTSIDE[kernel]}\ntorch.cuda.synchronize()\nprint('no trap')"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "no trap" not in r.stdout
+    assert "CUDA error" in r.stderr
 
 
 @pytest.mark.gpu

@@ -11,7 +11,7 @@ import re
 import pytest
 
 from pcodec_tpu_torch import constants
-from pcodec_tpu_torch.experiments import pallas_bitonic
+from pcodec_tpu_torch.experiments import micro_gather, pallas_bitonic, proto_dma
 from pcodec_tpu_torch.ops import assemble, decode, device_train, kernels, row_sort
 
 _CONSTEXPR = re.compile(r"constexpr\s+[\w ]+?\s+(\w+)\s*=\s*([^;]+);")
@@ -62,6 +62,10 @@ def _cu_constants(name: str) -> dict:
     ("bitonic_cluster", "BLOCK_LOG", pallas_bitonic.BLOCK_KEYS.bit_length() - 1),
     ("bitonic_cluster", "MAX_CLUSTER", pallas_bitonic.MAX_CLUSTER),
     ("bitonic_cluster", "MAX_LOG", pallas_bitonic.MAX_KEYS.bit_length() - 1),
+    ("proto_dma", "N_CHAINS", proto_dma.N_CHAINS),
+    ("proto_dma", "FETCH_WORDS", proto_dma.FETCH_WORDS),
+    ("proto_dma", "BLOCK_WORDS", proto_dma.BLOCK_WORDS),
+    ("micro_gather", "TAKE_ROWS", micro_gather.TAKE_ROWS),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value

@@ -1,22 +1,27 @@
-"""Variants of the port's E4b and B5 kernels, timed on the card against
-the committed ones: each variant is a text edit of a kernel source, built by
-nvcc beside the port's own libraries and called through the same C entry
-point. A record of the runs that chose the two designs (PERF.md section
-6), not part of the package: nothing imports it, and an edit that no
-longer applies to the committed source raises.
+"""Variants of the port's E1, E3a, E4b and B5 kernels, timed on the card
+against the committed ones: each variant is a text edit of a kernel source
+(or an earlier tree's source as it is), built by nvcc beside the port's own
+libraries and called through the same C entry point. A record of the runs
+that chose the designs (PERF.md section 6), not part of the package:
+nothing imports it, and an edit that no longer applies to the committed
+source raises.
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e4b|b5]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e4b|b5]
 
-DIR is a tree of the port whose csrc/proto_round_loop.cu is the earlier
-round-loop design (a block a tile, the four window words reloaded every
-round); its variants run when it is given. Every variant that computes the
-function is held bit for bit against its plain version (E4b) or against
-the committed kernel's outputs on every page (B5, whose committed kernel is
-held to its plain version on its first 64 pages); those that drop work to
-expose its cost (named "no ...") are only timed. Card-alone medians
-(`hold=True`), each variant timed twice in turns, B5's kernels also split
-by the profiler's trace; the card's name and power limit beside every line.
-Needs a card and raises without one.
+DIR is an earlier tree of the port (e.g. `git archive` of a parent under
+`build/`). E1: its csrc/proto_dma.cu, where that is the earlier fetch
+form (a bulk copy of each chain's section into shared memory), is timed
+beside the committed kernel. E3a: its csrc/micro_gather.cu's route take,
+where that is the earlier walk through the read-only path. E4b: where its
+round loop is the earlier design (a block a tile, the four window words
+reloaded every round), its variants run. Every variant that computes
+the function is held bit for bit against its plain version (E1, E3a,
+E4b) or against the committed kernel's outputs on every page (B5, whose
+committed kernel is held to its plain version on its first 64 pages);
+those that drop work to expose its cost (named "no ...") are only timed.
+Card-alone medians (`hold=True`), each variant timed twice in turns, E1's
+and B5's kernels also split by the profiler's trace; the card's name and
+power limit beside every line. Needs a card and raises without one.
 """
 
 import argparse
@@ -32,6 +37,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pcodec_tpu_torch.experiments import common
+from pcodec_tpu_torch.experiments import micro_gather as mg
+from pcodec_tpu_torch.experiments import proto_dma as pd
 from pcodec_tpu_torch.experiments import proto_round_loop as prl
 from pcodec_tpu_torch.ops import device_train as dt
 from pcodec_tpu_torch.ops import kernels
@@ -329,8 +336,8 @@ def build_variants(path: str, variants: dict, prefix: str) -> dict:
         with open(cu, "w") as f:
             f.write(_edited(path, edits))
         so = cu[:-3] + ".so"
-        procs[name] = (subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so, cu],
-                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", kernels._CSRC, "-o", so, cu]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
         log = proc.communicate()[0]
@@ -347,6 +354,12 @@ def build_variants(path: str, variants: dict, prefix: str) -> dict:
     return libs
 
 
+def _bind(libs: dict, fn_name: str) -> None:
+    for lib in libs.values():
+        getattr(lib, fn_name).argtypes = kernels._ARGTYPES[fn_name]
+        getattr(lib, fn_name).restype = ctypes.c_int
+
+
 def _in_turns(names, fn) -> dict:
     """{name: (median of the first turn, of the second)}: fn(name) timed
     in order, then in reverse order."""
@@ -359,9 +372,7 @@ def _in_turns(names, fn) -> dict:
 
 def e4b_variants(path: str, variants: dict, prefix: str, card: str) -> None:
     libs = build_variants(path, variants, prefix)
-    for lib in libs.values():
-        lib.proto_round_loop.argtypes = kernels._ARGTYPES["proto_round_loop"]
-        lib.proto_round_loop.restype = ctypes.c_int
+    _bind(libs, "proto_round_loop")
     dev = torch.device("cuda")
     for with_emit, n_tiles in prl.BENCH:
         sec, node, state = prl.make_inputs(n_tiles, dev)
@@ -404,23 +415,8 @@ def b5_inputs(dev, bits: int):
 
 def kernel_times(fn, calls=5) -> dict:
     """{kernel name: device ms a launch} of fn's kernels: the mean of the
-    launches that the profiler's trace of `calls` calls holds (warmed up
-    first; a trace of several calls may drop some launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    got = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_time_total", 0) > 0:
-            name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "").replace("void ", ""))[0].strip()
-            ms, n = got.get(name, (0.0, 0))
-            got[name] = (ms + e.device_time_total / 1e3, n + e.count)
-    return {name: ms / n for name, (ms, n) in got.items()}
+    launches that the profiler's trace of `calls` calls holds."""
+    return {name: ms / n for name, (ms, n) in common.traced_kernels(fn, calls).items()}
 
 
 def b5_variants(card: str) -> None:
@@ -470,9 +466,108 @@ def b5_variants(card: str) -> None:
             kernels._LIBS["lookback_choose"] = keep
 
 
+# the column-sum pass's route forced either way (the committed kernel picks by size)
+_E1 = {
+    "committed": [],
+    "every block always": [("const bool by_starts = touches < n_blocks;", "const bool by_starts = false;")],
+    "touched blocks always": [("const bool by_starts = touches < n_blocks;", "const bool by_starts = true;")],
+}
+
+
+def e1_variants(parent, card: str) -> None:
+    """The committed E1 (column sums, then a block a tile), its column-sum
+    pass forced to every block of raw or to the blocks the chains touch,
+    and, from DIR, the fetch form (each chain's 3,072 words bulk-copied into
+    shared memory; its scratch holds a tile's 16 partial sums), at the
+    experiment's shapes."""
+    libs = build_variants(os.path.join(kernels._CSRC, "proto_dma.cu"), _E1, "e1_")
+    if parent:
+        libs |= build_variants(os.path.join(parent, "pcodec_tpu_torch", "csrc", "proto_dma.cu"),
+                               {"earlier section fetch": []}, "e1_parent_")
+    _bind(libs, "proto_dma")
+    dev = torch.device("cuda")
+    for n_tiles, heavy in pd.SHAPES:
+        starts, raw = pd.make_inputs(n_tiles, dev)
+        want = pd.dma_checksum_plain(starts, raw, heavy)
+
+        def run(name):
+            earlier = name.startswith("earlier")
+            shape = (n_tiles, pd.GROUPS, 8, 128) if earlier else (raw.shape[0] // pd.BLOCK_WORDS, 128)
+            scratch = torch.empty(shape, dtype=torch.int32, device=dev)
+            out = torch.empty((n_tiles, 8, 128), dtype=torch.int32, device=dev)
+            rc = libs[name].proto_dma(raw.data_ptr(), raw.shape[0], starts.data_ptr(), scratch.data_ptr(),
+                                      out.data_ptr(), n_tiles, heavy, 0, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+            return out
+
+        def timed(name):
+            common.check_equal(run(name), want, name)
+            return common.time_ms(lambda: run(name), hold=True)[0]
+
+        times = _in_turns(libs, timed)
+        split = {name: kernel_times(lambda: run(name), calls=1) for name in libs}
+        print(f"E1 {n_tiles} tiles, heavy {heavy}, card alone ms (two turns): "
+              + "; ".join(f"{k} {a:.4f}/{b:.4f} (profiler: "
+                          + ", ".join(f"{kn} {v:.4f}" for kn, v in sorted(split[k].items())) + ")"
+                          for k, (a, b) in times.items()) + f"; every output == the plain version [{card}]",
+              flush=True)
+
+
+_E3A = {
+    "committed": [],
+    "8 rows a block": [("constexpr int TAKE_ROWS = 4;", "constexpr int TAKE_ROWS = 8;")],
+    "16 rows a block": [("constexpr int TAKE_ROWS = 4;", "constexpr int TAKE_ROWS = 16;")],
+}
+E3A_SHAPES = (("whole", None, mg.STEPS), ("one block of rows", 16, mg.STEPS), ("one row", 1, mg.STEPS),
+              ("whole, 0 steps", None, 0), ("one row, 0 steps", 1, 0))
+
+
+def e3a_variants(parent, card: str) -> None:
+    """Route take with 4 (committed), 8 and 16 rows a block and, from DIR,
+    the walk through the read-only path: at the experiment's shape, on its
+    first 16 rows (one block), on one row alone, and at 0 steps (the launch
+    and the copies)."""
+    libs = build_variants(os.path.join(kernels._CSRC, "micro_gather.cu"), _E3A, "e3a_")
+    if parent:
+        libs |= build_variants(os.path.join(parent, "pcodec_tpu_torch", "csrc", "micro_gather.cu"),
+                               {"earlier read-only-path walk": []}, "e3a_parent_")
+    _bind(libs, "micro_gather")
+    inp = mg.make_inputs(torch.device("cuda"))
+    table, idx0 = inp["table_flat"], inp["idx0"]
+    ts = table.numel() // idx0.shape[0]
+
+    def run(name, rows, steps):
+        idx = idx0[:rows]
+        out = torch.empty_like(idx)
+        rc = libs[name].micro_gather(0, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], ts, steps, 0,
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        return out
+
+    def timed(name):
+        got = []
+        for _, rows, steps in E3A_SHAPES:
+            want = mg.gather_steps_plain(table[: (rows or idx0.shape[0]) * ts], idx0[:rows], steps)
+            common.check_equal(run(name, rows, steps), want, f"{name} ({rows} rows, {steps} steps)")
+            got.append(common.time_ms(lambda: run(name, rows, steps), hold=True)[0])
+        return got
+
+    times = _in_turns(libs, timed)
+    for name, (a, b) in times.items():
+        print(f"E3a {name}, T={idx0.shape[0]} TS={ts}, card alone ms (two turns): "
+              + "; ".join(f"{what} {x:.4f}/{y:.4f}" for (what, _, _), x, y in zip(E3A_SHAPES, a, b))
+              + f"; every output == the plain version [{card}]", flush=True)
+
+
 def main(parent=None, only=None, device="cuda") -> None:
     common.cuda_device(device)
     card = common.card_line()
+    if only in (None, "e1"):
+        e1_variants(parent, card)
+    if only in (None, "e3a"):
+        e3a_variants(parent, card)
     if only in (None, "e4b"):
         e4b_variants(os.path.join(kernels._CSRC, "proto_round_loop.cu"), _E4B_NEW, "e4b_", card)
         if parent:
@@ -484,7 +579,7 @@ def main(parent=None, only=None, device="cuda") -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a tree of the port whose round loop is the earlier design")
-    ap.add_argument("--only", choices=("e4b", "b5"), help="run one kernel's variants")
+    ap.add_argument("--parent", help="an earlier tree of the port, whose kernels are timed beside the committed ones")
+    ap.add_argument("--only", choices=("e1", "e3a", "e4b", "b5"), help="run one kernel's variants")
     args = ap.parse_args()
     main(args.parent, args.only)
