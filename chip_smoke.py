@@ -1379,8 +1379,10 @@ def experiment_checks(torch, dev) -> None:
     (ragged rows, wrapping sums, states outside the table, clusters of 1 to
     8 blocks), E1 on a ragged raw at 1,200 tiles and 512 rounds and at 3
     and 4 tiles on 2^20 + 100 words (its two column-sum routes), route take
-    on rows of 2^16 entries and at 0 steps, route lane at 0, 1, 300 and
-    6,144 steps, and E2 on rows longer than one cluster holds."""
+    on rows of 2^16 entries and at 0 steps, route taa at the same shapes
+    but 2^16 (which it refuses), route row in each of its two forms (also
+    against torch.gather), route lane at 0, 1, 300 and 6,144 steps, and E2
+    on rows longer than one cluster holds."""
     from pcodec_tpu_torch.experiments import micro_gather as mg
     from pcodec_tpu_torch.experiments import pallas_bitonic as pb
     from pcodec_tpu_torch.experiments import proto_dma as pd
@@ -1425,8 +1427,13 @@ def experiment_checks(torch, dev) -> None:
     tbl, idx = i32((19, 128)), i32((19, 128))
     for steps in (0, 1, 300, 6144):
         check_equal(mg.lane_steps(tbl, idx, steps), mg.lane_steps_plain(tbl, idx, steps))
-    tbl, idx = i32((5, 77)), i32((5, 77), 0, 77)
-    check_equal(mg.row_gather(tbl, idx), mg.row_gather_plain(tbl, idx))
+    # route row in each of its forms: registers (widths 1-128, rows that
+    # fill no last block), a thread an element (129-3,000)
+    for rows, width in ((5, 77), (3, 1), (7, 32), (4097, 128), (5, 129), (4, 2048), (3, 3000)):
+        tbl, idx = i32((rows, width)), i32((rows, width), 0, width)
+        got = mg.row_gather(tbl, idx)
+        check_equal(got, mg.row_gather_plain(tbl, idx))
+        check_equal(got, torch.gather(tbl, 1, idx.long()))
     sec, node, state = i32((3, 256, 128)), i32((8, 1024)), i32((3, 8, 128), 0, 1024)
     state[0, :, :5] = torch.tensor([-7, 1024, 5000, -(2**31), 2**31 - 1], dtype=torch.int32)
     for got, want in zip(prl.round_loop(sec, node, state, 7, True), prl.round_loop_plain(sec, node, state, 7, True)):

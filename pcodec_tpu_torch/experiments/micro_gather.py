@@ -11,13 +11,20 @@ dependent chain:
                  barrier, each warp walking once its rows land; rows larger
                  than a block's shared memory (TS from 2^16) walk through
                  the read-only path (`take_route`)
-    gather_taa   the same function, each block's rows of the table staged
-                 in shared memory first by plain loads
+    gather_taa   the same function, a warp a row (TAA_WARPS warps a block),
+                 each warp staging its row by 16-byte cp.async copies and
+                 walking once its lanes have met at __syncwarp, no block
+                 barrier (`gather_taa_warps_plain`); rows larger than a
+                 block's shared memory are refused
     gather_lane  LSTEPS rounds of idx <- idx + tbl[r, idx & 127] on (8, 128),
                  by pointer doubling (ceil(log2(LSTEPS + 1)) rounds), a
                  warp a row, the table held in registers and read by
                  __shfl_sync
-    gather_row   one take_along_axis(tbl, idx, axis=1): out[r, l] = tbl[r, idx[r, l]]
+    gather_row   one take_along_axis(tbl, idx, axis=1): out[r, l] = tbl[r, idx[r, l]],
+                 the row's words and its indices loaded together, then
+                 gathered on chip: a warp a row in registers up to
+                 ROW_LANE_MAX words (`row_gather_lanes_plain`); wider rows
+                 a thread an element (`row_route`)
 
 All int32 with wrap-around. They probe where K2 chain_decode keeps its
 node/lower table (shared memory) and K4 dict_join's two table routes: every
@@ -49,6 +56,8 @@ TS = 1024  # table entries a row
 LSTEPS = STEPS * 32
 OPS_PER_LOOKUP = 3  # index arithmetic, lookup, add/mask
 TAKE_ROWS = 4  # rows a block route take stages in shared memory at most; must match csrc/micro_gather.cu
+TAA_WARPS = 4  # warps (a row each) a block of route taa at most; must match csrc/micro_gather.cu
+ROW_LANE_MAX = 128  # widest row route row holds in a warp's registers; must match csrc/micro_gather.cu
 
 
 def gather_steps_plain(table: torch.Tensor, idx0: torch.Tensor, steps: int) -> torch.Tensor:
@@ -110,6 +119,50 @@ def row_gather_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(tbl, idx.long(), dim=1)
 
 
+def row_route(width: int) -> str:
+    """Where route row gathers a row of `width` words: "registers" (a warp
+    a row, 4 words a lane) or "device memory" (a thread an element)."""
+    return "registers" if width <= ROW_LANE_MAX else "device memory"
+
+
+def row_gather_lanes_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Route row's register form in torch, rows of up to ROW_LANE_MAX
+    words: each row padded to 128 words and held as 4 registers of 32
+    lanes (entry e in register e >> 5 of lane e & 31), an index x read as
+    lane_take does, register (x >> 5) & 3 of lane x & 31. Raises on an
+    index outside its row, where the kernel traps."""
+    rows, width = tbl.shape
+    if width > ROW_LANE_MAX:
+        raise ValueError(f"the register form holds rows of up to {ROW_LANE_MAX} words, not {width}")
+    x = idx.long()
+    if bool(((x < 0) | (x >= width)).any()):
+        raise IndexError("an index lies outside its row")
+    regs = torch.zeros((rows, 4, 32), dtype=tbl.dtype, device=tbl.device)
+    regs.view(rows, 128)[:, :width] = tbl
+    r = torch.arange(rows, device=tbl.device)[:, None]
+    return regs[r, (x >> 5) & 3, x & 31]
+
+
+def gather_taa_warps_plain(table: torch.Tensor, idx0: torch.Tensor, steps: int) -> torch.Tensor:
+    """Route taa's kernel in torch: gather_steps_plain's function on table
+    (rows, ts), a warp a row. Lane l of a row's warp copies the row's
+    16-byte quads l, l + 32, ... into the warp's part of shared memory;
+    lanes 0-3 then walk the row's four chains there. Raises where a first
+    index lies outside its table, where the kernel traps."""
+    rows, ts = table.shape
+    x = idx0.long()
+    if bool(((x < 0) | (x >= ts)).any()):
+        raise IndexError("a first index lies outside its table")
+    quads = table.view(rows, ts // 4, 4)
+    smem = torch.empty_like(quads)
+    for lane in range(min(32, ts // 4)):
+        smem[:, lane::32] = quads[:, lane::32]
+    smem = smem.view(rows, ts)
+    for _ in range(steps):
+        x = (x + smem.gather(1, x).long()) & (ts - 1)
+    return x.to(torch.int32)
+
+
 def _check(route: str, *tensors) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -144,7 +197,9 @@ def gather_take(table_flat: torch.Tensor, idx0: torch.Tensor, steps: int = STEPS
 
 def gather_taa(table2d: torch.Tensor, idx0: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
     """Route taa: as gather_steps_plain, the table (rows, ts) staged in
-    shared memory; on the card a first index outside [0, ts) traps."""
+    shared memory a warp a row (`gather_taa_warps_plain`); on
+    the card a first index outside [0, ts) traps, and rows larger than a
+    block's shared memory are refused."""
     if table2d.device.type == "cpu":
         return gather_steps_plain(table2d, idx0, steps)
     if table2d.dim() != 2 or idx0.shape != (table2d.shape[0], 4):
@@ -172,8 +227,8 @@ def lane_steps(tbl: torch.Tensor, idx: torch.Tensor, steps: int = LSTEPS) -> tor
 
 
 def row_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Route row: as row_gather_plain; on the card an index outside
-    [0, width) traps."""
+    """Route row: as row_gather_plain, gathered on chip where the row fits
+    (`row_route`); on the card an index outside [0, width) traps."""
     if tbl.device.type == "cpu":
         return row_gather_plain(tbl, idx)
     if tbl.dim() != 2 or idx.shape != tbl.shape:

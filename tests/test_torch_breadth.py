@@ -32,6 +32,8 @@ from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import softfloat as sf
 from tests.test_torch_breadth_kernels import dict_container
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(303)
 WEP = {"f16": (16, 5, 11), "f32": (32, 8, 24), "f64": (64, 11, 53)}
 UDT = {"f16": np.uint16, "f32": np.uint32, "f64": np.uint64}

@@ -22,6 +22,8 @@ from pcodec_tpu_torch.codec.chunk_config import ChunkConfig, PagingSpec
 from pcodec_tpu_torch.codec.standalone import FileDecompressor, simple_compress
 from pcodec_tpu_torch.format.bitio import BitReader
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 6000
 I64, F32, U16, F64 = 4, 5, 7, 6

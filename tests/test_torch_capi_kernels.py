@@ -14,6 +14,8 @@ from pcodec_tpu_torch.codec.chunk_config import ChunkConfig, PagingSpec
 from pcodec_tpu_torch.codec.standalone import simple_compress, simple_decompress
 from pcodec_tpu_torch.ops import kernels
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 I64 = 4
 
 

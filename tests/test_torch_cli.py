@@ -13,6 +13,8 @@ from pcodec_tpu.cli import main as ref_main
 from pcodec_tpu_torch.cli import main
 from pcodec_tpu_torch.entry import entry, entry_numbers
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 
 @pytest.fixture
 def numbers(tmp_path):

@@ -23,6 +23,8 @@ from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME as TYPES
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import decode as dec
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(2024)
 CLASSIC = pt.ModeSpec("classic")
 

@@ -19,6 +19,8 @@ import pcodec_tpu.ops.pallas_encode as pe
 
 from pcodec_tpu_torch.ops import container_encode as ce
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 
 def test_plain_encode_matches_jax_pallas_kernels_in_interpret_mode():
     nums = np.cumsum(np.random.default_rng(7).integers(0, 90, 700)).astype(np.int64)

@@ -24,6 +24,8 @@ from pcodec_tpu_torch.ops import container_encode as ce
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops import row_sort as rs
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(31)
 
 

@@ -26,6 +26,8 @@ from pcodec_tpu_torch.experiments import proto_round_loop
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.row_sort import MIN32, row_sort_plain, row_sort_u32, row_sort_u32_plain
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments")
 MIN64 = -(1 << 63)
 
@@ -186,6 +188,54 @@ def test_row_gather_plain_matches_pallas(load):
     got = micro_gather.row_gather(_t(tbl), _t(idx))
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(want, np.take_along_axis(tbl, idx, axis=1))
+
+
+def _i32(rng, shape, hi=None):
+    lo, hi = (0, hi) if hi else (-(2**31), 2**31)
+    return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("rows,ts,steps", [(1, 4, 37), (13, 64, 37), (37, 1024, 37), (37, 1024, 0), (3, 1 << 14, 5)])
+def test_taa_twin_matches_plain(rows, ts, steps):
+    """Exact: route taa's kernel in torch (a warp a row, each staging its
+    row in 16-byte quads, `gather_taa_warps_plain`) equals
+    gather_steps_plain on 1 to 37 rows of 4 to 2^14 entries, no step
+    included."""
+    rng = np.random.default_rng(20 + rows)
+    table, idx0 = _t(_i32(rng, (rows, ts))), _t(_i32(rng, (rows, 4), ts))
+    want = micro_gather.gather_steps_plain(table, idx0, steps)
+    assert torch.equal(micro_gather.gather_taa_warps_plain(table, idx0, steps), want)
+
+
+@pytest.mark.usefixtures("interpret")
+def test_taa_and_row_twins_match_plain_and_jax():
+    """Exact: route taa's kernel in torch (`gather_taa_warps_plain`) equals
+    micro_gather.py's pallas_taa (T=16, TS=64). Route row's register form
+    (`row_gather_lanes_plain`) equals row_gather_plain and
+    jnp.take_along_axis at widths 5, 77 and 128; wider rows take the
+    thread-an-element form. Both twins raise on an index outside the
+    table, where the kernels trap."""
+    rng = np.random.default_rng(20)
+    T, TS, steps = 16, 64, 12
+    table, idx0 = _i32(rng, (T, TS)), _i32(rng, (T, 4), TS)
+    with jax.enable_x64(False):
+        env = _gather_prototypes(T, TS, steps, 96, dict(table_flat=jnp.asarray(table.reshape(-1)),
+                                                        table2d=jnp.asarray(table), tbl_small=None))
+        want = np.asarray(env["pallas_taa"](jnp.asarray(idx0)))
+    assert np.array_equal(micro_gather.gather_taa_warps_plain(_t(table), _t(idx0), steps).numpy(), want)
+    for width in (5, 77, 128):
+        tbl, idx = _i32(rng, (6, width)), _i32(rng, (6, width), width)
+        got = micro_gather.row_gather_lanes_plain(_t(tbl), _t(idx))
+        assert micro_gather.row_route(width) == "registers"
+        assert torch.equal(got, micro_gather.row_gather_plain(_t(tbl), _t(idx)))
+        with jax.enable_x64(False):
+            assert np.array_equal(got.numpy(), np.asarray(jnp.take_along_axis(jnp.asarray(tbl), jnp.asarray(idx), 1)))
+    assert [micro_gather.row_route(w) for w in (129, 2048, 3000)] == ["device memory"] * 3
+    with pytest.raises(IndexError):
+        micro_gather.row_gather_lanes_plain(_t(_i32(rng, (1, 5))), _t(np.array([[0, 1, 5, 2, 3]], np.int32)))
+    with pytest.raises(IndexError):
+        micro_gather.gather_taa_warps_plain(_t(_i32(rng, (2, 64))),
+                                            _t(np.array([[0, 1, 2, 3], [64, 0, 0, 0]], np.int32)), 1)
 
 
 @pytest.mark.usefixtures("interpret")

@@ -19,6 +19,8 @@ from pcodec_tpu_torch.experiments import proto_round_loop
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops.row_sort import row_sort_u32, row_sort_u32_plain
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(51)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -117,15 +119,30 @@ _OUTSIDE = {
     "gather_take": "from pcodec_tpu_torch.experiments import micro_gather as m\n"
                    "table = torch.zeros(4 * 1024, dtype=torch.int32, device='cuda')\n"
                    "m.gather_take(table, torch.full((4, 4), 1024, dtype=torch.int32, device='cuda'), 5)",
+    "gather_taa": "from pcodec_tpu_torch.experiments import micro_gather as m\n"
+                  "table = torch.zeros((6, 1024), dtype=torch.int32, device='cuda')\n"
+                  "idx = torch.zeros((6, 4), dtype=torch.int32, device='cuda')\n"
+                  "idx[5, 2] = 1024\n"
+                  "m.gather_taa(table, idx, 5)",
 }
+# route row in registers (77) and a thread an element (1,000 and 3,000),
+# one index of its last row past the row's end
+for _width in (77, 1000, 3000):
+    _OUTSIDE[f"gather_row, width {_width}"] = (
+        "from pcodec_tpu_torch.experiments import micro_gather as m\n"
+        f"tbl = torch.zeros((5, {_width}), dtype=torch.int32, device='cuda')\n"
+        f"idx = torch.zeros((5, {_width}), dtype=torch.int32, device='cuda')\n"
+        f"idx[4, {_width} - 1] = {_width}\n"
+        "m.row_gather(tbl, idx)")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", sorted(_OUTSIDE))
 def test_kernel_traps_on_an_index_outside_its_table(kernel):
     """E1 (a section past raw's end, or before its start where the column
-    sums read only the touched blocks) and route take (a first index of TS)
-    trap on the card: the process's next synchronize fails with a CUDA
+    sums read only the touched blocks), routes take and taa (a first index
+    of TS, route taa's in a block's last warp) and route row (an index of
+    the width, in each of its three forms) trap on the card: the process's next synchronize fails with a CUDA
     error and nothing after it runs. In a subprocess, since a trap spoils
     its process's CUDA context."""
     _need_card()
@@ -150,10 +167,13 @@ def test_lane_kernel_matches_plain_version(rows, steps):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,width", [(8, 128), (5, 77)])
+@pytest.mark.parametrize("rows,width", [(8, 128), (5, 77), (3, 1), (7, 32), (4097, 128), (5, 129), (4, 2048),
+                                        (3, 3000)])
 def test_row_gather_kernel_matches_plain_version(rows, width):
     """Exact: route row on the card, against its plain version and
-    torch.gather."""
+    torch.gather, in each of its forms: a warp a row in registers (widths 1
+    to 128, rows that fill no last block of ROW_WARPS) and a thread an
+    element (129 to 3,000)."""
     _need_card()
     tbl, idx = _cuda(_i32((rows, width))), _cuda(RNG.integers(0, width, (rows, width)).astype(np.int32))
     got = _launched("gather_row", lambda: micro_gather.row_gather(tbl, idx))

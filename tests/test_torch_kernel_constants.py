@@ -66,6 +66,8 @@ def _cu_constants(name: str) -> dict:
     ("proto_dma", "FETCH_WORDS", proto_dma.FETCH_WORDS),
     ("proto_dma", "BLOCK_WORDS", proto_dma.BLOCK_WORDS),
     ("micro_gather", "TAKE_ROWS", micro_gather.TAKE_ROWS),
+    ("micro_gather", "TAA_WARPS", micro_gather.TAA_WARPS),
+    ("micro_gather", "ROW_LANE_MAX", micro_gather.ROW_LANE_MAX),
 ])
 def test_python_constant_equals_kernel_source(source, name, value):
     assert _cu_constants(source)[name] == value

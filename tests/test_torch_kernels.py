@@ -15,6 +15,8 @@ from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import kernels
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(99)
 
 

@@ -5,12 +5,15 @@ qco is host code in both packages (the `bench` CLI's codec `qco`)."""
 
 import numpy as np
 import pytest
+import torch
 
 import pcodec_tpu.legacy as ref
 from pcodec_tpu.errors import PcoError as RefPcoError
 
 import pcodec_tpu_torch.legacy as port
 from pcodec_tpu_torch.errors import PcoError
+
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
 
 N = 3000
 TYPES = {"i32": np.int32, "i64": np.int64, "u16": np.uint16, "f32": np.float32, "f64": np.float64}

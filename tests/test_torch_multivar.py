@@ -30,6 +30,8 @@ from pcodec_tpu_torch.native.kernels import interleave_sections
 from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import container_encode as ce
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 N = 20_000  # each case's 200,000 numbers cut to this
 PAGE_N, CHUNK_N = 256, 8192
 

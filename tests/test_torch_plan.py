@@ -10,6 +10,7 @@ chains to 256 and the port's to 128, so rows are compared per (chunk, var).
 
 import numpy as np
 import pytest
+import torch
 
 import pcodec_tpu.ops.pallas_decode as pd
 from pcodec_tpu.codec.chunk_config import ChunkConfig as RefChunkConfig
@@ -17,6 +18,8 @@ from pcodec_tpu.codec.chunk_config import DeltaSpec as RefDeltaSpec
 from pcodec_tpu.codec.container import container_compress as ref_compress
 
 from pcodec_tpu_torch.ops import container_decode as cd
+
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
 
 RNG = np.random.default_rng(11)
 

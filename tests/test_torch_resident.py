@@ -28,6 +28,8 @@ from pcodec_tpu_torch.dtypes import number_type_from_np
 from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import device_train as dt
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 PAGE_N, CHUNK_N = 256, 2048
 
 

@@ -14,6 +14,7 @@ comparison is exact.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -29,6 +30,8 @@ from pcodec_tpu_torch import ChunkConfig
 from pcodec_tpu_torch.entry import DRYRUN_CHUNK_N, DRYRUN_PAGE_N, dryrun_cases, dryrun_multichip
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.parallel import sharding as sh
+
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
 
 CPU = "cpu"
 

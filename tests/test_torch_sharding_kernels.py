@@ -17,6 +17,8 @@ from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.parallel import sharding as sh
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 SHARDS = ["cuda:0"] * 3
 
 

@@ -13,6 +13,7 @@ comparison is exact.
 
 import numpy as np
 import pytest
+import torch
 
 import pcodec_tpu.ops.pallas_decode as pd
 from pcodec_tpu import ChunkConfig, DeltaSpec, ModeSpec
@@ -27,6 +28,8 @@ from pcodec_tpu_torch.codec.chunk_config import DeltaSpec as PortDeltaSpec
 from pcodec_tpu_torch.format.metadata import DeltaEncoding
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import standalone_decode as sd
+
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
 
 RNG = np.random.default_rng(99)
 

@@ -14,6 +14,8 @@ from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops import standalone_decode as sd
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(41)
 
 

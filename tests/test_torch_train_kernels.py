@@ -21,6 +21,8 @@ from pcodec_tpu_torch.ops import device_train as dt
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops import row_sort as rs
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 RNG = np.random.default_rng(41)
 U64_MAX = 0xFFFFFFFFFFFFFFFF
 

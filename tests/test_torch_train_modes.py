@@ -39,6 +39,8 @@ from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import device_train as dt
 from pcodec_tpu_torch.ops import softfloat as sf
 
+torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
+
 N = 40_000
 PAGE_N, CHUNK_N = 256, 16_384
 

@@ -1,4 +1,4 @@
-"""Variants of the port's E1, E3a, E4b and B5 kernels, timed on the card
+"""Variants of the port's E1, E3a, E3b, E4a, E4b and B5 kernels, timed on the card
 against the committed ones: each variant is a text edit of a kernel source
 (or an earlier tree's source as it is), built by nvcc beside the port's own
 libraries and called through the same C entry point. A record of the runs
@@ -6,19 +6,22 @@ that chose the designs (PERF.md section 6), not part of the package:
 nothing imports it, and an edit that no longer applies to the committed
 source raises.
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e4b|b5]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e3b|e4a|e4b|b5]
 
 DIR is an earlier tree of the port (e.g. `git archive` of a parent under
 `build/`). E1: its csrc/proto_dma.cu, where that is the earlier fetch
 form (a bulk copy of each chain's section into shared memory), is timed
 beside the committed kernel. E3a: its csrc/micro_gather.cu's route take,
-where that is the earlier walk through the read-only path. E4b: where its
+where that is the earlier walk through the read-only path. E3b and E4a:
+its routes taa and row as they are (in an earlier tree, a block's rows
+staged by plain loads behind a block barrier; a thread an element). E4b: where its
 round loop is the earlier design (a block a tile, the four window words
 reloaded every round), its variants run. Every variant that computes
 the function is held bit for bit against its plain version (E1, E3a,
 E4b) or against the committed kernel's outputs on every page (B5, whose
 committed kernel is held to its plain version on its first 64 pages);
 those that drop work to expose its cost (named "no ...") are only timed.
+E4a's variants are also held against torch.gather.
 Card-alone medians (`hold=True`), each variant timed twice in turns, E1's
 and B5's kernels also split by the profiler's trace; the card's name and
 power limit beside every line. Needs a card and raises without one.
@@ -519,19 +522,29 @@ _E3A = {
     "8 rows a block": [("constexpr int TAKE_ROWS = 4;", "constexpr int TAKE_ROWS = 8;")],
     "16 rows a block": [("constexpr int TAKE_ROWS = 4;", "constexpr int TAKE_ROWS = 16;")],
 }
-E3A_SHAPES = (("whole", None, mg.STEPS), ("one block of rows", 16, mg.STEPS), ("one row", 1, mg.STEPS),
+STEPS_SHAPES = (("whole", None, mg.STEPS), ("16 rows", 16, mg.STEPS), ("one row", 1, mg.STEPS),
               ("whole, 0 steps", None, 0), ("one row, 0 steps", 1, 0))
 
 
-def e3a_variants(parent, card: str) -> None:
-    """Route take with 4 (committed), 8 and 16 rows a block and, from DIR,
-    the walk through the read-only path: at the experiment's shape, on its
-    first 16 rows (one block), on one row alone, and at 0 steps (the launch
-    and the copies)."""
-    libs = build_variants(os.path.join(kernels._CSRC, "micro_gather.cu"), _E3A, "e3a_")
+_E3B = {
+    "committed": [],
+    "1 warp a block": [("constexpr int TAA_WARPS = 4;", "constexpr int TAA_WARPS = 1;")],
+    "8 warps a block": [("constexpr int TAA_WARPS = 4;", "constexpr int TAA_WARPS = 8;")],
+    "plain loads a warp": [("for (int i = lane; i < (ts >> 2); i += 32) cp_async16(mine + i, src + i);",
+                            "for (int i = lane; i < (ts >> 2); i += 32) mine[i] = src[i];")],
+}
+
+
+def steps_variants(key: str, route: int, variants: dict, parent, card: str) -> None:
+    """Route take (E3a, route 0) or taa (E3b, route 1) as `variants` edit
+    the committed source, and DIR's as it is: at the experiment's shape, on
+    its first 16 rows, on one row alone, and at 0 steps (the launch and the
+    copies)."""
+    libs = build_variants(os.path.join(kernels._CSRC, "micro_gather.cu"), variants, f"{key}_")
     if parent:
+        earlier = "earlier read-only-path walk" if route == 0 else "earlier block barrier"
         libs |= build_variants(os.path.join(parent, "pcodec_tpu_torch", "csrc", "micro_gather.cu"),
-                               {"earlier read-only-path walk": []}, "e3a_parent_")
+                               {earlier: []}, f"{key}_parent_")
     _bind(libs, "micro_gather")
     inp = mg.make_inputs(torch.device("cuda"))
     table, idx0 = inp["table_flat"], inp["idx0"]
@@ -540,15 +553,15 @@ def e3a_variants(parent, card: str) -> None:
     def run(name, rows, steps):
         idx = idx0[:rows]
         out = torch.empty_like(idx)
-        rc = libs[name].micro_gather(0, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], ts, steps, 0,
-                                     torch.cuda.current_stream().cuda_stream)
+        rc = libs[name].micro_gather(route, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], ts, steps,
+                                     0, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{name}: CUDA error {rc}")
         return out
 
     def timed(name):
         got = []
-        for _, rows, steps in E3A_SHAPES:
+        for _, rows, steps in STEPS_SHAPES:
             want = mg.gather_steps_plain(table[: (rows or idx0.shape[0]) * ts], idx0[:rows], steps)
             common.check_equal(run(name, rows, steps), want, f"{name} ({rows} rows, {steps} steps)")
             got.append(common.time_ms(lambda: run(name, rows, steps), hold=True)[0])
@@ -556,9 +569,62 @@ def e3a_variants(parent, card: str) -> None:
 
     times = _in_turns(libs, timed)
     for name, (a, b) in times.items():
-        print(f"E3a {name}, T={idx0.shape[0]} TS={ts}, card alone ms (two turns): "
-              + "; ".join(f"{what} {x:.4f}/{y:.4f}" for (what, _, _), x, y in zip(E3A_SHAPES, a, b))
+        print(f"{key.upper()} {name}, T={idx0.shape[0]} TS={ts}, card alone ms (two turns): "
+              + "; ".join(f"{what} {x:.4f}/{y:.4f}" for (what, _, _), x, y in zip(STEPS_SHAPES, a, b))
               + f"; every output == the plain version [{card}]", flush=True)
+
+
+_E4A = {
+    "committed": [],
+    "one warp a block": [("constexpr int ROW_WARPS = 4;", "constexpr int ROW_WARPS = 1;")],
+    "a thread an element": [("} else if (width <= ROW_LANE_MAX) {", "} else if (width < 0) {")],
+}
+# (rows, width): check A's shape, a ragged row and many rows of the register
+# form
+E4A_SHAPES = ((8, 128), (8, 77), (4096, 128))
+
+
+def e4a_variants(parent, card: str) -> None:
+    """Route row as _E4A edits the committed source (the register form, a
+    warp a row; ROW_WARPS of them a block), and DIR's as it is, each held
+    against its plain version and torch.gather and timed card-alone beside
+    torch.gather at E4A_SHAPES."""
+    libs = build_variants(os.path.join(kernels._CSRC, "micro_gather.cu"), _E4A, "e4a_")
+    if parent:
+        libs |= build_variants(os.path.join(parent, "pcodec_tpu_torch", "csrc", "micro_gather.cu"),
+                               {"earlier thread an element": []}, "e4a_parent_")
+    _bind(libs, "micro_gather")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    inputs = [prl.taa_inputs(dev)] + [
+        (torch.from_numpy(rng.integers(-(2**31), 2**31, (r, w), dtype=np.int64).astype(np.int32)).to(dev),
+         torch.from_numpy(rng.integers(0, w, (r, w), dtype=np.int32)).to(dev)) for r, w in E4A_SHAPES[1:]]
+
+    def run(name, tbl, idx):
+        out = torch.empty_like(idx)
+        rc = libs[name].micro_gather(3, tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), tbl.shape[0], tbl.shape[1], 0,
+                                     0, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        return out
+
+    def timed(name):
+        got = []
+        for tbl, idx in inputs:
+            out = run(name, tbl, idx)
+            common.check_equal(out, mg.row_gather_plain(tbl, idx), f"{name} {tuple(tbl.shape)}")
+            common.check_equal(out, torch.gather(tbl, 1, idx.long()), f"{name} {tuple(tbl.shape)} (torch.gather)")
+            got.append(common.time_ms(lambda: run(name, tbl, idx), hold=True)[0])
+        return got
+
+    times = _in_turns(libs, timed)
+    lib = [common.time_ms(lambda: torch.gather(tbl, 1, idx.long()), hold=True)[0] for tbl, idx in inputs]
+    for name, (a, b) in times.items():
+        print(f"E4A {name}, card alone ms (two turns): "
+              + "; ".join(f"{shape} {x:.4f}/{y:.4f}" for shape, x, y in zip(E4A_SHAPES, a, b))
+              + f"; every output == the plain version and torch.gather [{card}]", flush=True)
+    print("E4A torch.gather (its int64 index made outside the timing), card alone ms: "
+          + "; ".join(f"{shape} {x:.4f}" for shape, x in zip(E4A_SHAPES, lib)) + f" [{card}]", flush=True)
 
 
 def main(parent=None, only=None, device="cuda") -> None:
@@ -567,7 +633,11 @@ def main(parent=None, only=None, device="cuda") -> None:
     if only in (None, "e1"):
         e1_variants(parent, card)
     if only in (None, "e3a"):
-        e3a_variants(parent, card)
+        steps_variants("e3a", 0, _E3A, parent, card)
+    if only in (None, "e3b"):
+        steps_variants("e3b", 1, _E3B, parent, card)
+    if only in (None, "e4a"):
+        e4a_variants(parent, card)
     if only in (None, "e4b"):
         e4b_variants(os.path.join(kernels._CSRC, "proto_round_loop.cu"), _E4B_NEW, "e4b_", card)
         if parent:
@@ -580,6 +650,6 @@ def main(parent=None, only=None, device="cuda") -> None:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree of the port, whose kernels are timed beside the committed ones")
-    ap.add_argument("--only", choices=("e1", "e3a", "e4b", "b5"), help="run one kernel's variants")
+    ap.add_argument("--only", choices=("e1", "e3a", "e3b", "e4a", "e4b", "b5"), help="run one kernel's variants")
     args = ap.parse_args()
     main(args.parent, args.only)
