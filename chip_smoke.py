@@ -37,7 +37,9 @@ Phases, one line each (numbers beside the card's name and power limit):
                   bit, K3 in shared memory (one call a decode, every lookback
                   var of the container) and in global memory (a call a
                   chunk), K4 (one call a decode, every Dict chunk of the
-                  container) with its table in shared and in global memory;
+                  container) with its table in shared and in global memory,
+                  B1 (conv1_recon, one call a decode) and B2
+                  (float_mult_join, a call a FloatMult chunk) on every call;
                   the FloatMult joins on the
                   card equal the CPU's on NaN, inf and subnormal multipliers
                   and bases for f16, f32 and f64, and where the card's
@@ -124,7 +126,12 @@ Phases, one line each (numbers beside the card's name and power limit):
                   such decode and on one chunk of 16M indices against
                   tables of 128 entries to the shared-memory limit; K3 and
                   K9 are timed a call with the raw stream handle the
-                  binding passes and with torch's Stream-object accessor
+                  binding passes and with torch's Stream-object accessor.
+                  bench_matrix.py's conv1_i32_lpc numbers (8M i32, order 6)
+                  as a PCT container at page_n 1,024 (8 chunks, 8,192
+                  pages): decoded on the card, compared with the source,
+                  one B1 call (a row a page) held against its plain version
+                  on every number and timed, one row alone
   6. experiments   the microbenchmarks of pcodec_tpu_torch/experiments, the
                   ports of the Pallas prototypes in experiments/: every
                   kernel first held bit for bit against its plain version
@@ -160,12 +167,16 @@ Phases, one line each (numbers beside the card's name and power limit):
                   first 8M numbers of intmult_i64_timestamps, floatmult_f32,
                   floatquant_f16 and taxi_i64_realistic_ratio; each encoded
                   by the port's simple_compress, planned by
-                  plan_standalone (host seconds), decoded by
+                  plan_standalone (host seconds, _chain_moments's part
+                  apart from the walk's), decoded by
                   decode_standalone_device with the counts set to 0 just
                   before and read just after, compared bit for bit with the
-                  source, K1, K2, K3 and K4 held against their plain
-                  versions, and timed: the decode, K1 + K2, K3, K4 and the
-                  post (conv1's post the loop over positions)
+                  source, K1, K2, K3, K4, B1 (a standalone conv1 chunk one
+                  row, on its first 16,384 numbers) and B2 held against
+                  their plain versions, and timed: the decode, K1 + K2, K3,
+                  K4, B1, B2 and the post; for conv1_i32_lpc B1 a call, on
+                  the card alone and one row alone, for floatmult_f32 and
+                  f64_auto_multichunk B2 a decode's calls and alone
   8. multi-var    small IntMult, FloatMult f32, FloatQuant f32 and lookback
                   inputs (page_n 256, 8,192-number chunks; lookback also with a
                   ragged last page, on u16, u32 and f32 latents, with pinned
@@ -267,7 +278,13 @@ Phases, one line each (numbers beside the card's name and power limit):
      one page's time alone and its steps, the device time of its hash-read
      kernels and of its chain kernels a call (`hash_reads_ms`, `chain_ms`,
      from the profiler's trace; null where it holds none) and the pages its
-     chain holds on an SM; a phase-6 row adds its `device_ms`, for E4a
+     chain holds on an SM; B1's row (conv1_recon, phase 7's conv1_i32_lpc:
+     its launches, a call, `device_ms`, the plain version on the first
+     16,384 numbers of every row) adds its rows and numbers, the longest
+     row's steps, one row's time alone and steps, and a `pct` object (phase
+     5b's container: 8,192 rows of 1,024); B2's (float_mult_join, phase 7's
+     floatmult_f32: its 32 calls) an `f64_auto_multichunk` object; a
+     phase-6 row adds its `device_ms`, for E4a
      `library_device_ms` (torch.gather on the card alone), for E1 its two
      kernels' device ms (`colsum_ms`, `tile_ms`, from the profiler) and its
      column-sum route (`colsum_route`), for E3 one row's `one_row_ms`, for E3a its `rows_per_block` and
@@ -303,6 +320,10 @@ K5_OPS_PER_SYMBOL = 16  # K5's tANS step and offset per coded symbol, besides th
 K5_OPS_PER_STEP = 4  # K5's operations per binary-search step
 K6_OPS_PER_SYMBOL = 12  # K6's two deposits per coded symbol
 K9_OPS_PER_STEP = 40  # K9's integer operations per walk step (a 64-bit division counted as one)
+CONV1_PREFIX = 16384  # numbers of every B1 row held against its plain version (the recurrence is causal)
+B1_OPS_PER_TERM = 4  # 32-bit integer operations of one of B1's 64-bit multiply-adds, K a number
+B1_OPS_PER_STEP = 12  # B1's other operations a number: the max, shift, add and mask in 64 bits, its load and store
+B2_OPS_PER_NUMBER = 150  # B2's integer operations a number, counted from csrc/softfloat.cuh (64-bit ones twice)
 _MIN64 = -(1 << 63)
 # phase 6's rows: kernel -> (source in csrc/, the prototype it replaces)
 EXPERIMENT_ROWS = {
@@ -414,10 +435,11 @@ def breadth_cases(pt):
 
 
 @contextlib.contextmanager
-def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_chunks")):
+def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks",
+                          "float_mult_join")):
     """Record the arguments of every call of the named kernel wrappers of
-    `mod` (K3 and K4 of a decode, K8 and K9 of device training), so the
-    kernels can be held against their plain versions at exactly those
+    `mod` (K3, K4, B1 and B2 of a decode, K8 and K9 of device training), so
+    the kernels can be held against their plain versions at exactly those
     inputs."""
     calls = {k: [] for k in names}
     saved = {k: getattr(mod, k) for k in calls}
@@ -437,6 +459,27 @@ def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_
             setattr(mod, k, fn)
 
 
+@contextlib.contextmanager
+def timed_function(mod, name):
+    """[host seconds, calls] of `mod.name` while the block runs."""
+    acc = [0.0, 0]
+    saved = getattr(mod, name)
+
+    def call(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return saved(*args, **kwargs)
+        finally:
+            acc[0] += time.time() - t0
+            acc[1] += 1
+
+    setattr(mod, name, call)
+    try:
+        yield acc
+    finally:
+        setattr(mod, name, saved)
+
+
 def check_launches(cd, plan, arrays) -> None:
     """K1 and K2 against their plain versions on every launch of an
     uploaded plan."""
@@ -449,10 +492,49 @@ def check_launches(cd, plan, arrays) -> None:
         check_equal(cd.chain_decode(*args), cd.chain_decode_plain(*args))
 
 
+def conv1_prefix_rows(dec, bases, got, r, prefix):
+    """(the kernel's numbers, the plain version's) of the first `prefix`
+    numbers of every row of B1 descriptor row r, on the CPU: `got` holds the
+    kernel's output bases; the plain version runs on CPU copies of the
+    rows' first `prefix` latents, which the recurrence's first `prefix`
+    numbers alone depend on (on the card its ~6 torch calls a position
+    took 72 s for conv1_i32_lpc's 32 rows)."""
+    import torch
+
+    c = {k: i for i, k in enumerate(dec.C1_COLS)}
+    lat, mom = dec.conv1_row_pages(bases, r)
+    P, N = lat.shape
+    k, nv, L = r[c["order"]], r[c["n_valid"]], min(N, prefix)
+    want = dec.conv1_decode_pages_plain(lat[:, :L].cpu(), mom.cpu(), r[c["w0"] : c["w0"] + k], r[c["quant"]],
+                                        r[c["bias"]], k, r[c["bits"]])
+    out = got[r[c["out_base"]]].reshape(-1)[r[c["out_start"]] : r[c["out_start"]] + nv]
+    rows = torch.cat([out, out.new_zeros(P * N - nv)]).view(P, N)[:, :L].cpu()
+    valid = torch.arange(P * N).view(P, N)[:, :L] < nv
+    return rows[valid], want[valid]
+
+
+def conv1_prefix_plain_s(dec, calls) -> float:
+    """Host seconds of B1's plain version on the CPU, on the first
+    CONV1_PREFIX numbers of every row of every recorded call (inputs copied
+    to the CPU first, untimed)."""
+    c = {k: i for i, k in enumerate(dec.C1_COLS)}
+    rows = []
+    for bases, desc, _ in calls:
+        for r in desc.tolist():
+            lat, mom = dec.conv1_row_pages(bases, r)
+            rows.append((lat[:, :CONV1_PREFIX].cpu(), mom.cpu(), r))
+    t0 = time.time()
+    for lat, mom, r in rows:
+        k = r[c["order"]]
+        dec.conv1_decode_pages_plain(lat, mom, r[c["w0"] : c["w0"] + k], r[c["quant"]], r[c["bias"]], k, r[c["bits"]])
+    return time.time() - t0
+
+
 def check_breadth_calls(dec, calls) -> float:
-    """K3 and K4 against their plain versions on every recorded call (K3's
-    container call and K4 into copies of the outputs the decode gave
-    them)."""
+    """K3, K4, B1 and B2 against their plain versions on every recorded
+    call (K3's container call, K4 and B1 into copies of the outputs the
+    decode gave them; B1 on the first CONV1_PREFIX numbers of every row, B2
+    into a new tensor)."""
     for args in calls["lookback_recon"]:
         check_equal(dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
     for bases, desc, desc_dev in calls["lookback_recon_chunks"]:
@@ -466,11 +548,22 @@ def check_breadth_calls(dec, calls) -> float:
     for bases, desc, table, out in calls["dict_join_chunks"]:
         check_equal(dec.dict_join_chunks(bases, desc, table, out.clone()),
                     dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
+    for bases, desc, desc_dev in calls["conv1_recon_chunks"]:
+        written = set(desc[:, dec.C1_COLS.index("out_base")].tolist())
+        got = [b.clone() if i in written else b for i, b in enumerate(bases)]
+        dec.conv1_recon_chunks(got, desc, desc_dev)
+        for r in desc.tolist():
+            check_equal(*conv1_prefix_rows(dec, bases, got, r, CONV1_PREFIX), "conv1_recon")
+    for nt, base, prim, sec, _ in calls["float_mult_join"]:
+        check_equal(dec.float_mult_join(nt, base, prim, sec), dec.float_mult_join_plain(nt, base, prim, sec),
+                    "float_mult_join")
     return 0.0
 
 
 def kernel_route(kernels, name, args, smem_entries) -> str:
-    """Which route of K3 or K4 a recorded call took."""
+    """Which route of K3 or K4 a recorded call took (B1 and B2 have one)."""
+    if name in ("conv1_recon_chunks", "float_mult_join"):
+        return {"conv1_recon_chunks": "B1", "float_mult_join": "B2"}[name]
     if name == "lookback_recon_chunks":
         return "K3 shared memory"
     if name == "lookback_recon":
@@ -757,6 +850,71 @@ def breadth_kernel_numbers(torch, dec, name, calls):
             lambda: [torch.take(t, i) for t, i in zip(tables, idx)])
 
 
+def conv1_kernel_numbers(torch, dec, kernels, calls, launches: int) -> dict:
+    """B1's row from the one call of a decode (already held against the
+    plain version): a call's and the card's time, the plain version's on
+    the CPU (host clock, one run) on the first CONV1_PREFIX numbers of every
+    row, one row alone (the first row of the first entry), the longest
+    row's steps and the bound: 8 B of latent in (none for a trivial var)
+    and 8 B out a number, the states; K multiply-adds and B1_OPS_PER_STEP
+    more operations a number."""
+    ((bases, desc, desc_dev),) = calls
+    c = {k: i for i, k in enumerate(dec.C1_COLS)}
+    ms = time_ms(lambda: dec.conv1_recon_chunks(bases, desc, desc_dev))
+    alone = time_ms(lambda: dec.conv1_recon_chunks(bases, desc, desc_dev), hold=True)[0]
+    plain_ms = conv1_prefix_plain_s(dec, calls) * 1e3
+    one = desc[:1].copy()
+    one[0, c["n_rows"]], one[0, c["n_valid"]] = 1, min(one[0, c["row_n"]], one[0, c["n_valid"]])
+    one_dev = torch.from_numpy(one).to(desc_dev.device)
+    one_row = time_ms(lambda: dec.conv1_recon_chunks(bases, one, one_dev), hold=True)[0]
+    n_bytes = n_ops = steps = rows = numbers = 0
+    for r in desc.tolist():
+        nv, k = r[c["n_valid"]], r[c["order"]]
+        n_bytes += 8 * nv * (2 if r[c["lat_base"]] >= 0 else 1) + 8 * r[c["n_rows"]] * k
+        n_ops += nv * (k * B1_OPS_PER_TERM + B1_OPS_PER_STEP)
+        steps = max(steps, min(r[c["row_n"]], nv) - k)
+        rows += r[c["n_rows"]]
+        numbers += nv
+    b_ms, by = bound(n_bytes, n_ops)
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "device_ms": alone, "numbers": numbers, "rows": rows,
+            "plain_on": "cpu", "plain_prefix_n": CONV1_PREFIX, "longest_row_steps": steps, "one_row_ms": one_row,
+            "one_row_steps": int(one[0, c["n_valid"]] - one[0, c["order"]]), "ms_min": ms[1], "ms_max": ms[2]}
+
+
+def conv1_line(r) -> str:
+    return (f"(conv1_recon) {r['ms']:.4f} ms a call (min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), card "
+            f"alone {r['device_ms']:.4f}, {r['launches']} launches; {r['rows']} rows, {r['numbers']} numbers; one row "
+            f"alone {r['one_row_ms']:.4f} ms ({r['one_row_steps']} steps, "
+            f"{r['one_row_ms'] * 1e6 / max(r['one_row_steps'], 1):.1f} ns a step), the longest row "
+            f"{r['longest_row_steps']} steps; plain "
+            f"version on the CPU on the first {r['plain_prefix_n']} numbers of every row {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
+def fm_kernel_numbers(torch, dec, calls, launches: int) -> dict:
+    """B2's row from a decode's calls (already held against the plain
+    version): their time a decode, the card's (each call alone under a
+    hold, summed: the 32 calls' host work outlasts one hold), the plain
+    version's, and the bound: 24 B a number (primary and secondary in, bits
+    out), B2_OPS_PER_NUMBER operations."""
+    ms = time_ms(lambda: [dec.float_mult_join(*a) for a in calls])
+    alone = sum(time_ms(lambda a=a: dec.float_mult_join(*a), hold=True)[0] for a in calls)
+    plain = time_ms(lambda: [dec.float_mult_join_plain(*a) for a in calls], runs=3, warmup=1)
+    n = sum(a[2].shape[0] for a in calls)
+    b_ms, by = bound(24 * n, B2_OPS_PER_NUMBER * n)
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain[0], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "device_ms": alone, "numbers": n, "calls": len(calls),
+            "ms_min": ms[1], "ms_max": ms[2]}
+
+
+def fm_line(r) -> str:
+    return (f"(float_mult_join) {r['ms']:.4f} ms for its {r['calls']} calls (min {r['ms_min']:.4f}, max "
+            f"{r['ms_max']:.4f}), card alone (each call alone, summed) {r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of "
+            f"the bound, {r['launches']} launches, {r['numbers']} numbers; plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
 def native_product_mismatch(torch, sf, nt, prim, base, dev):
     """Products of the FloatMult multipliers and a base in the card's native
     f16/f32 multiply (the JAX package's join) against the same multiply on
@@ -791,7 +949,9 @@ def ptxas_lines(reports):
                 ept = re.search(r"lb_chunks_kernelILi(\d+)E", name)
                 sort = re.search(r"(minmax|span|hist|scan|scatter)_kernel(?:I([yj]+)((?:Lb\dE)*))?", name)
                 image = re.search(r"image_(sums|blocks|stitch)_kernel", name)
-                entry = ({"sums": "page offsets and head", "blocks": "blocks' scan",
+                b12 = re.search(r"(conv1|float_mult_join)_kernelILi(\d+)E", name)
+                entry = (f"{'order' if b12.group(1) == 'conv1' else 'W'} {b12.group(2)}" if b12 else
+                         {"sums": "page offsets and head", "blocks": "blocks' scan",
                           "stitch": "placement"}[image.group(1)] if image else
                          f"shared memory, {ept.group(1)} per thread" if ept else
                          ("row in shared memory" if smem.group(1) == "1" else "row in device memory")
@@ -1749,19 +1909,21 @@ def main() -> int:
         check_launches(cd, plan, arrays)
         ch = plan.chunks[0]
         made = {"K3": bool(calls["lookback_recon"] or calls["lookback_recon_chunks"]),
-                "K4": bool(calls["dict_join_chunks"])}
-        want = {"K3": ch.delta.kind == "lookback", "K4": ch.mode_kind == "dict"}
+                "K4": bool(calls["dict_join_chunks"]), "B1": bool(calls["conv1_recon_chunks"]),
+                "B2": bool(calls["float_mult_join"])}
+        want = {"K3": ch.delta.kind == "lookback", "K4": ch.mode_kind == "dict", "B1": ch.delta.kind == "conv1",
+                "B2": ch.mode_kind == "float_mult"}
         if made != want:
-            raise AssertionError(f"{case} p{page_n}: K3 and K4 called {made}, expected {want}")
-        for k in ("lookback_recon_chunks", "dict_join_chunks"):
+            raise AssertionError(f"{case} p{page_n}: K3, K4, B1 and B2 called {made}, expected {want}")
+        for k in ("lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks"):
             if len(calls[k]) > 1:
                 raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, not one a decode")
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
-              f"K1, K2 and {sorted(routes) or 'no K3/K4'} == plain", flush=True)
-    if len(seen) != 4:
-        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4: {sorted(seen)}")
+              f"K1, K2 and {sorted(routes) or 'no K3/K4/B1/B2'} == plain", flush=True)
+    if len(seen) != 6:
+        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4, B1 and B2: {sorted(seen)}")
     rng = np.random.default_rng(SEED + 4)
     for ftype in ("f16", "f32", "f64"):
         nt = NUMBER_TYPES_BY_NAME[ftype]
@@ -2145,6 +2307,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. breadth at full size
+    inputs = standalone_inputs(pt)  # phase 7's too
     breadth_rows = {}
     kept = {}  # phase 8's inputs of this phase: their numbers, config and container_compress bytes
     for case, nums5, cfg5, kname in matrix_inputs(pt) + dict_size_inputs(pt):
@@ -2238,6 +2401,39 @@ def main() -> int:
         del calls, kcalls, arrays5, plan5, data5, nums5
         torch.cuda.empty_cache()
 
+    # bench_matrix.py's conv1_i32_lpc numbers (8M, order 6) as a PCT
+    # container at its default page_n: B1's page route, a row a page
+    nums_c1, cfg_c1 = inputs["conv1_i32_lpc"]
+    t0 = time.time()
+    data_c1 = pt.container_compress(nums_c1, cfg_c1)
+    t_enc_c1 = time.time() - t0
+    plan_c1 = cd.plan_container(data_c1)
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    with capturing(dops) as calls:
+        res = cd.decode_container_tensor(data_c1, dev, plan_c1)
+        torch.cuda.synchronize()
+    launches_c1 = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if not np.array_equal(cd.to_numbers(res, plan_c1.nt), nums_c1):
+        raise AssertionError("conv1_i32_lpc PCT: the decode differs from the source")
+    del res
+    if launches_c1.get("conv1_recon") != 1 or len(calls["conv1_recon_chunks"]) != 1 or not launches_c1.get(
+            "chain_decode"):
+        raise AssertionError(f"conv1_i32_lpc PCT: not one B1 launch in one call: {launches_c1}")
+    check_breadth_calls(dops, calls)
+    arrays_c1 = cd.upload_plan(plan_c1, dev)
+    dec_c1 = time_ms(lambda: cd.decode_plan(plan_c1, arrays_c1))
+    b1_pct = conv1_kernel_numbers(torch, dops, kernels, calls["conv1_recon_chunks"], launches_c1["conv1_recon"])
+    pn = plan_c1.chunks[0].page_n
+    print(f"breadth: conv1_i32_lpc PCT: {len(nums_c1)} i32, order {plan_c1.chunks[0].delta.order}, {len(data_c1)} "
+          f"bytes, page_n {pn}, {len(plan_c1.chunks)} chunks, host container_compress {t_enc_c1:.1f} s; decode == "
+          f"source, launches {launches_c1}; decode {dec_c1[0]:.3f} ms median (min {dec_c1[1]:.3f}, max "
+          f"{dec_c1[2]:.3f}); B1 {conv1_line(b1_pct)} (rows of {pn}: the plain version on every number) [{card}]",
+          flush=True)
+    del calls, arrays_c1, plan_c1, data_c1
+    torch.cuda.empty_cache()
+
     print(f"breadth: K4 grid sweep, one chunk of {K4_SWEEP_N} random indices, card alone by grid (each == "
           f"plain): {k4_grid_sweep(torch, kernels, dops, dev, smem_entries)} [{card}]", flush=True)
 
@@ -2310,9 +2506,9 @@ def main() -> int:
         ch = plan7.chunks[0]
         print(f"standalone: {case}: decode on the card == CPU route == source, {ch.mode_kind}/{ch.delta.kind}, "
               f"K1, K2{', K3' if calls['lookback_recon_chunks'] or calls['lookback_recon'] else ''}"
-              f"{', K4' if calls['dict_join_chunks'] else ''} == plain", flush=True)
-    inputs = standalone_inputs(pt)
-    sa_rows = {}
+              f"{', K4' if calls['dict_join_chunks'] else ''}{', B1' if calls['conv1_recon_chunks'] else ''}"
+              f"{', B2' if calls['float_mult_join'] else ''} == plain", flush=True)
+    sa_rows, b2_rows = {}, {}
     for case in STANDALONE:
         nums7, cfg7 = inputs[case]
         if case not in STANDALONE_FULL:
@@ -2320,9 +2516,10 @@ def main() -> int:
         t0 = time.time()
         blob = sa.simple_compress(nums7, cfg7)
         t_enc7 = time.time() - t0
-        t0 = time.time()
-        plan7 = sd.plan_standalone(blob)
-        t_plan7 = time.time() - t0
+        with timed_function(sd, "_chain_moments") as t_mom7:
+            t0 = time.time()
+            plan7 = sd.plan_standalone(blob)
+            t_plan7 = time.time() - t0
         torch.cuda.synchronize()
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
@@ -2334,9 +2531,11 @@ def main() -> int:
             raise AssertionError(f"standalone {case}: decode_standalone_device differs from the source")
         del got
         kinds = {(ch.mode_kind, ch.delta.kind) for ch in plan7.chunks}
-        need = ["section_gather", "chain_decode"] + (["lookback_recon"] if any(d == "lookback" for _, d in kinds)
-                                                     else []) + (["dict_join"] if any(m == "dict" for m, _ in kinds)
-                                                                 else [])
+        need = ["section_gather", "chain_decode"] + [
+            k for k, present in (("lookback_recon", any(d == "lookback" for _, d in kinds)),
+                                 ("dict_join", any(m == "dict" for m, _ in kinds)),
+                                 ("conv1_recon", any(d == "conv1" for _, d in kinds)),
+                                 ("float_mult_join", any(m == "float_mult" for m, _ in kinds))) if present]
         if any(not launches7.get(k) for k in need):
             raise AssertionError(f"standalone {case}: a kernel of its decode was not launched: {launches7}")
         arrays7 = cd.upload_plan(plan7, dev)
@@ -2346,29 +2545,40 @@ def main() -> int:
         k12 = time_ms(lambda: [cd.run_launch(cp, arrays7.words, arrays7.launches[lk])
                                for lk, cp in plan7.launches.items()])
         outs7 = {lk: cd.run_launch(cp, arrays7.words, arrays7.launches[lk]) for lk, cp in plan7.launches.items()}
-        # a post of over 50 ms (conv1's loop, FloatMult's softfloat) is timed in 3 runs
+        # a post of over 50 ms is timed in 3 runs
         post7 = time_ms(lambda: cd.post_chunks(plan7, outs7, arrays7),
                         **({"runs": 3, "warmup": 1} if dec7[0] > 50 else {}))
         k3 = [(dops.lookback_recon_chunks, a) for a in calls["lookback_recon_chunks"]] + [
             (dops.lookback_recon, a) for a in calls["lookback_recon"]]
         k4 = [(dops.dict_join_chunks, a) for a in calls["dict_join_chunks"]]
-        k3_t = time_ms(lambda: [f(*a) for f, a in k3])[0] if k3 else 0.0
-        k4_t = time_ms(lambda: [f(*a) for f, a in k4])[0] if k4 else 0.0
+        b1 = [(dops.conv1_recon_chunks, a) for a in calls["conv1_recon_chunks"]]
+        b2 = [(dops.float_mult_join, a) for a in calls["float_mult_join"]]
+        k3_t, k4_t, b1_t, b2_t = (time_ms(lambda fa=fa: [f(*a) for f, a in fa])[0] if fa else 0.0
+                                  for fa in (k3, k4, b1, b2))
         n7, nb7 = len(nums7), nums7.nbytes
         bound7 = bound(len(blob) + nb7)[0]
-        sa_rows[case] = {"n": n7, "bytes": len(blob), "ms": dec7[0], "plan_s": t_plan7, "post_ms": post7[0]}
+        sa_rows[case] = {"n": n7, "bytes": len(blob), "ms": dec7[0], "plan_s": t_plan7, "post_ms": post7[0],
+                         "moments_s": t_mom7[0]}
         print(f"standalone: {case}: {n7} {nums7.dtype}{'' if case in STANDALONE_FULL else ' (the first 8M)'}, "
               f"{len(blob)} bytes, ratio {nb7 / len(blob):.4f}, {len(plan7.chunks)} chunks "
-              f"{sorted(kinds)}, host simple_compress {t_enc7:.1f} s, host plan_standalone {t_plan7:.3f} s; "
-              f"decode_standalone_device == source, launches {launches7}, K1, K2 and the decode's K3/K4 calls "
-              f"== plain [{card}]", flush=True)
+              f"{sorted(kinds)}, host simple_compress {t_enc7:.1f} s, host plan_standalone {t_plan7:.3f} s "
+              f"(_chain_moments {t_mom7[0]:.3f} s in {t_mom7[1]} calls, the walk and the rest "
+              f"{t_plan7 - t_mom7[0]:.3f} s); decode_standalone_device == source, launches {launches7}, K1, K2 and "
+              f"the decode's K3/K4/B1/B2 calls == plain (B1 on the first {CONV1_PREFIX} numbers of every row) "
+              f"[{card}]", flush=True)
         print(f"standalone: {case}: decode {dec7[0]:.3f} ms median (min {dec7[1]:.3f}, max {dec7[2]:.3f}, "
               f"{RUNS} runs), {nb7 / (dec7[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound {bound7:.4f} ms = "
               f"{bound7 / dec7[0]:.1%}; K1 + K2 {k12[0]:.4f} ms ({len(plan7.launches)} launches), K3 "
-              f"{k3_t:.4f} ms ({len(k3)} calls), K4 {k4_t:.4f} ms ({len(k4)} calls), post (post_chunks, K3/K4 "
-              f"inside) {post7[0]:.4f} ms (min {post7[1]:.4f}, max {post7[2]:.4f}, {3 if dec7[0] > 50 else RUNS} runs)"
-              f"{'; the conv1 post (conv1_decode_pages, a loop over positions)' if case == 'conv1_i32_lpc' else ''}"
-              f" [{card}]", flush=True)
+              f"{k3_t:.4f} ms ({len(k3)} calls), K4 {k4_t:.4f} ms ({len(k4)} calls), B1 {b1_t:.4f} ms ({len(b1)} "
+              f"calls), B2 {b2_t:.4f} ms ({len(b2)} calls), post (post_chunks, K3/K4/B1/B2 inside) {post7[0]:.4f} ms "
+              f"(min {post7[1]:.4f}, max {post7[2]:.4f}, {3 if dec7[0] > 50 else RUNS} runs) [{card}]", flush=True)
+        if case == "conv1_i32_lpc":
+            b1_row = conv1_kernel_numbers(torch, dops, kernels, calls["conv1_recon_chunks"], launches7["conv1_recon"])
+            print(f"standalone: {case}: B1 {conv1_line(b1_row)} [{card}]", flush=True)
+        if case in ("floatmult_f32", "f64_auto_multichunk"):
+            b2_row = fm_kernel_numbers(torch, dops, calls["float_mult_join"], launches7["float_mult_join"])
+            print(f"standalone: {case}: B2 {fm_line(b2_row)} [{card}]", flush=True)
+            b2_rows[case] = b2_row
         del outs7, arrays7, plan7, blob, calls, nums7
         torch.cuda.empty_cache()
     print(f"standalone: phase {time.time() - t_ph:.1f} s [{card}]", flush=True)
@@ -2660,6 +2870,13 @@ def main() -> int:
          "library_ms": None, "device_ms": b5["device_ms"],
          **{k: b5[k] for k in ("pages", "page_n", "plain_pages", "two_chunks_ms", "one_page_ms", "one_page_steps",
                                "hash_reads_ms", "chain_ms", "resident_pages")}},
+        {"name": "conv1_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/conv1_recon.cu",
+         "replaces": "pcodec_tpu/ops/decode.py:442", **b1_row,
+         "pct": {k: b1_pct[k] for k in ("launches", "numbers", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "longest_row_steps", "one_row_ms", "one_row_steps")}},
+        {"name": "float_mult_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/float_mult_join.cu",
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1534", **b2_rows["floatmult_f32"],
+         "f64_auto_multichunk": b2_rows["f64_auto_multichunk"]},
     ]
     # phase 6's rows: the numbers of each kernel's last shape; launches at
     # that shape (its check, warm-ups and timed runs), beside the phase's

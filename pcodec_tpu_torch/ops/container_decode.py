@@ -20,13 +20,19 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      of the container in one launch, from the plan's
                      descriptor table, each Classic chunk trimmed and
                      joined straight into the output
+    conv1            B1, CUDA (csrc/conv1_recon.cu): every conv1 var of the
+                     container in one call (a launch an order), a thread
+                     or a warp a row (a PCT page, or a standalone chunk
+                     whole), from
+                     the plan's descriptor table, into a scratch
     post             per other chunk: the `delta` var first, then
                      `primary` and `secondary`; delta reconstruction
-                     (consecutive and conv1 in plain torch, lookback pages
-                     too long for shared memory through K3's device-memory
-                     route), then each non-Dict chunk's ragged trim and
-                     mode join in plain torch (ops/decode.py holds all of
-                     these)
+                     (consecutive in plain torch, lookback pages too long
+                     for shared memory through K3's device-memory route),
+                     then each non-Dict chunk's ragged trim and mode join
+                     (FloatMult's by B2, CUDA, csrc/float_mult_join.cu,
+                     straight into the output; the others in plain torch;
+                     ops/decode.py holds all of these)
     dict join        K4, CUDA (csrc/dict_join.cu): every Dict chunk of the
                      container in one launch, straight into the output
 
@@ -92,9 +98,9 @@ class ChunkPlan:
     mode_scalar: int  # IntMult/FloatMult base latent, FloatQuant k; else 0
     var_plans: Dict[str, VarPlan]
     dict_table: Optional[np.ndarray] = None  # (D,) int64 memory bits of each Dict entry
-    # a standalone chunk is one page cut into chains: its lookback vars are
-    # reconstructed over the whole chunk from one stored state
-    flat_lookback: bool = False
+    # a standalone chunk is one page cut into chains: its lookback and conv1
+    # vars are reconstructed over the whole chunk from one stored state
+    flat: bool = False
 
     @property
     def n(self) -> int:
@@ -103,9 +109,10 @@ class ChunkPlan:
 
     @property
     def recon_pages(self) -> tuple:
-        """(pages, page length) of the lookback reconstruction: the launch's
-        pages, or one page of every chain's numbers for a flat chunk."""
-        return (1, self.n_pages * self.page_n) if self.flat_lookback else (self.n_pages, self.page_n)
+        """(pages, page length) of the lookback and conv1 reconstructions:
+        the launch's pages, or one page of every chain's numbers for a flat
+        chunk."""
+        return (1, self.n_pages * self.page_n) if self.flat else (self.n_pages, self.page_n)
 
 
 @dataclass
@@ -164,6 +171,16 @@ class ContainerPlan:
     lookback_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
     lookback_scratch: Dict[tuple, int] = field(default_factory=dict)
     lookback_scratch_n: int = 0
+    # B1's plan: a row (decode.C1_COLS) per conv1 var of every chunk; the
+    # tensors the rows name (("launch", launch key), ("scratch",) the
+    # reconstructed latents, ("moments",) every row's stored state back to
+    # back, conv1_moments); where each var's latents start in the scratch,
+    # by (chunk, var key), and the scratch's numbers
+    conv1_bases: List[tuple] = field(default_factory=list)
+    conv1_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.C1_DESC_COLS), np.int64))
+    conv1_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
+    conv1_scratch: Dict[tuple, int] = field(default_factory=dict)
+    conv1_scratch_n: int = 0
 
     @property
     def lookback_chunks(self) -> set:
@@ -362,6 +379,7 @@ def _finish_plan(data: bytes, nt: NumberType, chunks: List[ChunkPlan], groups: D
                          dict_table=np.concatenate([chunks[ci].dict_table for ci in dict_chunks])
                          if dict_chunks else np.zeros(0, np.int64))
     _plan_lookback(plan)
+    _plan_conv1(plan)
     return plan
 
 
@@ -414,6 +432,40 @@ def _plan_lookback(plan: ContainerPlan) -> None:
     plan.lookback_desc = np.array(rows, np.int64).reshape(-1, dec.LB_DESC_COLS)
     plan.lookback_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
     plan.lookback_scratch, plan.lookback_scratch_n = scratch, scratch_n
+
+
+def _plan_conv1(plan: ContainerPlan) -> None:
+    """B1's descriptor table: a row per conv1 var of every chunk, its
+    recon_pages as its rows, its latents out into the scratch for the
+    chunk's join (or K4)."""
+    bases, rows, moments, scratch = [], [], [], {}
+    mom_off = scratch_n = row0 = 0
+
+    def base(key) -> int:
+        if key not in bases:
+            bases.append(key)
+        return bases.index(key)
+
+    for ci, ch in enumerate(plan.chunks):
+        for key, vp in ch.var_plans.items():
+            de = ch.delta.for_latent_var(key)
+            if de.kind != DeltaEncoding.CONV1:
+                continue
+            n_rows, row_n = ch.recon_pages
+            lat = (-1, _i64(vp.const_lower)) if vp.trivial else (base(("launch", vp.launch_key)),
+                                                                 vp.chain_start * ch.page_n)
+            rows.append(dec.conv1_row(de.weights, de.quantization, de.bias, vp.bits, n_rows, row_n, ch.n, row0,
+                                      lat=lat, mom=(base(("moments",)), mom_off),
+                                      out=(base(("scratch",)), scratch_n)))
+            scratch[(ci, key)] = scratch_n
+            scratch_n += ch.n
+            moments.append(vp.moments.reshape(-1))
+            mom_off += vp.moments.size
+            row0 += n_rows
+    plan.conv1_bases = bases
+    plan.conv1_desc = np.array(rows, np.int64).reshape(-1, dec.C1_DESC_COLS)
+    plan.conv1_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
+    plan.conv1_scratch, plan.conv1_scratch_n = scratch, scratch_n
 
 
 def _dict_from_launch(ch: ChunkPlan) -> bool:
@@ -668,25 +720,27 @@ def result_checksum_u64(res) -> int:
 def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
     """Undo the var's delta encoding on its (n_pages, page_n) latents (the
     JAX `_reconstruct_var`); `moments` is the var's stored state on the
-    device and `delta_latents` the chunk's reconstructed `delta` var."""
+    device and `delta_latents` the chunk's reconstructed `delta` var. A
+    conv1 var is the container's B1 call's (post_chunks), not this."""
     de = cp.delta.for_latent_var(vp.key)
     if de.kind == DeltaEncoding.NOOP:
         return lat
     if de.kind == DeltaEncoding.CONSECUTIVE:
         return dec.consecutive_decode_batched(lat, moments, de.order, vp.bits)
-    if de.kind == DeltaEncoding.LOOKBACK:
-        P, N = cp.recon_pages
-        return dec.lookback_recon(lat.reshape(P, N), delta_latents.reshape(P, N), moments, de.window_n,
-                                  de.state_n, vp.bits).reshape(lat.shape)
-    return dec.conv1_decode_pages(lat, moments, de.weights, de.quantization, de.bias, de.order, vp.bits)
+    if de.kind != DeltaEncoding.LOOKBACK:
+        raise ValueError(f"a {de.kind} var is reconstructed by the container's B1 call")
+    P, N = cp.recon_pages
+    return dec.lookback_recon(lat.reshape(P, N), delta_latents.reshape(P, N), moments, de.window_n,
+                              de.state_n, vp.bits).reshape(lat.shape)
 
 
 def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays",
-                  scratch: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                  scratch: Optional[torch.Tensor], conv1_out: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each var's trimmed latents of chunk ci, its delta undone (a fused
     launch's primary: its final memory bits): K3's output in `scratch` for a
-    var its container launch reconstructed, else the launch rows (or the
-    trivial var's constant) through reconstruct_var."""
+    var its container launch reconstructed, B1's in `conv1_out` for a conv1
+    var, else the launch rows (or the trivial var's constant) through
+    reconstruct_var."""
     cp, arrays = plan.chunks[ci], dev.chunks[ci]
     k3 = _k3_chunk(cp)
     rows, flat = {}, {}
@@ -694,9 +748,11 @@ def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor],
         vp = cp.var_plans.get(key)
         if vp is None or (key == "delta" and k3):  # K3 read the chunk's lookbacks itself
             continue
-        at = plan.lookback_scratch.get((ci, key))
+        at, made = plan.lookback_scratch.get((ci, key)), scratch
+        if at is None:
+            at, made = plan.conv1_scratch.get((ci, key)), conv1_out
         if at is not None:
-            flat[key] = scratch[at : at + cp.n]
+            flat[key] = made[at : at + cp.n]
             continue
         if vp.trivial:
             lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
@@ -711,47 +767,55 @@ def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor],
     return flat
 
 
-def chunk_result(plan: ContainerPlan, cp: ChunkPlan, flat: Dict[str, torch.Tensor]) -> torch.Tensor:
+def chunk_result(plan: ContainerPlan, cp: ChunkPlan, flat: Dict[str, torch.Tensor], out=None) -> torch.Tensor:
     """Memory bits of a non-Dict chunk from its trimmed var latents: the
-    mode join (a fused launch's primary is final already)."""
+    mode join (a fused launch's primary is final already), written into
+    `out` (the chunk's slice of the container's output) when it is given."""
     lkey = cp.var_plans["primary"].launch_key
     if lkey is not None and plan.launches[lkey].fuse:
-        return flat["primary"]
-    return dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, flat["primary"], flat.get("secondary"))
+        return flat["primary"] if out is None else out.copy_(flat["primary"])
+    return dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, flat["primary"], flat.get("secondary"), out)
 
 
 def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
     """(n,) int64 memory bits of every number of the container (the JAX
     `_post_chunks` and the concatenation after it). A fused launch's rows
-    are final memory bits already. A container without lookback or Dict
-    chunks is concatenated, a view where its chunks lie end to end in one
-    launch output. Otherwise one K3 launch reconstructs every lookback var
-    whose pages fit shared memory, joining each Classic chunk straight into
-    the output (the others' latents into a scratch); the remaining chunks
-    are joined in torch and copied into the output, and one K4 launch
-    joins every Dict chunk into it."""
+    are final memory bits already. A container without lookback, conv1,
+    Dict or FloatMult chunks is concatenated, a view where its chunks lie
+    end to end in one launch output. Otherwise one K3 launch reconstructs
+    every lookback var whose pages fit shared memory, joining each Classic
+    chunk straight into the output (the others' latents into a scratch);
+    one B1 call reconstructs every conv1 var into a scratch; the remaining
+    chunks are joined (FloatMult's by B2) into the output, and one K4
+    launch joins every Dict chunk into it."""
     device = dev.device
     k3_chunks = plan.lookback_chunks
-    if not plan.dict_chunks and not k3_chunks:
-        return _concat([chunk_result(plan, cp, chunk_latents(plan, ci, outs, dev, None))
+    if not (plan.dict_chunks or k3_chunks or len(plan.conv1_desc)
+            or any(cp.mode_kind == Mode.FLOAT_MULT for cp in plan.chunks)):
+        return _concat([chunk_result(plan, cp, chunk_latents(plan, ci, outs, dev, None, None))
                         for ci, cp in enumerate(plan.chunks)], device)
     out = torch.empty(plan.n, dtype=torch.int64, device=device)
     scratch = torch.empty(plan.lookback_scratch_n, dtype=torch.int64, device=device)
+    conv1_out = torch.empty(plan.conv1_scratch_n, dtype=torch.int64, device=device)
     if k3_chunks:
         named = {("out",): out, ("scratch",): scratch, ("moments",): dev.lookback_moments}
         bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.lookback_bases]
         dec.lookback_recon_chunks(bases, plan.lookback_desc, dev.lookback_desc)
+    if len(plan.conv1_desc):
+        named = {("scratch",): conv1_out, ("moments",): dev.conv1_moments}
+        bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.conv1_bases]
+        dec.conv1_recon_chunks(bases, plan.conv1_desc, dev.conv1_desc)
     dict_latents = {}  # Dict chunk -> its primary latents made by the post
     for ci, cp in enumerate(plan.chunks):
         if cp.mode_kind == Mode.DICT and _dict_from_launch(cp):
             continue  # K4 reads the launch's rows
         if ci in k3_chunks and cp.mode_kind == Mode.CLASSIC:
             continue  # K3 joined it into the output
-        flat = chunk_latents(plan, ci, outs, dev, scratch)
+        flat = chunk_latents(plan, ci, outs, dev, scratch, conv1_out)
         if cp.mode_kind == Mode.DICT:
             dict_latents[ci] = flat["primary"]
         else:
-            out[plan.offsets[ci] : plan.offsets[ci + 1]] = chunk_result(plan, cp, flat)
+            chunk_result(plan, cp, flat, out[plan.offsets[ci] : plan.offsets[ci + 1]])
     if not plan.dict_chunks:
         return out
     bases = [outs[key] if kind == "launch" else dict_latents[key] for kind, key in plan.dict_bases]
@@ -798,6 +862,8 @@ class DeviceArrays:
     dict_table: Optional[torch.Tensor] = None  # every Dict chunk's table, back to back
     lookback_desc: Optional[torch.Tensor] = None  # K3's rows (plan.lookback_desc)
     lookback_moments: Optional[torch.Tensor] = None  # every K3 row's stored state, back to back
+    conv1_desc: Optional[torch.Tensor] = None  # B1's rows (plan.conv1_desc)
+    conv1_moments: Optional[torch.Tensor] = None  # every B1 row's stored state, back to back
 
     @property
     def device(self) -> torch.device:
@@ -824,8 +890,8 @@ def _launch_arrays(cp: ChainPlan, device, chains: slice = slice(None), word0=Non
 
 
 def upload_post(plan: ContainerPlan, device="cuda") -> DeviceArrays:
-    """Copy what the post reads (K3's and K4's tables, each chunk's stored
-    delta states) to `device`; no container words and no launch."""
+    """Copy what the post reads (K3's, B1's and K4's tables, each chunk's
+    stored delta states) to `device`; no container words and no launch."""
     device = _resolve_device(device)
 
     def t(a):
@@ -833,7 +899,8 @@ def upload_post(plan: ContainerPlan, device="cuda") -> DeviceArrays:
 
     dev = DeviceArrays(words=torch.zeros(0, dtype=torch.int32, device=device), dict_table=t(plan.dict_table),
                        lookback_desc=t(plan.lookback_desc),
-                       lookback_moments=_u64_to_tensor(plan.lookback_moments, device))
+                       lookback_moments=_u64_to_tensor(plan.lookback_moments, device),
+                       conv1_desc=t(plan.conv1_desc), conv1_moments=_u64_to_tensor(plan.conv1_moments, device))
     for ch in plan.chunks:
         dev.chunks.append({"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()})
     return dev

@@ -6,12 +6,21 @@ The counterparts of the XLA helpers in the JAX package's
 
     bijections        latent <-> memory bits of every number type
     join_mem          the mode joins (Classic, IntMult, FloatQuant, FloatMult)
+    float_mult_join   B2, CUDA (csrc/float_mult_join.cu): the FloatMult join
+                      of one chunk in one elementwise pass, the integer
+                      softfloat's multiply inside, straight into the output
     dict_join_chunks  K4, CUDA (csrc/dict_join.cu): the Dict join of every
                       Dict chunk of a container in one launch, a clamped
                       gather of each entry's memory bits; dict_join is its
                       one-chunk case
-    consecutive_decode_batched, conv1_decode_pages
+    consecutive_decode_batched
                       delta reconstruction in plain torch (XLA in JAX)
+    conv1_recon_chunks
+                      B1, CUDA (csrc/conv1_recon.cu): the conv1 recurrence
+                      of every conv1 var of a container in one call, a
+                      thread a row (a warp a row where there are no more
+                      rows than warp schedulers), from a descriptor table;
+                      conv1_decode_pages is one chunk's rows
     lookback_recon_chunks
                       K3, CUDA (csrc/lookback_recon.cu): lookback
                       reconstruction by pointer doubling of every lookback
@@ -86,8 +95,15 @@ def from_latent_ordered(nt: NumberType, lat):
 
 
 def from_latent_ordered_int(nt: NumberType, lat: int) -> int:
-    """`from_latent_ordered` of one python int (a mode's scalar)."""
-    return int(from_latent_ordered(nt, torch.tensor([_i64(lat)], dtype=torch.int64))[0])
+    """`from_latent_ordered` of one python int (a mode's scalar), as int64."""
+    bits, join = nt.latent.bits, JOIN_OF_KIND[nt.kind]
+    mask, mid = (1 << bits) - 1, 1 << (bits - 1)
+    lat &= mask
+    if join == JOIN_SIGNED:
+        lat ^= mid
+    elif join == JOIN_FLOAT:
+        lat = lat ^ mid if lat & mid else ~lat & mask
+    return _i64(lat)
 
 
 # ---------------------------------------------------------------------------
@@ -95,15 +111,17 @@ def from_latent_ordered_int(nt: NumberType, lat: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def join_mem(nt: NumberType, mode_kind: str, mode_scalar: int, primary, secondary):
+def join_mem(nt: NumberType, mode_kind: str, mode_scalar: int, primary, secondary, out=None):
     """Mode join -> memory bits of the numbers (int64): the JAX `_join_mem`
     without its Dict branch (dict_join takes that). `mode_scalar` is the
     mode's payload as a python int (base latent, or k for FloatQuant).
+    With `out` the bits are written into it and it is returned.
 
-    FloatMult multiplies in the integer softfloat for every float width, as
-    JAX does for f64 only: the card's native f16/f32 multiply gives other
-    bits than the host's (x86) multiply on some inputs (NaN multipliers
-    among them), and the decode must give the host's numbers bit for bit."""
+    FloatMult (float_mult_join, B2 on the card) multiplies in the integer
+    softfloat for every float width, as JAX does for f64 only: the card's
+    native f16/f32 multiply gives other bits than the host's (x86) multiply
+    on some inputs (NaN multipliers among them), and the decode must give
+    the host's numbers bit for bit."""
     bits = nt.latent.bits
     mask = mask_of(bits)
     if mode_kind == Mode.CLASSIC:
@@ -119,15 +137,44 @@ def join_mem(nt: NumberType, mode_kind: str, mode_scalar: int, primary, secondar
         lowest = torch.where(_ult(y, sign_cutoff), _i64(low_max) - m, m)
         u_latent = ((y << k) + lowest) & mask
     elif mode_kind == Mode.FLOAT_MULT:
-        mid = _i64(1 << (bits - 1))
-        P = nt.mantissa_digits
-        base_bits = torch.full_like(primary, from_latent_ordered_int(nt, mode_scalar))
-        mult_bits = sf.int_float_latent_to_bits(primary & mask, bits, bits - P, P)
-        unadj_lat = sf.ordered_from_bits(sf.sf_mul_bits(mult_bits, base_bits, bits, bits - P, P), bits)
-        u_latent = (unadj_lat + (secondary & mask) + mid) & mask
+        return float_mult_join(nt, mode_scalar, primary, secondary, out)
     else:
         raise NotImplementedError(f"{mode_kind} mode has no join here")
-    return from_latent_ordered(nt, u_latent)
+    res = from_latent_ordered(nt, u_latent)
+    return res if out is None else out.copy_(res)
+
+
+def float_mult_join_plain(nt: NumberType, base_latent: int, primary, secondary, out=None):
+    """Plain version of B2: the FloatMult join in torch ops, the integer
+    softfloat's multiply (`ops/softfloat.py`) for every width. Returns the
+    memory bits, written into `out` when it is given."""
+    bits = nt.latent.bits
+    mask = mask_of(bits)
+    mid = _i64(1 << (bits - 1))
+    P = nt.mantissa_digits
+    base_bits = torch.full_like(primary, from_latent_ordered_int(nt, base_latent))
+    mult_bits = sf.int_float_latent_to_bits(primary & mask, bits, bits - P, P)
+    unadj_lat = sf.ordered_from_bits(sf.sf_mul_bits(mult_bits, base_bits, bits, bits - P, P), bits)
+    res = from_latent_ordered(nt, (unadj_lat + (secondary & mask) + mid) & mask)
+    return res if out is None else out.copy_(res)
+
+
+def float_mult_join(nt: NumberType, base_latent: int, primary, secondary, out=None):
+    """B2: the FloatMult join of one chunk's flat primary and secondary
+    latents (int64) -> memory bits, written into `out` (a slice of the
+    container's output) when it is given, else into a new tensor."""
+    if primary.device.type == "cpu":
+        return float_mult_join_plain(nt, base_latent, primary, secondary, out)
+    if primary.dim() != 1 or secondary.shape != primary.shape or nt.latent.bits not in (16, 32, 64):
+        raise ValueError("float_mult_join needs flat primary and secondary latents of one float type")
+    if out is None:
+        out = torch.empty_like(primary)
+    if out.shape != primary.shape:
+        raise ValueError("float_mult_join: out must have the latents' shape")
+    _check_cuda((primary, torch.int64), (secondary, torch.int64), (out, torch.int64))
+    kernels.launch_float_mult_join(primary, secondary, from_latent_ordered_int(nt, base_latent), out,
+                                   nt.latent.bits)
+    return out
 
 
 def dict_table(nt: NumberType, dict_vals: np.ndarray) -> np.ndarray:
@@ -309,21 +356,108 @@ def lookback_recon(latents, lookbacks, moments, window_n: int, state_n: int, bit
     return out
 
 
-def conv1_decode_pages(latents, moments, weights, quantization: int, bias: int, order: int, bits: int):
-    """`xops._conv1_decode` batched over pages: a loop over positions with
-    all pages as the batch. value[p] = delta[p - order] + mid +
-    (max(bias + sum_j w_j value[p - order + j], 0) >> quantization) in
-    wrapping signed 64-bit arithmetic, masked to `bits`; the first `order`
-    outputs are the stored state."""
+def conv1_decode_pages_plain(latents, moments, weights, quantization: int, bias: int, order: int, bits: int):
+    """Plain version of B1: `xops._conv1_decode` batched over rows, a loop
+    over positions with all rows as the batch. latents (P, N), moments (P,
+    order). value[p] = delta[p - order] + mid + (max(bias + sum_j w_j
+    value[p - order + j], 0) >> quantization) in wrapping signed 64-bit
+    arithmetic, masked to `bits`; the first `order` outputs are the stored
+    state."""
     P, N = latents.shape
     mid = _i64(1 << (bits - 1))
     mask = mask_of(bits)
     w = torch.tensor(list(weights), dtype=torch.int64, device=latents.device)[None, :]
     out = torch.empty((P, N), dtype=torch.int64, device=latents.device)
-    out[:, :order] = moments[:, :order]
+    k = min(order, N)
+    out[:, :k] = moments[:, :k]
     base = latents + mid
     for p in range(order, N):
         s = bias + (w * out[:, p - order : p]).sum(dim=1)
         out[:, p] = (base[:, p - order] + (torch.clamp(s, min=0) >> quantization)) & mask
-    out[:, :order] &= mask  # the state itself, unmasked, fed the first predictions
+    out[:, :k] &= mask  # the state itself, unmasked, fed the first predictions
+    return out
+
+
+# B1's descriptor table: one row per conv1 var of a chunk, C1_DESC_COLS int64
+# columns, the last 32 the weights (must match csrc/conv1_recon.cu). A base
+# is an index into the call's `bases`; a lat base of -1 is a trivial var
+# whose every latent is lat_start. Row r of the entry reads its latents at
+# lat_start + r * row_n and its state at mom_start + r * order; number i <
+# n_valid of the entry (its rows' numbers, in order) goes to out_start + i.
+# row0 is the entry's first row in the call (the sum of the rows before it).
+C1_COLS = ("lat_base", "lat_start", "mom_base", "mom_start", "out_base", "out_start", "n_rows", "row_n",
+           "n_valid", "order", "quant", "bias", "bits", "row0") + tuple(f"w{j}" for j in range(32))
+C1_DESC_COLS = len(C1_COLS)
+C1_MAX_ORDER = 32
+
+
+def conv1_row(weights, quantization: int, bias: int, bits: int, n_rows: int, row_n: int, n_valid: int, row0: int,
+              lat=(-1, 0), mom=(0, 0), out=(0, 0)) -> list:
+    """One B1 descriptor row of order len(weights): (base, start) pairs of
+    its latents, state and output."""
+    w = [int(x) for x in weights]
+    return [*lat, *mom, *out, n_rows, row_n, n_valid, len(w), quantization, bias, bits, row0,
+            *w, *[0] * (C1_MAX_ORDER - len(w))]
+
+
+def conv1_row_pages(bases, r):
+    """A B1 row's latents (n_rows, row_n) (zero past n_valid) and stored
+    state (n_rows, order) as int64 tensors."""
+    c = {name: i for i, name in enumerate(C1_COLS)}
+    P, N, n, k = r[c["n_rows"]], r[c["row_n"]], r[c["n_valid"]], r[c["order"]]
+    dev = bases[r[c["out_base"]]].device
+    if r[c["lat_base"]] < 0:
+        lat = torch.full((P, N), r[c["lat_start"]], dtype=torch.int64, device=dev)
+    else:
+        flat = bases[r[c["lat_base"]]].reshape(-1)[r[c["lat_start"]] : r[c["lat_start"]] + n]
+        lat = torch.cat([flat, flat.new_zeros(P * N - n)]).view(P, N)
+    mom = bases[r[c["mom_base"]]].reshape(-1)[r[c["mom_start"]] : r[c["mom_start"]] + P * k].view(P, k)
+    return lat, mom
+
+
+def conv1_recon_chunks_plain(bases, desc: np.ndarray, desc_dev=None):
+    """Plain version of B1 over a container's conv1 table: for each row,
+    conv1_decode_pages_plain of its rows, the first n_valid numbers written
+    into its output base. desc_dev is not read. Returns nothing; the output
+    bases are written in place."""
+    c = {name: i for i, name in enumerate(C1_COLS)}
+    for r in np.asarray(desc, np.int64).reshape(-1, C1_DESC_COLS).tolist():
+        lat, mom = conv1_row_pages(bases, r)
+        k, n = r[c["order"]], r[c["n_valid"]]
+        vals = conv1_decode_pages_plain(lat, mom, r[c["w0"] : c["w0"] + k], r[c["quant"]], r[c["bias"]], k,
+                                        r[c["bits"]])
+        out = bases[r[c["out_base"]]].reshape(-1)
+        out[r[c["out_start"]] : r[c["out_start"]] + n] = vals.reshape(-1)[:n]
+
+
+def conv1_recon_chunks(bases, desc: np.ndarray, desc_dev=None):
+    """B1: every row of a container's conv1 table reconstructed by one
+    launch for each order it holds, straight into the rows' outputs;
+    arguments as conv1_recon_chunks_plain, desc_dev the rows on the card
+    (uploaded here when None)."""
+    if all(b.device.type == "cpu" for b in bases):
+        return conv1_recon_chunks_plain(bases, desc)
+    desc = np.ascontiguousarray(desc, dtype=np.int64).reshape(-1, C1_DESC_COLS)
+    if len(bases) > kernels.C1_MAX_BASES:
+        raise ValueError(f"conv1_recon_chunks reads at most {kernels.C1_MAX_BASES} tensors a call")
+    _check_cuda(*((b, torch.int64) for b in bases))
+    if desc_dev is None:
+        desc_dev = torch.from_numpy(desc).to(bases[0].device)
+    _check_cuda((desc_dev, torch.int64))
+    if desc_dev.device != bases[0].device or tuple(desc_dev.shape) != desc.shape:
+        raise ValueError("conv1_recon_chunks: desc_dev must hold desc's rows on the bases' device")
+    kernels.launch_conv1_recon(bases, desc, desc_dev)
+
+
+def conv1_decode_pages(latents, moments, weights, quantization: int, bias: int, order: int, bits: int):
+    """B1 on one chunk's rows; arguments as conv1_decode_pages_plain. On the
+    card a one-entry table of conv1_recon_chunks."""
+    if latents.device.type == "cpu":
+        return conv1_decode_pages_plain(latents, moments, weights, quantization, bias, order, bits)
+    P, N = latents.shape
+    if moments.shape != (P, order) or len(weights) != order or not 1 <= order <= C1_MAX_ORDER:
+        raise ValueError("conv1_decode_pages: argument shapes do not match the rows and order")
+    out = torch.empty_like(latents)
+    row = conv1_row(weights, quantization, bias, bits, P, N, P * N, 0, lat=(0, 0), mom=(1, 0), out=(2, 0))
+    conv1_recon_chunks([latents, moments, out], np.array([row], np.int64))
     return out

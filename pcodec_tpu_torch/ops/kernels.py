@@ -29,6 +29,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
            "row_sort", "lookback_recon", "dict_join", "histogram_walk", "lookback_choose",
+           "conv1_recon", "float_mult_join",
            # the microbenchmarks of pcodec_tpu_torch/experiments/
            "proto_realign", "proto_dma", "micro_gather", "proto_round_loop", "bitonic_cluster")
 # micro_gather's four routes (its `route` argument), each counted on its own
@@ -42,6 +43,7 @@ LB_CHOOSE_SMEM_MAX_N = 8192
 # device memory B5 may hold at once: a batch of pages' proposals, or the
 # longer pages' maps (a region a block)
 LB_CHOOSE_SCRATCH_BYTES = 1 << 30
+C1_MAX_BASES = 64  # tensors one B1 call reads and writes (launch outputs of 62 page lengths); must match csrc/conv1_recon.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,6 +106,10 @@ _ARGTYPES = {
     # x, lens, lanes, m, bits, window_n_log, state_n, lbs, prim, states,
     # scratch, scratch_per_block, blocks, device, stream
     "lookback_choose": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # bases, numels, n_bases, desc, desc_dev, n_desc, launched, device, stream
+    "conv1_recon": [_P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # prim, sec, base bits, out, n, W, device, stream
+    "float_mult_join": [_P, _P, ctypes.c_ulonglong, _P, _L, _I, _I, _P],
     # raw2d, n_rows, starts_blk, out, n_groups, device, stream
     "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
     # raw, n_raw, starts, colsum, out, n_tiles, heavy_rounds, device, stream
@@ -373,6 +379,26 @@ def launch_lookback_choose(x, lens, lbs, prim, states, bits: int, window_n_log: 
     maps)."""
     _call("lookback_choose", x, x.data_ptr(), lens.data_ptr(), x.shape[0], x.shape[1], bits, window_n_log, state_n,
           lbs.data_ptr(), prim.data_ptr(), states.data_ptr(), scratch.data_ptr(), scratch.numel() // blocks, blocks)
+
+
+def launch_conv1_recon(bases, desc, desc_dev) -> None:
+    """B1 over a conv1 table: bases, the int64 tensors the rows name; desc
+    (R, decode.C1_DESC_COLS) int64 numpy rows, desc_dev the same rows on the
+    card. The C side checks every row against its bases. Counts its
+    kernels (one for each order the rows hold)."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64)
+    B = len(bases)
+    launched = ctypes.c_int(0)
+    _call("conv1_recon", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
+          (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
+          desc.shape[0], ctypes.byref(launched), launched=launched)
+
+
+def launch_float_mult_join(prim, sec, base_bits: int, out, W: int) -> None:
+    """B2 on one chunk: prim, sec and out (n,) int64; base_bits the base
+    float's memory bits."""
+    _call("float_mult_join", out, prim.data_ptr(), sec.data_ptr(), base_bits & ((1 << 64) - 1), out.data_ptr(),
+          out.shape[0], W)
 
 
 def launch_proto_realign(raw2d, starts_blk, out) -> None:

@@ -11,10 +11,10 @@ var)'s absolute section cursors and tANS entry states, and cuts the chunk
 (one page) into synthetic chains of 1,024 numbers: the entry points a PCT
 directory would store. The plan is the port's own `ContainerPlan`, so the
 decode runs the PCT path unchanged: K1 and K2 decode the chains, the post
-reconstructs each var's delta from per-chain moments computed here on the
-host (consecutive: the cascade streams at each chain's start; conv1: the
-decoded numbers there), K3 rebuilds a lookback chunk over the whole chunk
-from its one stored state and K4 joins the Dict chunks. No chunk is
+reconstructs a consecutive delta from per-chain moments computed here on
+the host (the cascade streams at each chain's start), K3 and B1 rebuild a
+lookback or conv1 chunk over the whole chunk from its one stored state (a
+flat chunk: ChunkPlan.flat) and K4 joins the Dict chunks. No chunk is
 decoded on the host instead of the card, and no extent is refused.
 
     plan_standalone   host, numpy: the walk, the chains, their tables
@@ -35,7 +35,6 @@ import torch
 from pcodec_tpu_torch.codec.container import _exact_split
 from pcodec_tpu_torch.codec.decompress import PageDecompressor
 from pcodec_tpu_torch.codec.standalone import FileDecompressor
-from pcodec_tpu_torch.delta import conv1_decode_in_place
 from pcodec_tpu_torch.dtypes import number_type_from_np
 from pcodec_tpu_torch.errors import InsufficientDataError
 from pcodec_tpu_torch.format.bitio import BitReader
@@ -80,26 +79,15 @@ def consecutive_chain_streams(latents: np.ndarray, page_moments: np.ndarray, ord
     return streams
 
 
-def _chain_moments(de_v: DeltaEncoding, key: str, lat: np.ndarray, pd, n: int, n_chains: int,
-                   bits: int, ldt) -> np.ndarray:
-    """(n_chains, state_n) u64 moments of a var's chains (a flat lookback:
-    (1, state_n), the chunk's one stored state)."""
-    boundaries = np.arange(n_chains, dtype=np.int64) * CHAIN_N
-    state = np.asarray(pd.plds.get(key).delta_state).astype(np.uint64)
+def _chain_moments(de_v: DeltaEncoding, key: str, lat: np.ndarray, pd, n_chains: int, bits: int) -> np.ndarray:
+    """(n_chains, state_n) u64 moments of a var's chains (a flat lookback or
+    conv1 var: (1, state_n), the chunk's one stored state)."""
     if de_v.kind == DeltaEncoding.CONSECUTIVE:
+        boundaries = np.arange(n_chains, dtype=np.int64) * CHAIN_N
+        state = np.asarray(pd.plds.get(key).delta_state).astype(np.uint64)
         streams = consecutive_chain_streams(lat, state, de_v.order, bits)
         return np.stack([s[np.minimum(boundaries, len(s) - 1)] for s in streams], axis=1)
-    if de_v.kind == DeltaEncoding.CONV1:
-        work = np.zeros(n, dtype=ldt)
-        work[: len(lat)] = lat.astype(ldt)
-        conv1_decode_in_place(de_v, pd.plds.get(key).delta_state, work)
-        k = de_v.order
-        mom = np.zeros((n_chains, k), dtype=np.uint64)
-        for r in range(n_chains):
-            seg = work[CHAIN_N * r : CHAIN_N * r + k].astype(np.uint64)
-            mom[r, : len(seg)] = seg
-        return mom
-    if de_v.kind == DeltaEncoding.LOOKBACK:  # the stored state, not the decoder's expanded window
+    if de_v.kind in (DeltaEncoding.LOOKBACK, DeltaEncoding.CONV1):  # the stored state, not a decoder's window
         return np.asarray(pd.page_meta.per_latent_var.get(key).delta_state).astype(np.uint64).reshape(1, -1)
     return np.zeros((n_chains, 0), dtype=np.uint64)
 
@@ -151,8 +139,7 @@ def _walk(data: bytes, max_n: Optional[int], entries: list):
                 key=key,
                 trivial=bins.are_trivial() or len(bins) == 0,
                 const_lower=int(bins.lowers[0]) if len(bins) else 0,
-                moments=_chain_moments(de_v, key, lat, pd, n, n_chains, vm.latent_type.bits,
-                                       vm.latent_type.np_dtype),
+                moments=_chain_moments(de_v, key, lat, pd, n_chains, vm.latent_type.bits),
                 bits=vm.latent_type.bits,
             )
             var_plans[key] = vp
@@ -191,7 +178,7 @@ def _walk(data: bytes, max_n: Optional[int], entries: list):
             n_pages=n_chains, page_ns=page_ns, page_n=CHAIN_N, delta=meta.delta_encoding, mode_kind=mode.kind,
             mode_scalar=int(mode.payload) if mode.kind in (Mode.INT_MULT, Mode.FLOAT_MULT, Mode.FLOAT_QUANT) else 0,
             var_plans=var_plans, dict_table=table,
-            flat_lookback=meta.delta_encoding.kind == DeltaEncoding.LOOKBACK,
+            flat=meta.delta_encoding.kind in (DeltaEncoding.LOOKBACK, DeltaEncoding.CONV1),
         ), items))
         ci += 1
         n_seen += n

@@ -18,8 +18,10 @@ import jax.numpy as jnp
 import pcodec_tpu.ops.decode as xops
 import pcodec_tpu.ops.pallas_decode as pd
 from pcodec_tpu import modes as ref_modes
+from pcodec_tpu.delta import conv1_decode_in_place as ref_conv1_decode_in_place
 from pcodec_tpu.codec.container import container_decompress as ref_decompress
 from pcodec_tpu.dtypes import NUMBER_TYPES_BY_NAME as REF_TYPES
+from pcodec_tpu.format.metadata import DeltaEncoding as RefDeltaEncoding
 from pcodec_tpu.format.metadata import Mode as RefMode
 from pcodec_tpu.ops import softfloat as ref_sf
 
@@ -252,9 +254,71 @@ def test_conv1_matches_jax(order, bits):
     assert np.array_equal(_u(out), np.asarray(ref))
 
 
+@pytest.mark.parametrize("order", [1, 6, 32])
+def test_conv1_plain_flat_row_matches_jax(order):
+    """Exact: conv1_decode_pages_plain on one flat row of a few thousand
+    numbers (a standalone chunk's route) against the JAX package's host
+    conv1_decode_in_place; the same numbers cut into pages, each from its
+    own state, against jax.vmap(xops._conv1_decode)."""
+    bits, n, P = 32, 3000, 3
+    lat = RNG.integers(0, 1 << bits, n, dtype=np.uint64)
+    state = RNG.integers(0, 1 << bits, order, dtype=np.uint64)
+    weights = RNG.integers(-(1 << 12), 1 << 12, order)
+    quant, bias = 11, int(RNG.integers(-(1 << 24), 1 << 24))
+    host = lat.astype(np.uint32)
+    ref_conv1_decode_in_place(RefDeltaEncoding.conv1(quant, bias, weights.tolist()), state.astype(np.uint32), host)
+    out = dec.conv1_decode_pages_plain(_t(lat)[None], _t(state)[None], weights.tolist(), quant, bias, order, bits)
+    assert np.array_equal(_u(out)[0], host.astype(np.uint64))
+    states = RNG.integers(0, 1 << bits, (P, 32), dtype=np.uint64)
+    aux = np.zeros(36, np.int64)
+    aux[1], aux[2], aux[3 : 3 + order] = quant, bias, weights
+    pages = lat.reshape(P, n // P)
+    ref = jax.vmap(lambda la, st: xops._conv1_decode(la, st, jnp.asarray(aux), order, bits))(
+        jnp.asarray(pages), jnp.asarray(states))
+    out = dec.conv1_decode_pages_plain(_t(pages), _t(states[:, :order]), weights.tolist(), quant, bias, order, bits)
+    assert np.array_equal(_u(out), np.asarray(ref))
+
+
 # ---------------------------------------------------------------------------
 # joins against the JAX package
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["f16", "f32", "f64"])
+def test_float_mult_join_plain_matches_jax(name):
+    """Exact: B2's plain version against pd._join_mem's FloatMult branch
+    and the host's join_latents, on bases 0.01, 3.0 and a subnormal, with
+    NaN, inf and zero multipliers among the full-range latents. As in
+    test_join_mem_matches_jax, f32 is held to JAX only where neither the
+    host's product nor the multiplier is subnormal, and f32 and f64 only
+    with a normal base (XLA's CPU flushes subnormal f32 products and
+    operands; JAX's f64 softfloat takes normal bases only); to the host
+    everywhere."""
+    nt, rnt = TYPES[name], REF_TYPES[name]
+    bits = nt.latent.bits
+    L = rnt.latent.np_dtype
+    prim, sec = _latents(bits), _latents(bits)
+    mid = 1 << (bits - 1)
+    prim[:1000] = np.uint64(mid) + RNG.integers(-500, 500, 1000).astype(np.uint64)  # small multipliers
+    for base_f, normal in ((0.01, True), (3.0, True), (np.array([3], L).view(rnt.np_dtype)[0], False)):
+        scalar = int(rnt.to_latent_ordered(np.array([base_f], rnt.np_dtype))[0])
+        out = _u(dec.float_mult_join_plain(nt, scalar, _t(prim), _t(sec)))
+        ref = np.asarray(pd._join_mem(rnt, RefMode.FLOAT_MULT, jnp.uint64(scalar), None, jnp.asarray(prim),
+                                      jnp.asarray(sec)))
+        with np.errstate(all="ignore"):
+            host = ref_modes.join_latents(rnt, RefMode(RefMode.FLOAT_MULT, scalar), prim.astype(L), sec.astype(L))
+            keep = np.ones(len(prim), bool)
+            if name == "f32":
+                mult = np.abs(rnt.int_float_from_latent(prim.astype(L)))
+                prod = mult * rnt.np_dtype.type(base_f)
+                tiny = np.finfo(np.float32).tiny
+                keep = ~(((prod > 0) & (prod < tiny)) | ((mult > 0) & (mult < tiny)))
+        assert np.array_equal(out, host.view(L).astype(np.uint64))
+        if normal or name == "f16":
+            assert np.array_equal(out[keep], ref[keep]) and keep.mean() > 0.5
+        into = torch.full((len(prim),), -7, dtype=torch.int64)
+        assert dec.float_mult_join_plain(nt, scalar, _t(prim), _t(sec), into) is into
+        assert np.array_equal(_u(into), out)
 
 
 def _latents(bits, n=3000):

@@ -1,4 +1,5 @@
-"""K3 (lookback_recon) and K4 (dict_join) of the port, on their own.
+"""K3 (lookback_recon), K4 (dict_join), B1 (conv1_recon) and B2
+(float_mult_join) of the port, on their own.
 
 The plain versions run here on the CPU, held against independent numpy
 references and the port's host decoder; the tests marked `gpu` hold the
@@ -7,6 +8,8 @@ each, and skip when there is no card. Every comparison is exact. This file
 imports no JAX, so on a GPU machine without JAX it runs as
 `python -m pytest tests/test_torch_breadth_kernels.py --noconftest -m gpu`.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -274,6 +277,65 @@ def test_conv1_plain_matches_host_decoder(order):
     assert np.array_equal(out.numpy()[0], host.astype(np.int64))
 
 
+def _serial_conv1(lat, mom, weights, q, bias, bits):
+    """One row of the conv1 recurrence a position at a time, in python ints
+    wrapped to 64 bits; the window starts from the state unmasked."""
+    mask, mid, k = (1 << bits) - 1, 1 << (bits - 1), len(weights)
+    v = [int(x) & M64 for x in mom[:k]]
+    out = [x & mask for x in v][: len(lat)]
+    for i in range(len(lat) - k):
+        s = (bias + sum(w * x for w, x in zip(weights, v[-k:]))) & M64
+        s = s - (1 << 64) if s >> 63 else s
+        v.append((int(lat[i]) + mid + (s >> q if s > 0 else 0)) & mask)
+        out.append(v[-1])
+    return np.array(out, dtype=np.uint64)
+
+
+def _random_conv1_table(seed, orders=(1, 6, 32), bits=(32, 16, 8, 64)):
+    """Bases (latents 2-D and flat, the stored states, an output filled
+    with -77) and a B1 table over them: entries of each order and width,
+    rows of 1, `order`, 1,024 and ragged numbers, trivial entries (constant
+    latents), several rows an entry, gaps between the outputs."""
+    rng = np.random.default_rng(seed)
+    lat = torch.from_numpy(rng.integers(0, 2**64, (8, 1500), dtype=np.uint64).view(np.int64))
+    rows, row0, mom_at, out_at = [], 0, 0, 0
+    for i, (k, b) in enumerate((k, b) for k in orders for b in bits):
+        for R, N, nv, trivial in ((1, 1, 1, False), (2, k, 2 * k - 1, False), (3, 1024, 3 * 1024, False),
+                                  (4, 700, 3 * 700 + 1, i % 2 == 0), (1, 4000, 3500, False)):
+            w = rng.integers(-(1 << 20), 1 << 20, k).tolist()
+            lat_src = (-1, int(rng.integers(0, 2**63))) if trivial else (i % 2, int(rng.integers(0, 11_990 - nv)))
+            rows.append(dec.conv1_row(w, int(rng.integers(0, 40)), int(rng.integers(-(1 << 40), 1 << 40)), b, R, N,
+                                      nv, row0, lat=lat_src, mom=(2, mom_at), out=(3, out_at)))
+            row0, mom_at, out_at = row0 + R, mom_at + R * k, out_at + nv + 3
+    mom = torch.from_numpy(rng.integers(0, 2**64, mom_at, dtype=np.uint64).view(np.int64))
+    out = torch.full((out_at,), -77, dtype=torch.int64)
+    return [lat, lat.reshape(-1)[7:], mom, out], np.array(rows, np.int64)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_conv1_recon_chunks_plain_is_each_entry_alone(seed):
+    """Exact: the table form of B1's plain version equals each entry's rows
+    through conv1_decode_pages_plain, its first n_valid numbers in the
+    output, the gaps left as they were; each row's first numbers equal the
+    serial recurrence."""
+    bases, desc = _random_conv1_table(seed, orders=(1, 3), bits=(32, 64))
+    c = {name: i for i, name in enumerate(dec.C1_COLS)}
+    got = bases[:3] + [bases[3].clone()]
+    dec.conv1_recon_chunks(got, desc)  # the CPU route: the plain version
+    written = torch.zeros(len(got[3]), dtype=torch.bool)
+    for r in desc.tolist():
+        lat, mom = dec.conv1_row_pages(bases, r)
+        k, nv, at = r[c["order"]], r[c["n_valid"]], r[c["out_start"]]
+        w = r[c["w0"] : c["w0"] + k]
+        want = dec.conv1_decode_pages_plain(lat, mom, w, r[c["quant"]], r[c["bias"]], k, r[c["bits"]])
+        assert torch.equal(got[3][at : at + nv], want.reshape(-1)[:nv])
+        first = _serial_conv1(lat[0].numpy().view(np.uint64)[:200], mom[0].numpy(), w, r[c["quant"]],
+                              r[c["bias"]], r[c["bits"]])
+        assert np.array_equal(want[0, :200].numpy().view(np.uint64), first)
+        written[at : at + nv] = True
+    assert bool((got[3][~written] == -77).all())
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     lat, lb, mom = _pages(2, 256, 1, 256)
     table = torch.arange(5, dtype=torch.int64)
@@ -281,6 +343,11 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert torch.equal(dec.lookback_recon(lat, lb, mom, 256, 1, 64),
                        dec.lookback_decode_pages_plain(lat, lb, mom, 256, 1, 64))
     assert torch.equal(dec.dict_join(lb[0], table), dec.dict_join_plain(lb[0], table))
+    assert torch.equal(dec.conv1_decode_pages(lat, mom[:, :1], [3], 2, 5, 1, 32),
+                       dec.conv1_decode_pages_plain(lat, mom[:, :1], [3], 2, 5, 1, 32))
+    nt = pt.dtypes.NUMBER_TYPES_BY_NAME["f32"]
+    assert torch.equal(dec.float_mult_join(nt, 7 << 28, lat[0], lb[0]),
+                       dec.float_mult_join_plain(nt, 7 << 28, lat[0], lb[0]))
     assert kernels.LAUNCHES == before  # plain versions launch nothing
 
 
@@ -397,6 +464,144 @@ def test_lookback_container_decode_one_launch_on_card(case, monkeypatch):
     dec.lookback_recon_chunks_plain(plain, desc)
     for i in outs:
         assert torch.equal(kern[i], plain[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("orders,bits", [((1, 2, 3, 4, 5, 6, 7, 8), (32, 8)), ((9, 12, 15, 16, 17, 20), (16, 64)),
+                                         ((24, 31, 32), (32, 64, 8, 16))])
+def test_conv1_recon_chunks_matches_plain_on_card(orders, bits):
+    """Exact: one B1 call on a table of every listed order and latent
+    width (rows of 1, `order`, 1,024 and ragged numbers, trivial entries,
+    full 64-bit states) equals the plain version, one kernel an order."""
+    _need_card()
+    bases, desc = _random_conv1_table(len(orders), orders, bits)
+    bases = [b.cuda() for b in bases]
+    got = bases[:3] + [bases[3].clone()]
+    want = bases[:3] + [bases[3].clone()]
+    before = kernels.LAUNCHES["conv1_recon"]
+    dec.conv1_recon_chunks(got, desc, torch.from_numpy(desc).cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv1_recon"] == before + len(orders)
+    dec.conv1_recon_chunks_plain(want, desc)
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 6, 32])
+def test_conv1_decode_pages_long_row_on_card(order):
+    """Exact: a row of 300,000 numbers (a standalone chunk's route) and
+    three rows beside it: the first 16,384 numbers of each against the
+    plain version (the recurrence is causal), the whole long row against
+    the serial recurrence."""
+    _need_card()
+    rng = np.random.default_rng(order)
+    N = 300_000
+    lat = torch.from_numpy(rng.integers(0, 2**32, (4, N), dtype=np.uint64).view(np.int64)).cuda()
+    mom = torch.from_numpy(rng.integers(0, 2**64, (4, order), dtype=np.uint64).view(np.int64)).cuda()
+    w = rng.integers(-(1 << 12), 1 << 12, order).tolist()
+    q, bias = 14, int(rng.integers(-(1 << 30), 1 << 30))
+    before = kernels.LAUNCHES["conv1_recon"]
+    got = dec.conv1_decode_pages(lat, mom, w, q, bias, order, 32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv1_recon"] == before + 1
+    L = 16_384
+    assert torch.equal(got[:, :L], dec.conv1_decode_pages_plain(lat[:, :L], mom, w, q, bias, order, 32))
+    want = _serial_conv1(lat[0].cpu().numpy().view(np.uint64), mom[0].cpu().numpy(), w, q, bias, 32)
+    assert np.array_equal(got[0].cpu().numpy().view(np.uint64), want)
+
+
+@pytest.mark.gpu
+def test_conv1_recon_chunks_refuses_wrong_arguments_on_card():
+    """An order past 32, a quantization of 64, latents past their base,
+    rows that do not follow each other, a base that is not int64, more
+    bases than a call carries and rows on the card that are not the
+    table's are refused, and nothing is launched."""
+    _need_card()
+    bases, desc = _random_conv1_table(5, (2, 3), (32,))
+    bases = [b.cuda() for b in bases]
+    c = {name: i for i, name in enumerate(dec.C1_COLS)}
+    before = kernels.LAUNCHES["conv1_recon"]
+    for col, value in (("order", 33), ("quant", 64), ("lat_start", 12_000), ("row0", 0)):
+        bad = desc.copy()
+        bad[1, c[col]] = value
+        with pytest.raises(RuntimeError, match="conv1_recon kernel launch failed"):
+            dec.conv1_recon_chunks(bases, bad)
+    with pytest.raises(ValueError):
+        dec.conv1_recon_chunks(bases[:3] + [bases[3].to(torch.int32)], desc)
+    with pytest.raises(ValueError):
+        dec.conv1_recon_chunks(bases + [bases[0]] * kernels.C1_MAX_BASES, desc)
+    with pytest.raises(ValueError):
+        dec.conv1_recon_chunks(bases, desc, torch.from_numpy(desc[:-1]).cuda())
+    assert kernels.LAUNCHES["conv1_recon"] == before
+
+
+def _float_mult_inputs(nt, rng, n=50_000):
+    """FloatMult primaries over the full range (NaN, inf and subnormal
+    multipliers among them, and small ones whose products with tiny bases
+    are subnormal), secondaries, and bases (normal, tiny, subnormal, zero,
+    negative zero, inf, NaN) as latents of the type."""
+    bits = nt.latent.bits
+    prim = rng.integers(0, 2**64, n, dtype=np.uint64)
+    sec = rng.integers(0, 2**64, n, dtype=np.uint64)
+    prim[: n // 5] = np.uint64(1 << (bits - 1)) + rng.integers(-3000, 3000, n // 5).astype(np.uint64)
+    udt = nt.latent.np_dtype
+    special = np.array([0.01, 1e-30, 3.0, -7.5, np.inf, -np.inf, np.nan, 0.0, -0.0], nt.np_dtype)
+    special = np.concatenate([special, np.array([1, 7, 3 << (nt.mantissa_digits - 3)], udt).view(nt.np_dtype)])
+    bases = [int(b) for b in nt.to_latent_ordered(special)]
+    return (torch.from_numpy(prim.view(np.int64)), torch.from_numpy(sec.view(np.int64)), bases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["f16", "f32", "f64"])
+def test_float_mult_join_matches_plain_on_card(name):
+    """Exact: B2 against its plain version at every special base, into a
+    fresh tensor and into a slice of a larger output (its neighbours left
+    as they were), one launch a call."""
+    _need_card()
+    nt = TYPES[name]
+    prim, sec, bases = _float_mult_inputs(nt, np.random.default_rng(11))
+    p, a = prim.cuda(), sec.cuda()
+    for base in bases:
+        want = dec.float_mult_join_plain(nt, base, prim, sec)
+        before = kernels.LAUNCHES["float_mult_join"]
+        got = dec.float_mult_join(nt, base, p, a)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["float_mult_join"] == before + 1
+        assert torch.equal(got.cpu(), want), f"base latent {base:#x}"
+        out = torch.full((len(prim) + 10,), -77, dtype=torch.int64, device="cuda")
+        dec.float_mult_join(nt, base, p[1:], a[1:], out[3 : 3 + len(prim) - 1])
+        assert torch.equal(out[3 : 3 + len(prim) - 1].cpu(), dec.float_mult_join_plain(nt, base, prim[1:], sec[1:]))
+        assert bool((out[:3] == -77).all()) and bool((out[3 + len(prim) - 1 :] == -77).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["conv1_standalone", "conv1_pct", "float_mult_standalone"])
+def test_conv1_and_float_mult_decode_on_card(case):
+    """Exact: a multi-chunk standalone conv1 file (each chunk one B1 row),
+    a conv1 PCT container (a row a page) and a FloatMult standalone file
+    decode on the card to their source, B1 in one call and B2 once a
+    chunk."""
+    _need_card()
+    t = np.arange(70_000, dtype=np.float64)
+    if case.startswith("conv1"):
+        nums = ((1 << 20) * np.sin(0.01 * t) + RNG.integers(-64, 64, len(t))).astype(np.int32)
+        cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_conv1", 6))
+    else:
+        nums = (RNG.integers(-5000, 5000, len(t)) * np.float32(0.01)).astype(np.float32)
+        nums[::101] = np.nan
+        cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_mult", 0.01))
+    if case == "conv1_pct":
+        data = pt.container_compress(nums, cfg, page_n=1024, chunk_n=30_000)
+    else:
+        data = pt.simple_compress(nums, replace(cfg, paging_spec=pt.PagingSpec.equal_pages_up_to(30_000)))
+    before = dict(kernels.LAUNCHES)
+    got = (pt.decode_container_device(data, device="cuda") if case == "conv1_pct"
+           else pt.decode_standalone_device(data, device="cuda"))
+    assert np.array_equal(got.view(np.uint8), nums.view(np.uint8))
+    name = "float_mult_join" if case == "float_mult_standalone" else "conv1_recon"
+    assert kernels.LAUNCHES[name] > before[name]
+    if name == "conv1_recon":
+        assert kernels.LAUNCHES[name] == before[name] + 1
 
 
 @pytest.mark.gpu

@@ -45,6 +45,9 @@ def _cu_constants(name: str) -> dict:
     ("lookback_recon", "JOIN_UNSIGNED", decode.JOIN_UNSIGNED),
     ("lookback_recon", "JOIN_SIGNED", decode.JOIN_SIGNED),
     ("lookback_recon", "JOIN_FLOAT", decode.JOIN_FLOAT),
+    ("conv1_recon", "MAX_BASES", kernels.C1_MAX_BASES),
+    ("conv1_recon", "DESC_COLS", decode.C1_DESC_COLS),
+    ("conv1_recon", "MAX_ORDER", decode.C1_MAX_ORDER),
     ("row_sort", "TILE", row_sort.RADIX_TILE),
     ("row_sort", "BITS", row_sort.RADIX_BITS),
     ("image_stitch", "SCAN_THREADS", kernels.K7_SCAN_PAGES),
@@ -79,6 +82,17 @@ def test_k3_descriptor_columns_follow_the_kernel_enum():
     with open(os.path.join(kernels._CSRC, "lookback_recon.cu")) as f:
         body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
     assert [name.strip().lower() for name in body.split(",") if name.strip()] == list(decode.LB_COLS)
+
+
+def test_b1_descriptor_columns_follow_the_kernel_enum():
+    """B1's descriptor columns (decode.C1_COLS) in the order of
+    csrc/conv1_recon.cu's `enum Col`, its last member the first of the
+    MAX_ORDER weights."""
+    with open(os.path.join(kernels._CSRC, "conv1_recon.cu")) as f:
+        body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
+    names = [name.strip().lower() for name in body.split(",") if name.strip()]
+    assert names[:-1] + [f"w{j}" for j in range(decode.C1_MAX_ORDER)] == list(decode.C1_COLS)
+    assert names[-1] == "weights"
 
 
 def test_k7_descriptor_columns_follow_the_kernel_enum():

@@ -97,8 +97,9 @@ def _jax_arrays(launch):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_standalone_plan_equals_jax_plan(name):
     """Per chain: absolute cursors, entry states, body length, fused moment;
-    per var: the moments (consecutive streams at each chain's start, conv1
-    numbers, a lookback's stored state). The JAX planner pads each table's
+    per var: the moments (consecutive streams at each chain's start, a
+    lookback's stored state; a conv1 var's, the port's flat chunk, is the
+    JAX plan's first row). The JAX planner pads each table's
     chains to 256 and the port's to 128, so rows are compared per (chunk,
     var)."""
     blob = BLOBS[name]
@@ -109,11 +110,12 @@ def test_standalone_plan_equals_jax_plan(name):
     for cp, rcp in zip(ours.chunks, ref.chunks):
         assert rcp.fallback is None, "the JAX planner sent this chunk to the host"
         assert np.array_equal(cp.page_ns, rcp.page_ns)
-        assert cp.flat_lookback == (cp.delta.kind == DeltaEncoding.LOOKBACK)
+        assert cp.flat == (cp.delta.kind in (DeltaEncoding.LOOKBACK, DeltaEncoding.CONV1))
         for key, rvp in rcp.var_plans.items():
             vp = cp.var_plans[key]
             assert vp.trivial == rvp.trivial and vp.const_lower == rvp.const_lower
-            assert np.array_equal(vp.moments.astype(np.uint64), np.asarray(rvp.moments).astype(np.uint64)), key
+            assert np.array_equal(vp.moments.astype(np.uint64), np.asarray(rvp.moments).astype(np.uint64)[
+                : 1 if cp.delta.for_latent_var(key).kind == DeltaEncoding.CONV1 else None]), key
             if rvp.trivial:
                 assert vp.launch_key is None
                 continue
@@ -146,7 +148,7 @@ def test_standalone_lookback_state_n_64_stays_on_the_chains(monkeypatch):
     _same(ref, nums)
     plan = sd.plan_standalone(blob)
     ch = plan.chunks[0]
-    assert ch.delta.kind == DeltaEncoding.LOOKBACK and ch.delta.state_n == 64 and ch.flat_lookback
+    assert ch.delta.kind == DeltaEncoding.LOOKBACK and ch.delta.state_n == 64 and ch.flat
     assert all(vp.launch_key is not None for vp in ch.var_plans.values())
     assert ch.recon_pages == (1, ch.n_pages * sd.CHAIN_N) and not plan.lookback_chunks  # past shared memory
     _same(pt.decode_standalone_device(blob, device="cpu"), ref)
@@ -165,6 +167,32 @@ def test_standalone_lookback_chunks_stay_on_the_chains(name):
         assert ch.var_plans["primary"].moments.shape == (1, ch.delta.state_n)
     assert len(plan.lookback_desc) == len(plan.chunks)
     assert (plan.lookback_desc[:, cd.dec.LB_COLS.index("n_pages")] == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["signal", "ramp"])
+def test_standalone_conv1_chunks_are_flat(kind):
+    """Each conv1 chunk of a multi-chunk file (a ragged last chunk) is one
+    B1 row over the whole chunk from its one stored state, its primary a
+    coded var ("signal") or a trivial one ("ramp", every residual equal);
+    decoded on the CPU it equals the JAX package's simple_decompress."""
+    t = np.arange(9473, dtype=np.float64)
+    nums = ((1000 * np.sin(t * 0.013) + RNG.standard_normal(len(t))).astype(np.int32) if kind == "signal"
+            else (t * 7 - 30_000).astype(np.int32))
+    cfg = ChunkConfig(delta_spec=DeltaSpec(DeltaSpec.TRY_CONV1, 3), paging_spec=PagingSpec.equal_pages_up_to(4096))
+    blob = simple_compress(nums, cfg)
+    ref, _ = simple_decompress(blob)
+    _same(ref, nums)
+    plan = sd.plan_standalone(blob)
+    assert len(plan.chunks) == 3 and all(ch.flat and ch.delta.kind == DeltaEncoding.CONV1 for ch in plan.chunks)
+    col = {name: i for i, name in enumerate(cd.dec.C1_COLS)}
+    desc = plan.conv1_desc
+    assert len(desc) == 3 and (desc[:, col["n_rows"]] == 1).all()
+    assert desc[:, col["row_n"]].tolist() == [ch.n_pages * sd.CHAIN_N for ch in plan.chunks]
+    assert desc[:, col["n_valid"]].tolist() == [ch.n for ch in plan.chunks]
+    assert all(ch.var_plans["primary"].moments.shape == (1, ch.delta.order) for ch in plan.chunks)
+    assert all(ch.var_plans["primary"].trivial == (kind == "ramp") for ch in plan.chunks)
+    assert ((desc[:, col["lat_base"]] < 0) == (kind == "ramp")).all()
+    _same(pt.decode_standalone_device(blob, device="cpu"), ref)
 
 
 def test_standalone_decode_defaults_to_the_card():

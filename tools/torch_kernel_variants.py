@@ -1,4 +1,4 @@
-"""Variants of the port's E1, E3a, E3b, E4a, E4b and B5 kernels, timed on the card
+"""Variants of the port's E1, E3a, E3b, E4a, E4b, B5 and B1 kernels, timed on the card
 against the committed ones: each variant is a text edit of a kernel source
 (or an earlier tree's source as it is), built by nvcc beside the port's own
 libraries and called through the same C entry point. A record of the runs
@@ -6,7 +6,7 @@ that chose the designs (PERF.md section 6), not part of the package:
 nothing imports it, and an edit that no longer applies to the committed
 source raises.
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e3b|e4a|e4b|b5]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e3b|e4a|e4b|b5|b1]
 
 DIR is an earlier tree of the port (e.g. `git archive` of a parent under
 `build/`). E1: its csrc/proto_dma.cu, where that is the earlier fetch
@@ -21,7 +21,9 @@ the function is held bit for bit against its plain version (E1, E3a,
 E4b) or against the committed kernel's outputs on every page (B5, whose
 committed kernel is held to its plain version on its first 64 pages);
 those that drop work to expose its cost (named "no ...") are only timed.
-E4a's variants are also held against torch.gather.
+E4a's variants are also held against torch.gather. B1's are built for
+order 6 alone, each held to the committed kernel's rows, which are held
+to the plain version on their first 4,096 numbers.
 Card-alone medians (`hold=True`), each variant timed twice in turns, E1's
 and B5's kernels also split by the profiler's trace; the card's name and
 power limit beside every line. Needs a card and raises without one.
@@ -43,6 +45,7 @@ from pcodec_tpu_torch.experiments import common
 from pcodec_tpu_torch.experiments import micro_gather as mg
 from pcodec_tpu_torch.experiments import proto_dma as pd
 from pcodec_tpu_torch.experiments import proto_round_loop as prl
+from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import device_train as dt
 from pcodec_tpu_torch.ops import kernels
 
@@ -627,6 +630,68 @@ def e4a_variants(parent, card: str) -> None:
           + "; ".join(f"{shape} {x:.4f}" for shape, x in zip(E4A_SHAPES, lib)) + f" [{card}]", flush=True)
 
 
+# B1's edits: order 6 alone built; a row a thread or a warp forced either
+# way (the committed launch picks by the rows' count); the load guarded as
+# first written; rings of 16 and 64 latents; no loads
+_B1_LANES = "const int lane_shift = rows <= (long long)sms * SCHEDULERS_PER_SM ? 5 : 0;"
+_B1_LOAD = "ring[u] = __ldg(lat + ((ahead < S ? ahead : S - 1) & stride_mask));"
+_B1_ONE = ("launch_order<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,\n"
+           "                       26, 27, 28, 29, 30, 31, 32>", "launch_order<6>")
+_B1 = {
+    "committed": [_B1_ONE],
+    "a thread a row": [_B1_ONE, (_B1_LANES, "const int lane_shift = 0;")],
+    "a warp a row": [_B1_ONE, (_B1_LANES, "const int lane_shift = 5;")],
+    "guarded loads": [_B1_ONE, (_B1_LOAD, "ring[u] = ahead < S ? __ldg(lat + (ahead & stride_mask)) : 0ull;")],
+    "a ring of 16": [_B1_ONE, ("constexpr int AHEAD = 32;", "constexpr int AHEAD = 16;")],
+    "a ring of 64": [_B1_ONE, ("constexpr int AHEAD = 32;", "constexpr int AHEAD = 64;")],
+    "no loads": [_B1_ONE, (_B1_LOAD, "")],
+}
+# (rows, row length): a standalone chunk alone, conv1_i32_lpc's 32 chunks, its PCT pages
+B1_SHAPES = ((1, 262144), (32, 262144), (8192, 1024))
+B1_ORDER = 6
+
+
+def b1_variants(card: str) -> None:
+    libs = build_variants(os.path.join(kernels._CSRC, "conv1_recon.cu"), _B1, "b1_")
+    _bind(libs, "conv1_recon")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    w = rng.integers(-(1 << 12), 1 << 12, B1_ORDER).tolist()
+    q, bias, bits = 14, 12345, 32
+    for rows, n in B1_SHAPES:
+        lat = torch.from_numpy(rng.integers(0, 2**32, (rows, n), dtype=np.uint64).view(np.int64)).to(dev)
+        mom = torch.from_numpy(rng.integers(0, 2**32, (rows, B1_ORDER), dtype=np.uint64).view(np.int64)).to(dev)
+        desc = np.array([dec.conv1_row(w, q, bias, bits, rows, n, rows * n, 0, lat=(0, 0), mom=(1, 0), out=(2, 0))])
+        desc_dev = torch.from_numpy(desc).to(dev)
+
+        def run(name):
+            out = torch.empty_like(lat)
+            bases = (lat, mom, out)
+            launched = ctypes.c_int(0)
+            rc = libs[name].conv1_recon((ctypes.c_uint64 * 3)(*[b.data_ptr() for b in bases]),
+                                        (ctypes.c_int64 * 3)(*[b.numel() for b in bases]), 3, desc.ctypes.data,
+                                        desc_dev.data_ptr(), 1, ctypes.byref(launched), 0,
+                                        torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+            return out
+
+        want = run("committed")
+        L = min(n, 4096)
+        common.check_equal(want[:, :L].cpu(), dec.conv1_decode_pages_plain(lat[:, :L].cpu(), mom.cpu(), w, q, bias,
+                                                                           B1_ORDER, bits), "B1")
+
+        def timed(name):
+            if "no " not in name:
+                common.check_equal(run(name), want, name)
+            return common.time_ms(lambda: run(name), runs=5, warmup=1, hold=True)[0]
+
+        times = _in_turns(libs, timed)
+        print(f"B1 {rows} rows of {n}, order {B1_ORDER}, card alone ms (two turns; ns a step of the first): "
+              + "; ".join(f"{k} {a:.4f}/{b:.4f} ({a * 1e6 / (n - B1_ORDER):.1f})" for k, (a, b) in times.items())
+              + f"; each == the committed kernel but those named \"no ...\" [{card}]", flush=True)
+
+
 def main(parent=None, only=None, device="cuda") -> None:
     common.cuda_device(device)
     card = common.card_line()
@@ -645,11 +710,14 @@ def main(parent=None, only=None, device="cuda") -> None:
                          "e4b_old_", card)
     if only in (None, "b5"):
         b5_variants(card)
+    if only in (None, "b1"):
+        b1_variants(card)
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree of the port, whose kernels are timed beside the committed ones")
-    ap.add_argument("--only", choices=("e1", "e3a", "e3b", "e4a", "e4b", "b5"), help="run one kernel's variants")
+    ap.add_argument("--only", choices=("e1", "e3a", "e3b", "e4a", "e4b", "b5", "b1"),
+                    help="run one kernel's variants")
     args = ap.parse_args()
     main(args.parent, args.only)
