@@ -13,6 +13,14 @@
                                    only phase 11, over 4 shards of the first
                                    card and then over every visible card
                                    (on a machine of several cards)
+    python3 chip_smoke.py --post-decode [DIR]
+                                   only phase 7's standalone decodes of
+                                   B3_INPUTS and the main path's decode: the
+                                   decode, K1 + K2 and the post timed and a
+                                   JSON line (the files
+                                   cached in DIR, so a copy of the script in
+                                   another tree times that tree on the same
+                                   bytes)
     python3 chip_smoke.py --train  only the device training of the main
                                    path's 64M numbers and of phase 8's
                                    IntMult 32M and lookback 32M inputs,
@@ -38,13 +46,19 @@ Phases, one line each (numbers beside the card's name and power limit):
                   var of the container) and in global memory (a call a
                   chunk), K4 (one call a decode, every Dict chunk of the
                   container) with its table in shared and in global memory,
-                  B1 (conv1_recon, one call a decode) and B2
-                  (float_mult_join, a call a FloatMult chunk) on every call;
-                  the FloatMult joins on the
-                  card equal the CPU's on NaN, inf and subnormal multipliers
-                  and bases for f16, f32 and f64, and where the card's
-                  native f16/f32 multiply differs from the CPU's is printed
-                  (the reason the join multiplies in the softfloat)
+                  B1 (conv1_recon, one call a decode) and B3 (chunk_post,
+                  one launch a decode: every chunk's delta, trim and join
+                  that no other kernel takes) on every call; then one small
+                  container each for B3 (post_cases: every mode at 16, 32
+                  and 64 bits, orders 1-7 and none, trivial vars, ragged
+                  last pages, Dict under a delta, FloatMult's NaN, inf, +-0
+                  and subnormal numbers and a subnormal base, a page of
+                  2^18), one chunk_post launch each, held against its plain
+                  version; B2's FloatMult joins (no decode launches B2 now)
+                  on the card equal the CPU's on NaN, inf and subnormal
+                  multipliers and bases for f16, f32 and f64, and where the
+                  card's native f16/f32 multiply differs from the CPU's is
+                  printed (the reason the joins multiply in the softfloat)
   4. encode kernels
                   K8 on the card equals its plain version on rows of either
                   key width, spans of 0, 2^32 - 1 and 2^32 and keys at the
@@ -170,13 +184,18 @@ Phases, one line each (numbers beside the card's name and power limit):
                   plan_standalone (host seconds, _chain_moments's part
                   apart from the walk's), decoded by
                   decode_standalone_device with the counts set to 0 just
-                  before and read just after, compared bit for bit with the
-                  source, K1, K2, K3, K4, B1 (a standalone conv1 chunk one
-                  row, on its first 16,384 numbers) and B2 held against
-                  their plain versions, and timed: the decode, K1 + K2, K3,
-                  K4, B1, B2 and the post; for conv1_i32_lpc B1 a call, on
-                  the card alone and one row alone, for floatmult_f32 and
-                  f64_auto_multichunk B2 a decode's calls and alone
+                  before and read just after (one chunk_post launch where
+                  the plan has B3 rows, none of B2), compared bit for bit
+                  with the source, K1, K2, K3, K4, B1 (a standalone conv1
+                  chunk one row, on its first 16,384 numbers) and B3 held
+                  against their plain versions, and timed: the decode, K1 +
+                  K2, K3, K4, B1, B3 and the post; for conv1_i32_lpc B1 a
+                  call, on the card alone and one row alone; for
+                  B3_INPUTS (f64_auto_multichunk, floatmult_f32,
+                  taxi_i64_delta1, intmult_i64_timestamps) B3 a call, alone
+                  and its plain version; for floatmult_f32 and
+                  f64_auto_multichunk B2 on the latents of B3's FloatMult
+                  rows, a chunk a call
   8. multi-var    small IntMult, FloatMult f32, FloatQuant f32 and lookback
                   inputs (page_n 256, 8,192-number chunks; lookback also with a
                   ragged last page, on u16, u32 and f32 latents, with pinned
@@ -198,8 +217,10 @@ Phases, one line each (numbers beside the card's name and power limit):
                   bytes, and the auto route: the lookback numbers' first 4M
                   under ChunkConfig(), whose auto delta picks lookback: each
                   planned by plan_image with the counts set to 0 just before
-                  and read just after, trained on the card (K8, K9 and, for
-                  the lookback inputs, B5; no input trains on the host),
+                  and read just after, trained on the card (K8, K9, B6
+                  where a chunk splits, held against the torch chain on
+                  every call and timed beside it, and, for the lookback
+                  inputs, B5; no input trains on the host),
                   its image (counts set to 0 just before run_image, read
                   just after) equal to the port's container_compress at
                   page_n 1024 and 1M-number chunks byte for byte, the
@@ -283,7 +304,15 @@ Phases, one line each (numbers beside the card's name and power limit):
      16,384 numbers of every row) adds its rows and numbers, the longest
      row's steps, one row's time alone and steps, and a `pct` object (phase
      5b's container: 8,192 rows of 1,024); B2's (float_mult_join, phase 7's
-     floatmult_f32: its 32 calls) an `f64_auto_multichunk` object; a
+     floatmult_f32: 32 calls on B3's rows' latents, 0 launches in the
+     decode) an `f64_auto_multichunk` object and `on_decode_path` false;
+     B3's (chunk_post, phase 7's f64_auto_multichunk: its one launch, a
+     call, `device_ms`, the plain version on the card) its rows, warps and
+     numbers and the decode's, K1 + K2's and the post's ms, and an
+     `inputs` object (the other B3_INPUTS); B6's (mode_split, phase 8's
+     intmult_i64_timestamps training: its launches, its calls a training,
+     the calls alone summed, the torch chain) `plan_image_s`, `train_s`
+     and a `trainings` object (the other split inputs); a
      phase-6 row adds its `device_ms`, for E4a
      `library_device_ms` (torch.gather on the card alone), for E1 its two
      kernels' device ms (`colsum_ms`, `tile_ms`, from the profiler) and its
@@ -324,6 +353,9 @@ CONV1_PREFIX = 16384  # numbers of every B1 row held against its plain version (
 B1_OPS_PER_TERM = 4  # 32-bit integer operations of one of B1's 64-bit multiply-adds, K a number
 B1_OPS_PER_STEP = 12  # B1's other operations a number: the max, shift, add and mask in 64 bits, its load and store
 B2_OPS_PER_NUMBER = 150  # B2's integer operations a number, counted from csrc/softfloat.cuh (64-bit ones twice)
+B3_OPS_PER_NUMBER = 12  # B3's operations a number besides its scans and softfloat: the load, join, mask and store
+B3_OPS_PER_LEVEL = 14  # B3's operations a number for each delta level: five shuffle steps' adds and the carry
+B6_OPS_PER_NUMBER = 60  # B6's integer operations a latent, the 64-bit division's; FloatMult's the softfloat's
 _MIN64 = -(1 << 63)
 # phase 6's rows: kernel -> (source in csrc/, the prototype it replaces)
 EXPERIMENT_ROWS = {
@@ -436,9 +468,10 @@ def breadth_cases(pt):
 
 @contextlib.contextmanager
 def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks",
-                          "float_mult_join")):
+                          "float_mult_join", "post_rows")):
     """Record the arguments of every call of the named kernel wrappers of
-    `mod` (K3, K4, B1 and B2 of a decode, K8 and K9 of device training), so
+    `mod` (K3, K4, B1, B2 and B3 of a decode, K8, K9, B5 and B6 of device
+    training), so
     the kernels can be held against their plain versions at exactly those
     inputs."""
     calls = {k: [] for k in names}
@@ -557,13 +590,21 @@ def check_breadth_calls(dec, calls) -> float:
     for nt, base, prim, sec, _ in calls["float_mult_join"]:
         check_equal(dec.float_mult_join(nt, base, prim, sec), dec.float_mult_join_plain(nt, base, prim, sec),
                     "float_mult_join")
+    for bases, desc, desc_dev in calls["post_rows"]:
+        written = set(desc[:, dec.POST_COLS.index("out_base")].tolist())
+        got = [b.clone() if i in written else b for i, b in enumerate(bases)]
+        want = [b.clone() if i in written else b for i, b in enumerate(bases)]
+        dec.post_rows(got, desc, desc_dev)
+        dec.post_rows_plain(want, desc)
+        for i in written:
+            check_equal(got[i], want[i], "chunk_post")
     return 0.0
 
 
 def kernel_route(kernels, name, args, smem_entries) -> str:
-    """Which route of K3 or K4 a recorded call took (B1 and B2 have one)."""
-    if name in ("conv1_recon_chunks", "float_mult_join"):
-        return {"conv1_recon_chunks": "B1", "float_mult_join": "B2"}[name]
+    """Which route of K3 or K4 a recorded call took (B1, B2 and B3 have one)."""
+    if name in ("conv1_recon_chunks", "float_mult_join", "post_rows"):
+        return {"conv1_recon_chunks": "B1", "float_mult_join": "B2", "post_rows": "B3"}[name]
     if name == "lookback_recon_chunks":
         return "K3 shared memory"
     if name == "lookback_recon":
@@ -650,6 +691,9 @@ STANDALONE = ("taxi_i64_delta1", "f64_auto_multichunk", "intmult_i64_timestamps"
 # their first STANDALONE_CUT numbers (host encode time)
 STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "conv1_i32_lpc")
 STANDALONE_CUT = 8 << 20
+# phase 7's inputs whose B3 call is timed (the kernels line's chunk_post
+# row: the first, the others beside it); --post-decode's inputs
+B3_INPUTS = ("f64_auto_multichunk", "floatmult_f32", "taxi_i64_delta1", "intmult_i64_timestamps")
 # phase 8: the multi-var image inputs and their numbers (full size but the
 # FloatMult and FloatQuant prefixes, cut for the host reference's time; the
 # auto route's 4M prefix of the lookback numbers, whose auto delta picks
@@ -913,6 +957,141 @@ def fm_line(r) -> str:
             f"{r['ms_max']:.4f}), card alone (each call alone, summed) {r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of "
             f"the bound, {r['launches']} launches, {r['numbers']} numbers; plain {r['plain_ms']:.3f} ms; bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
+def post_kernel_numbers(torch, dec, calls, launches: int) -> dict:
+    """B3's row from a decode's one call (already held against the plain
+    version): a call's and the card's time, the plain version's on the
+    card, and the bound: 8 B read a number of each var that is not trivial,
+    its moments, 8 B written a number; B3_OPS_PER_NUMBER operations a
+    number, B3_OPS_PER_LEVEL more a delta level, B2_OPS_PER_NUMBER for a
+    FloatMult number."""
+    ((bases, desc, desc_dev),) = calls
+    c = {k: i for i, k in enumerate(dec.POST_COLS)}
+    ms = time_ms(lambda: dec.post_rows(bases, desc, desc_dev))
+    alone = time_ms(lambda: dec.post_rows(bases, desc, desc_dev), hold=True)[0]
+    written = set(desc[:, c["out_base"]].tolist())
+    want = [b.clone() if i in written else b for i, b in enumerate(bases)]
+    plain = time_ms(lambda: dec.post_rows_plain(want, desc), runs=3, warmup=1)
+    n_bytes = n_ops = numbers = 0
+    for r in desc.tolist():
+        n, pages = r[c["n_valid"]], -(-r[c["n_valid"]] // r[c["page_n"]])
+        two = dec.POST_MODES[r[c["mode"]]] != "classic"
+        n_bytes += 8 * n
+        n_ops += n * (B3_OPS_PER_NUMBER + (B2_OPS_PER_NUMBER if dec.POST_MODES[r[c["mode"]]] == "float_mult" else 0))
+        for var in ("prim", "sec") if two else ("prim",):
+            order = r[c[var + "_order"]]
+            n_bytes += 8 * n * (r[c[var + "_base"]] >= 0) + 8 * pages * order
+            n_ops += n * order * B3_OPS_PER_LEVEL
+        numbers += n
+    b_ms, by = bound(n_bytes, n_ops)
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain[0], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "device_ms": alone, "numbers": numbers, "rows": len(desc),
+            "items": dec.post_items(desc), "ms_min": ms[1], "ms_max": ms[2]}
+
+
+def post_line(r) -> str:
+    return (f"(chunk_post) {r['ms']:.4f} ms a call (min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), card alone "
+            f"{r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of the bound, {r['launches']} launch(es); "
+            f"{r['rows']} rows, {r['items']} warps, {r['numbers']} numbers; plain (torch on the card) "
+            f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
+def b2_calls_of(dec, post_calls) -> list:
+    """B2's calls on the FloatMult rows of a decode's B3 call: each row's
+    latents (dec.post_var_latents), the arguments the decode gave B2 a
+    chunk before B3 took its join."""
+    calls = []
+    for bases, desc, _ in post_calls:
+        for r in desc.tolist():
+            if dec.POST_MODES[r[dec.POST_COLS.index("mode")]] == "float_mult":
+                calls.append((dec.post_row_type(r), r[dec.POST_COLS.index("scalar")],
+                               dec.post_var_latents(bases, r, "prim"), dec.post_var_latents(bases, r, "sec"), None))
+    return calls
+
+
+def split_plain(dt, secondary: bool, a):
+    """B6's plain version on a recorded call's arguments."""
+    if not secondary:
+        lat, owner, table, fp = a
+        div, _, invb, _ = table.units(owner)
+        return dt.split_primary_plain(lat, div, invb, fp)
+    lat, prim, owner, table, fp, bits = a
+    return dt.split_secondary_plain(lat, prim, *table.units(owner), fp, bits)
+
+
+def split_kernel_numbers(torch, dt, calls, launches: int) -> dict:
+    """B6 held against its plain versions on every call of one training,
+    then its calls timed a training (and each alone, summed) beside the
+    plain versions, and the bound: 8 B read and 8 written a latent (8 more
+    read for FloatMult's secondary); B6_OPS_PER_NUMBER operations, or
+    B2_OPS_PER_NUMBER for a FloatMult latent."""
+    runs = [(dt.split_primary, False, a) for a in calls["split_primary"]]
+    runs += [(dt.split_secondary, True, a) for a in calls["split_secondary"]]
+    n_bytes = n_ops = numbers = 0
+    for fn, sec, a in runs:
+        check_equal(fn(*a), split_plain(dt, sec, a), "mode_split")
+        n, fm = a[0].numel(), a[3 if sec else 2].float_mult
+        n_bytes += 16 * n + (8 * n if fm and sec else 0)
+        n_ops += n * (B2_OPS_PER_NUMBER if fm else B6_OPS_PER_NUMBER)
+        numbers += n
+    ms = time_ms(lambda: [fn(*a) for fn, _, a in runs])
+    alone = sum(time_ms(lambda fn=fn, a=a: fn(*a), hold=True)[0] for fn, _, a in runs)
+    plain = time_ms(lambda: [split_plain(dt, sec, a) for _, sec, a in runs], runs=3, warmup=1)
+    b_ms, by = bound(n_bytes, n_ops)
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain[0], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "device_ms": alone, "calls": len(runs), "numbers": numbers}
+
+
+def split_line(r) -> str:
+    return (f"B6 mode_split {r['calls']} calls on {r['numbers']} latents {r['ms']:.4f} ms (card alone, each call "
+            f"alone summed, {r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of the bound), "
+            f"{r['launches']} launches; the torch chain (plain, on the card) {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
+def post_cases(pt):
+    """(name, numbers, config, page_n) of phase 3b's B3 inputs: each mode
+    at 16, 32 and 64 bits, orders 1 to 7 among them (and none), ragged
+    last pages, trivial vars (a constant run), Dict under a delta, FloatMult
+    with NaN, inf, +-0 and subnormal numbers and a subnormal base, and one
+    page of 2^18 numbers (with a ragged second)."""
+    rng = np.random.default_rng(SEED + 5)
+    n = 9_001
+
+    def cfg(mode=("classic", 0.0), delta=("no_op", 0)):
+        return pt.ChunkConfig(mode_spec=pt.ModeSpec(*mode), delta_spec=pt.DeltaSpec(*delta))
+
+    walk = np.cumsum(rng.integers(-40, 40, n))
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0])
+    fm32 = (rng.integers(-5000, 5000, n) * np.float32(0.01)).astype(np.float32)
+    fm32[::97], fm32[5::89] = np.float32(np.nan), np.finfo(np.float32).smallest_subnormal
+    fm32[:5] = special.astype(np.float32)
+    fm16 = (rng.integers(-500, 500, n) * np.float16(0.25)).astype(np.float16)
+    fm16[:5] = special.astype(np.float16)
+    fm64 = rng.integers(-5000, 5000, n) * 0.01
+    fm64[:5] = special
+    fq = np.round(rng.standard_normal(n) * 64) / 64
+    big = np.cumsum(rng.integers(-9, 9, (1 << 18) + 777)).astype(np.int32)
+    return [
+        ("classic_u16_o1", (walk + 40_000).astype(np.uint16), cfg(delta=("try_consecutive", 1)), 256),
+        ("classic_i32_o4", (walk * 3).astype(np.int32), cfg(delta=("try_consecutive", 4)), 1024),
+        ("classic_f64_o7", np.cumsum(np.cumsum(rng.standard_normal(n))), cfg(delta=("try_consecutive", 7)), 256),
+        ("classic_i64_const_o2", np.full(n, 77, np.int64), cfg(delta=("try_consecutive", 2)), 256),
+        ("int_mult_u16_o2", ((walk % 3000 + 3000) * 7 + 3).astype(np.uint16), cfg(("try_int_mult", 7), ("try_consecutive", 2)), 256),
+        ("int_mult_i32", (walk * 1000 + rng.integers(0, 3, n)).astype(np.int32), cfg(("try_int_mult", 1000)), 1024),
+        ("int_mult_i64_o5", walk * 10**9 + rng.integers(0, 4, n), cfg(("try_int_mult", 10**9), ("try_consecutive", 5)), 256),
+        ("float_quant_f16_o3", fq.astype(np.float16), cfg(("try_float_quant", 4), ("try_consecutive", 3)), 256),
+        ("float_quant_f32", fq.astype(np.float32), cfg(("try_float_quant", 12)), 1024),
+        ("float_quant_f64_o6", np.cumsum(fq), cfg(("try_float_quant", 30), ("try_consecutive", 6)), 256),
+        ("float_mult_f16", fm16, cfg(("try_float_mult", 0.25)), 256),
+        ("float_mult_f32", fm32, cfg(("try_float_mult", 0.01)), 1024),
+        ("float_mult_f64_o1", fm64, cfg(("try_float_mult", 0.01), ("try_consecutive", 1)), 256),
+        ("float_mult_f64_subnormal_base", rng.integers(-5000, 5000, n) * 1e-310, cfg(("try_float_mult", 1e-310)), 256),
+        ("dict_i64_o1", np.array([7, -3, 10**15, 42], np.int64)[rng.integers(0, 4, n)],
+         cfg(("try_dict", 0.0), ("try_consecutive", 1)), 256),
+        ("classic_i32_page_2_18_o2", big, cfg(delta=("try_consecutive", 2)), 1 << 18),
+    ]
 
 
 def native_product_mismatch(torch, sf, nt, prim, base, dev):
@@ -1910,20 +2089,42 @@ def main() -> int:
         ch = plan.chunks[0]
         made = {"K3": bool(calls["lookback_recon"] or calls["lookback_recon_chunks"]),
                 "K4": bool(calls["dict_join_chunks"]), "B1": bool(calls["conv1_recon_chunks"]),
-                "B2": bool(calls["float_mult_join"])}
+                "B2": bool(calls["float_mult_join"]), "B3": bool(calls["post_rows"])}
         want = {"K3": ch.delta.kind == "lookback", "K4": ch.mode_kind == "dict", "B1": ch.delta.kind == "conv1",
-                "B2": ch.mode_kind == "float_mult"}
+                "B2": False, "B3": len(plan.post_desc) > 0}
         if made != want:
-            raise AssertionError(f"{case} p{page_n}: K3, K4, B1 and B2 called {made}, expected {want}")
-        for k in ("lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks"):
+            raise AssertionError(f"{case} p{page_n}: K3, K4, B1, B2 and B3 called {made}, expected {want}")
+        for k in ("lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks", "post_rows"):
             if len(calls[k]) > 1:
                 raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, not one a decode")
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
-              f"K1, K2 and {sorted(routes) or 'no K3/K4/B1/B2'} == plain", flush=True)
-    if len(seen) != 6:
-        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4, B1 and B2: {sorted(seen)}")
+              f"K1, K2 and {sorted(routes) or 'no K3/K4/B1/B3'} == plain", flush=True)
+    if seen != {"K3 shared memory", "K3 global memory", "K4 table in shared memory", "K4 table in global memory",
+                "B1", "B3"}:
+        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4, B1 and B3: {sorted(seen)}")
+    # B3 on every mode at 16, 32 and 64 bits, orders 0-7, trivial vars,
+    # ragged last pages, Dict under a delta, FloatMult's special numbers and
+    # a subnormal base, and a page of 2^18: one launch a decode, == plain
+    for case, nums, cfg, page_n in post_cases(pt):
+        data = pt.container_compress(nums, cfg, page_n=page_n, chunk_n=(1 << 20) if page_n > 1024 else 4000)
+        plan = cd.plan_container(data)
+        arrays = cd.upload_plan(plan, dev)
+        before = kernels.LAUNCHES["chunk_post"]
+        with capturing(dops) as calls:
+            got = cd.to_numbers(cd.decode_plan(plan, arrays), plan.nt)
+        torch.cuda.synchronize()
+        if not np.array_equal(got.view(np.uint8), nums.view(np.uint8)):
+            raise AssertionError(f"B3 {case}: decode differs from the source")
+        if len(calls["post_rows"]) != 1 or kernels.LAUNCHES["chunk_post"] != before + 1 or calls["float_mult_join"]:
+            raise AssertionError(f"B3 {case}: {len(calls['post_rows'])} B3 calls, "
+                                 f"{kernels.LAUNCHES['chunk_post'] - before} launches, not one a decode")
+        check_breadth_calls(dops, calls)
+        kinds = sorted({(c.mode_kind, c.delta.kind, c.delta.order) for c in plan.chunks})
+        print(f"breadth: B3 {case} page_n {page_n}: {len(nums)} {nums.dtype} in {len(plan.chunks)} chunks {kinds}, "
+              f"one chunk_post launch ({len(plan.post_desc)} rows, {dops.post_items(plan.post_desc)} warps), decode "
+              f"== source, == plain", flush=True)
     rng = np.random.default_rng(SEED + 4)
     for ftype in ("f16", "f32", "f64"):
         nt = NUMBER_TYPES_BY_NAME[ftype]
@@ -2507,8 +2708,8 @@ def main() -> int:
         print(f"standalone: {case}: decode on the card == CPU route == source, {ch.mode_kind}/{ch.delta.kind}, "
               f"K1, K2{', K3' if calls['lookback_recon_chunks'] or calls['lookback_recon'] else ''}"
               f"{', K4' if calls['dict_join_chunks'] else ''}{', B1' if calls['conv1_recon_chunks'] else ''}"
-              f"{', B2' if calls['float_mult_join'] else ''} == plain", flush=True)
-    sa_rows, b2_rows = {}, {}
+              f"{', B3' if calls['post_rows'] else ''} == plain", flush=True)
+    sa_rows, b2_rows, b3_rows = {}, {}, {}
     for case in STANDALONE:
         nums7, cfg7 = inputs[case]
         if case not in STANDALONE_FULL:
@@ -2535,9 +2736,11 @@ def main() -> int:
             k for k, present in (("lookback_recon", any(d == "lookback" for _, d in kinds)),
                                  ("dict_join", any(m == "dict" for m, _ in kinds)),
                                  ("conv1_recon", any(d == "conv1" for _, d in kinds)),
-                                 ("float_mult_join", any(m == "float_mult" for m, _ in kinds))) if present]
+                                 ("chunk_post", len(plan7.post_desc) > 0)) if present]
         if any(not launches7.get(k) for k in need):
             raise AssertionError(f"standalone {case}: a kernel of its decode was not launched: {launches7}")
+        if launches7.get("chunk_post", 0) != int(len(plan7.post_desc) > 0) or launches7.get("float_mult_join"):
+            raise AssertionError(f"standalone {case}: not one chunk_post launch and no B2 launch: {launches7}")
         arrays7 = cd.upload_plan(plan7, dev)
         check_launches(cd, plan7, arrays7)
         check_breadth_calls(dops, calls)
@@ -2552,9 +2755,9 @@ def main() -> int:
             (dops.lookback_recon, a) for a in calls["lookback_recon"]]
         k4 = [(dops.dict_join_chunks, a) for a in calls["dict_join_chunks"]]
         b1 = [(dops.conv1_recon_chunks, a) for a in calls["conv1_recon_chunks"]]
-        b2 = [(dops.float_mult_join, a) for a in calls["float_mult_join"]]
-        k3_t, k4_t, b1_t, b2_t = (time_ms(lambda fa=fa: [f(*a) for f, a in fa])[0] if fa else 0.0
-                                  for fa in (k3, k4, b1, b2))
+        b3 = [(dops.post_rows, a) for a in calls["post_rows"]]
+        k3_t, k4_t, b1_t, b3_t = (time_ms(lambda fa=fa: [f(*a) for f, a in fa])[0] if fa else 0.0
+                                  for fa in (k3, k4, b1, b3))
         n7, nb7 = len(nums7), nums7.nbytes
         bound7 = bound(len(blob) + nb7)[0]
         sa_rows[case] = {"n": n7, "bytes": len(blob), "ms": dec7[0], "plan_s": t_plan7, "post_ms": post7[0],
@@ -2570,14 +2773,24 @@ def main() -> int:
               f"{RUNS} runs), {nb7 / (dec7[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound {bound7:.4f} ms = "
               f"{bound7 / dec7[0]:.1%}; K1 + K2 {k12[0]:.4f} ms ({len(plan7.launches)} launches), K3 "
               f"{k3_t:.4f} ms ({len(k3)} calls), K4 {k4_t:.4f} ms ({len(k4)} calls), B1 {b1_t:.4f} ms ({len(b1)} "
-              f"calls), B2 {b2_t:.4f} ms ({len(b2)} calls), post (post_chunks, K3/K4/B1/B2 inside) {post7[0]:.4f} ms "
+              f"calls), B3 {b3_t:.4f} ms ({len(b3)} calls), post (post_chunks, K3/K4/B1/B3 inside) {post7[0]:.4f} ms "
               f"(min {post7[1]:.4f}, max {post7[2]:.4f}, {3 if dec7[0] > 50 else RUNS} runs) [{card}]", flush=True)
         if case == "conv1_i32_lpc":
             b1_row = conv1_kernel_numbers(torch, dops, kernels, calls["conv1_recon_chunks"], launches7["conv1_recon"])
             print(f"standalone: {case}: B1 {conv1_line(b1_row)} [{card}]", flush=True)
-        if case in ("floatmult_f32", "f64_auto_multichunk"):
-            b2_row = fm_kernel_numbers(torch, dops, calls["float_mult_join"], launches7["float_mult_join"])
-            print(f"standalone: {case}: B2 {fm_line(b2_row)} [{card}]", flush=True)
+        if case in B3_INPUTS:
+            decode7 = {"n": n7, "decode_ms": dec7[0], "post_ms": post7[0], "k12_ms": k12[0]}
+            if calls["post_rows"]:
+                b3_rows[case] = post_kernel_numbers(torch, dops, calls["post_rows"], launches7["chunk_post"]) | decode7
+                print(f"standalone: {case}: B3 {post_line(b3_rows[case])} [{card}]", flush=True)
+            else:  # every chunk a fused launch's rows, end to end: the output is their view
+                b3_rows[case] = {"launches": 0, "post_view": True} | decode7
+                print(f"standalone: {case}: no B3 launch, the output a view of the fused rows [{card}]", flush=True)
+        if case in ("floatmult_f32", "f64_auto_multichunk"):  # B2, off the decode path, on its FloatMult rows
+            b2_row = fm_kernel_numbers(torch, dops, b2_calls_of(dops, calls["post_rows"]),
+                                       launches7.get("float_mult_join", 0))
+            print(f"standalone: {case}: B2 (no decode launches it) on the latents of B3's FloatMult rows "
+                  f"{fm_line(b2_row)} [{card}]", flush=True)
             b2_rows[case] = b2_row
         del outs7, arrays7, plan7, blob, calls, nums7
         torch.cuda.empty_cache()
@@ -2615,7 +2828,7 @@ def main() -> int:
         del bcalls
     print(f"multi: {long_pages_line(torch, dt, kept['wrapped_lookback_multipage'][0][: 2 << 20], dev)} [{card}]",
           flush=True)
-    multi_rows, train_rows, lb_rows = {}, {}, {}
+    multi_rows, train_rows, lb_rows, b6_rows = {}, {}, {}, {}
     resident = {}  # phase 10's inputs: numbers, config, container_compress bytes, chunk size
     for case, m in MULTI_INPUTS:
         t0 = time.time()
@@ -2637,15 +2850,23 @@ def main() -> int:
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         t0 = time.time()
-        with capturing(dt, ("row_sort", "walk_bins", "lookback_choose")) as tcalls8, \
-                timed_call(asm, "plan_encode_device") as t_train8:
+        with capturing(dt, ("row_sort", "walk_bins", "lookback_choose", "split_primary", "split_secondary")) \
+                as tcalls8, timed_call(asm, "plan_encode_device") as t_train8:
             plan8 = asm.plan_image(nums8, cfg8, 1024, chunk8, dev)
             torch.cuda.synchronize()
         t_plan8 = time.time() - t0
         train_launches8 = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk",
-                                                            "lookback_choose")}
+                                                            "lookback_choose", "mode_split")}
         if plan8.trained_on != "device":
             raise AssertionError(f"multi {case}: trained on the {plan8.trained_on}, not the card")
+        splits8 = any(j.cc.meta.mode.kind in ("int_mult", "float_quant", "float_mult") for j in plan8.enc.jobs)
+        if splits8 != bool(train_launches8["mode_split"]):
+            raise AssertionError(f"multi {case}: {train_launches8['mode_split']} B6 launches ({modes_line(plan8)})")
+        if splits8:  # B6 held against the torch chain on every call, then timed beside it
+            b6_rows[case] = split_kernel_numbers(torch, dt, tcalls8, train_launches8["mode_split"]) | {
+                "plan_image_s": t_plan8, "train_s": t_train8[0]}
+            print(f"multi: {case}: {split_line(b6_rows[case])}; plan_image {t_plan8:.3f} s, of it device training "
+                  f"{t_train8[0]:.3f} s [{card}]", flush=True)
         lookback = any(j.cc.meta.delta_encoding.kind == "lookback" for j in plan8.enc.jobs)
         if case.startswith("wrapped_lookback") and not (lookback and train_launches8["lookback_choose"]):
             raise AssertionError(f"multi {case}: no lookback chunk trained through B5 ({modes_line(plan8)}, "
@@ -2876,7 +3097,13 @@ def main() -> int:
                                         "bound_by", "longest_row_steps", "one_row_ms", "one_row_steps")}},
         {"name": "float_mult_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/float_mult_join.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1534", **b2_rows["floatmult_f32"],
-         "f64_auto_multichunk": b2_rows["f64_auto_multichunk"]},
+         "f64_auto_multichunk": b2_rows["f64_auto_multichunk"], "on_decode_path": False},
+        {"name": "chunk_post", "route": "cuda", "source": "pcodec_tpu_torch/csrc/chunk_post.cu",
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1601", **b3_rows[B3_INPUTS[0]],
+         "inputs": {case: b3_rows[case] for case in B3_INPUTS[1:]}},
+        {"name": "mode_split", "route": "cuda", "source": "pcodec_tpu_torch/csrc/mode_split.cu",
+         "replaces": "pcodec_tpu/ops/device_train.py:375", **b6_rows["intmult_i64_timestamps"],
+         "trainings": {case: r for case, r in b6_rows.items() if case != "intmult_i64_timestamps"}},
     ]
     # phase 6's rows: the numbers of each kernel's last shape; launches at
     # that shape (its check, warm-ups and timed runs), beside the phase's
@@ -2933,6 +3160,76 @@ def lookback_decode_only() -> int:
     print(f"lookback-decode: {case} ({len(nums)} i64, {len(plan.chunks)} chunks) == source, launches {launches}; "
           f"decode {t[0]:.3f} ms median (min {t[1]:.3f}, max {t[2]:.3f}, {RUNS} runs), card alone (hold) "
           f"{alone:.4f} ms; one decode runs {kernels_line(counted)} [{card}]", flush=True)
+    return 0
+
+
+def post_decode_only(cache=None) -> int:
+    """Phase 7's standalone decodes of B3_INPUTS and the main path's 64M
+    container decode alone, through the entry points every tree of the
+    port has (simple_compress, plan_standalone, container_compress,
+    plan_container, upload_plan, decode_plan, run_launch, post_chunks):
+    each compared with
+    the source, then the decode, K1 + K2 and the post timed, the launches
+    of one decode counted, and one JSON line. With `cache` (a directory)
+    the files are read from it where an earlier run wrote them, so a copy
+    of the script in another tree times that tree on the same bytes."""
+    import os
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.codec import standalone as sa
+    from pcodec_tpu_torch.ops import container_decode as cd
+    from pcodec_tpu_torch.ops import kernels
+    from pcodec_tpu_torch.ops import standalone_decode as sd
+
+    dev = torch.device("cuda")
+    card = card_line()
+    inputs = standalone_inputs(pt)
+    main_cfg = pt.ChunkConfig(delta_spec=pt.DeltaSpec(pt.DeltaSpec.TRY_CONSECUTIVE, 1))
+    cases = [(case, inputs[case][0] if case in STANDALONE_FULL else inputs[case][0][:STANDALONE_CUT],
+              lambda nums, cfg=inputs[case][1]: sa.simple_compress(nums, cfg), sd.plan_standalone)
+             for case in B3_INPUTS]
+    cases.append(("main_64m", make_data(), lambda nums: pt.container_compress(nums, main_cfg, page_n=1024,
+                                                                              chunk_n=1 << 20), cd.plan_container))
+    got = {}
+    for case, nums, encode, plan_of in cases:
+        path = os.path.join(cache, case + ".bin") if cache else None
+        if path and os.path.exists(path):
+            blob = open(path, "rb").read()
+        else:
+            blob = encode(nums)
+            if path:
+                os.makedirs(cache, exist_ok=True)
+                with open(path, "wb") as f:
+                    f.write(blob)
+        plan = plan_of(blob)
+        arrays = cd.upload_plan(plan, dev)
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        res = cd.decode_plan(plan, arrays)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if not np.array_equal(cd.to_numbers(res, plan.nt).view(np.uint8), nums.view(np.uint8)):
+            raise AssertionError(f"post-decode {case}: the decode differs from the source")
+        del res
+        outs = {lk: cd.run_launch(cp, arrays.words, arrays.launches[lk]) for lk, cp in plan.launches.items()}
+        dec_ms = time_ms(lambda: cd.decode_plan(plan, arrays))
+        k12 = time_ms(lambda: [cd.run_launch(cp, arrays.words, arrays.launches[lk]) for lk, cp in plan.launches.items()])
+        post = time_ms(lambda: cd.post_chunks(plan, outs, arrays))
+        got[case] = {"n": len(nums), "chunks": len(plan.chunks), "decode_ms": dec_ms[0], "decode_min_ms": dec_ms[1],
+                     "decode_max_ms": dec_ms[2], "k12_ms": k12[0], "post_ms": post[0], "launches": launches}
+        print(f"post-decode: {case}: {len(nums)} {nums.dtype} in {len(plan.chunks)} chunks == source; decode "
+              f"{dec_ms[0]:.3f} ms median (min {dec_ms[1]:.3f}, max {dec_ms[2]:.3f}), K1 + K2 {k12[0]:.4f} ms, post "
+              f"(post_chunks) {post[0]:.4f} ms; launches {launches} [{card}]", flush=True)
+        del outs, arrays, plan, blob
+        torch.cuda.empty_cache()
+    print(json.dumps({"post_decode": got, "tree": os.path.dirname(os.path.abspath(__file__)), "card": card}),
+          flush=True)
     return 0
 
 
@@ -3037,5 +3334,6 @@ def sharded_only() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--lookback-decode": lookback_decode_only, "--train": train_only, "--sharded": sharded_only}
-    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())
+    modes = {"--lookback-decode": lookback_decode_only, "--train": train_only, "--sharded": sharded_only,
+             "--post-decode": post_decode_only}
+    sys.exit(modes[sys.argv[1]](*sys.argv[2:3]) if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -13,10 +13,12 @@
 //   prod  = sf_mul_bits(mult, base)                   mult * base, softfloat
 //   lat   = (ordered_from_bits(prod) + (a & mask) + mid) & mask
 //   out[i] = lat's memory bits (the float bijection's inverse)
-// base is the chunk's base float's memory bits. Every width multiplies in
-// the integer softfloat (csrc/softfloat.cuh): the card's f16 and f32
-// multiplies drop NaN payloads the host keeps, and the decode must give the
-// host's numbers bit for bit.
+// base is the chunk's base float's memory bits (softfloat.cuh's
+// float_mult_join_bits, which B3, csrc/chunk_post.cu, runs for every
+// FloatMult chunk of a decode, so no decode launches this kernel). Every
+// width multiplies in the integer softfloat (csrc/softfloat.cuh): the
+// card's f16 and f32 multiplies drop NaN payloads the host keeps, and the
+// decode must give the host's numbers bit for bit.
 //
 // What bounds it on Hopper: bytes. 8 bytes of primary and 8 of secondary
 // read and 8 of bits written a number; the softfloat's ~100 integer
@@ -43,8 +45,6 @@ template <int W, int E, int P>
 __global__ void __launch_bounds__(THREADS) float_mult_join_kernel(const u64* __restrict__ prim,
                                                                  const u64* __restrict__ sec, u64 base,
                                                                  u64* __restrict__ out, long long n) {
-  constexpr u64 mask = W >= 64 ? ~0ull : (1ull << W) - 1;
-  constexpr u64 mid = 1ull << (W - 1);
   const long long i0 = (long long)blockIdx.x * THREADS * ITEMS + threadIdx.x;
   u64 p[ITEMS], a[ITEMS];
 #pragma unroll
@@ -57,10 +57,7 @@ __global__ void __launch_bounds__(THREADS) float_mult_join_kernel(const u64* __r
   for (int k = 0; k < ITEMS; ++k) {
     const long long i = i0 + (long long)k * THREADS;
     if (i >= n) break;
-    const u64 mult = softfloat::int_float_latent_to_bits<W, E, P>(p[k] & mask);
-    const u64 prod = softfloat::sf_mul_bits<W, E, P>(mult, base);
-    const u64 lat = (softfloat::ordered_from_bits<W>(prod) + (a[k] & mask) + mid) & mask;
-    __stcs(out + i, (lat & mid) ? lat ^ mid : (~lat) & mask);
+    __stcs(out + i, softfloat::float_mult_join_bits<W, E, P>(p[k], a[k], base));
   }
 }
 

@@ -34,6 +34,14 @@ __device__ __forceinline__ u64 ordered_from_bits(u64 bits) {
   return (bits & sign) ? (~bits) & mask : bits ^ sign;
 }
 
+// order-preserving latent -> float memory bits (the inverse bijection)
+template <int W>
+__device__ __forceinline__ u64 bits_from_ordered(u64 lat) {
+  constexpr u64 mask = W >= 64 ? ~0ull : (1ull << W) - 1;
+  constexpr u64 sign = 1ull << (W - 1);
+  return (lat & sign) ? lat ^ sign : (~lat) & mask;
+}
+
 // mantissa scaled to [2^(P-1), 2^P) and unbiased exponent of a finite
 // nonzero field (garbage, as in ops/softfloat.py, for the others)
 template <int P, int BIAS>
@@ -131,6 +139,58 @@ __device__ __forceinline__ u64 int_float_latent_to_bits(u64 lat) {
   // negation is a sign-bit flip: the big-path bit trick can carry into the
   // sign bit, which -x then clears
   return neg ? bits ^ mid : bits;
+}
+
+// the latent of the W-bit float p rounded half away from zero
+// (int_float_to_latent(round_half_away(p))), in bit operations: exact for
+// every input, inf and NaN (the bit-trick path) and signed zeros (zero is
+// always the middle) included; ops/softfloat.py::round_half_away_latent
+template <int W, int E, int P>
+__device__ __forceinline__ u64 round_half_away_latent(u64 p) {
+  constexpr long long BIAS = (1 << (E - 1)) - 1;
+  constexpr u64 sign_bit = 1ull << (W - 1);
+  constexpr u64 mant_mask = (1ull << (P - 1)) - 1;
+  constexpr u64 exp_raw_mask = (1ull << E) - 1;
+  constexpr u64 gpi = 1ull << P;
+  constexpr u64 gpi_bits = (u64)(P + BIAS) << (P - 1);  // the bits of float(2^P)
+  constexpr u64 mask = W >= 64 ? ~0ull : (1ull << W) - 1;
+
+  bool neg = (p & sign_bit) != 0;
+  u64 abs_bits = p & (sign_bit - 1);
+  const u64 ex = (p >> (P - 1)) & exp_raw_mask;
+  const long long e = (long long)ex - BIAS;  // subnormals land at e = -BIAS (< -1)
+  const u64 m = (p & mant_mask) | (1ull << (P - 1));
+  // 0 <= e <= P-2: the integer part plus the bump of the top fraction bit
+  const long long k0 = P - 1 - e;
+  const long long k = k0 < 1 ? 1 : (k0 > P - 1 ? P - 1 : k0);
+  const u64 small_abs = (m >> k) + ((m >> (k - 1)) & 1);
+  u64 abs_int = e < -1 ? 0 : (e == -1 ? 1 : small_abs);
+  if (ex == 0) abs_int = 0;
+  const bool big = e >= P - 1;  // an integer already; inf and NaN too
+  // trunc quiets a signalling NaN before the bit trick sees it
+  if (ex == exp_raw_mask && (p & mant_mask) != 0) abs_bits |= 1ull << (P - 2);
+  const u64 abs_lat = big ? gpi + (abs_bits - gpi_bits) : abs_int;
+  // trunc(x) + 0.0 makes a -0.0 result positive
+  neg = neg && (abs_lat != 0 || big);
+  return (neg ? (sign_bit - 1) - abs_lat : sign_bit + abs_lat) & mask;
+}
+
+// The FloatMult join of one number: its primary latent p (the
+// multiplier) and secondary latent a (the adjustment), W-bit latents in
+// u64, and base, the chunk's base float's memory bits -> the number's
+// memory bits:
+//   mult = int_float_latent_to_bits(p & mask)    the integer-valued float
+//   prod = sf_mul_bits(mult, base)                mult * base, softfloat
+//   lat  = (ordered_from_bits(prod) + (a & mask) + mid) & mask
+// then lat's memory bits (the float bijection's inverse)
+template <int W, int E, int P>
+__device__ __forceinline__ u64 float_mult_join_bits(u64 p, u64 a, u64 base) {
+  constexpr u64 mask = W >= 64 ? ~0ull : (1ull << W) - 1;
+  constexpr u64 mid = 1ull << (W - 1);
+  const u64 mult = int_float_latent_to_bits<W, E, P>(p & mask);
+  const u64 prod = sf_mul_bits<W, E, P>(mult, base);
+  const u64 lat = (ordered_from_bits<W>(prod) + (a & mask) + mid) & mask;
+  return bits_from_ordered<W>(lat);
 }
 
 }  // namespace softfloat

@@ -25,14 +25,16 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      or a warp a row (a PCT page, or a standalone chunk
                      whole), from
                      the plan's descriptor table, into a scratch
-    post             per other chunk: the `delta` var first, then
-                     `primary` and `secondary`; delta reconstruction
-                     (consecutive in plain torch, lookback pages too long
-                     for shared memory through K3's device-memory route),
-                     then each non-Dict chunk's ragged trim and mode join
-                     (FloatMult's by B2, CUDA, csrc/float_mult_join.cu,
-                     straight into the output; the others in plain torch;
-                     ops/decode.py holds all of these)
+    lookback pages   the lookback vars of pages too long for K3's launch
+                     (over kernels.LB_SMEM_MAX_N numbers), a chunk at a time
+                     through K3's device-memory route, into a scratch
+    post             B3, CUDA (csrc/chunk_post.cu): every other chunk in
+                     one launch from the plan's descriptor table, a warp a
+                     page: each var's consecutive delta undone, the ragged
+                     trim and the mode join (FloatMult's multiply in the
+                     integer softfloat) straight into the output, a Dict
+                     chunk's latents into a scratch for K4; a container of
+                     fused chunks end to end is a view of its launch rows
     dict join        K4, CUDA (csrc/dict_join.cu): every Dict chunk of the
                      container in one launch, straight into the output
 
@@ -153,9 +155,9 @@ class ContainerPlan:
     offsets: np.ndarray  # (n_chunks + 1,) int64 first number of each chunk, then the count
     # K4's plan: every Dict chunk's table back to back; the tensors the Dict
     # chunks' primary latents lie in, ("launch", launch key) for a launch
-    # output (the chunks without a delta) or ("chunk", chunk index) for
-    # latents reconstructed or filled by the post; per Dict chunk (in chunk
-    # order) a row (base, start, n, output offset, table offset, D)
+    # output (the chunks without a delta) or ("dict",) for latents B3
+    # reconstructed or filled; per Dict chunk (in chunk order) a row (base,
+    # start, n, output offset, table offset, D)
     dict_chunks: List[int]
     dict_bases: List[tuple]
     dict_desc: np.ndarray  # (len(dict_chunks), 6) int64
@@ -181,6 +183,25 @@ class ContainerPlan:
     conv1_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
     conv1_scratch: Dict[tuple, int] = field(default_factory=dict)
     conv1_scratch_n: int = 0
+    # B3's plan: a row (decode.POST_COLS) per chunk that the fused view, K3's
+    # Classic joins and K4's launch-read Dict chunks leave; the tensors the
+    # rows name (("launch", launch key), ("out",), ("dict",) the Dict
+    # chunks' latents K4 reads (dict_scratch, dict_scratch_n), ("lookback",)
+    # and ("conv1",) K3's and B1's scratches, ("lookback_pages",) the
+    # latents of the lookback chunks whose pages K3's launch does not take,
+    # ("moments",) every stored state the post reads, back to back:
+    # post_moments); per such lookback chunk (chunk, {var key: (its start in
+    # ("lookback_pages",), its state's start in post_moments)}) and that
+    # scratch's numbers. post_view: (launch key, first number) where every
+    # chunk is a fused launch's rows, end to end: the output is a view.
+    post_bases: List[tuple] = field(default_factory=list)
+    post_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.POST_DESC_COLS), np.int64))
+    post_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
+    post_lookback: List[tuple] = field(default_factory=list)
+    post_lookback_n: int = 0
+    dict_scratch: Dict[int, int] = field(default_factory=dict)
+    dict_scratch_n: int = 0
+    post_view: Optional[tuple] = None
 
     @property
     def lookback_chunks(self) -> set:
@@ -361,14 +382,15 @@ def _finish_plan(data: bytes, nt: NumberType, chunks: List[ChunkPlan], groups: D
     raw[: len(data)] = np.frombuffer(data, dtype=np.uint8)
     offsets = np.concatenate([[0], np.cumsum([ch.n for ch in chunks], dtype=np.int64)]).astype(np.int64)
     dict_chunks = [ci for ci, ch in enumerate(chunks) if ch.dict_table is not None]
-    dict_bases, rows, toff = [], [], 0
+    dict_bases, rows, toff, scratch = [], [], 0, {}
     for ci in dict_chunks:
         ch = chunks[ci]
         vp = ch.var_plans["primary"]
         if _dict_from_launch(ch):
             base, start = ("launch", vp.launch_key), vp.chain_start * ch.page_n
         else:
-            base, start = ("chunk", ci), 0
+            base, start = ("dict",), sum(chunks[k].n for k in scratch)
+            scratch[ci] = start
         if base not in dict_bases:
             dict_bases.append(base)
         rows.append([dict_bases.index(base), start, ch.n, offsets[ci], toff, len(ch.dict_table)])
@@ -377,9 +399,11 @@ def _finish_plan(data: bytes, nt: NumberType, chunks: List[ChunkPlan], groups: D
                          dict_chunks=dict_chunks, dict_bases=dict_bases,
                          dict_desc=np.array(rows, dtype=np.int64).reshape(-1, 6),
                          dict_table=np.concatenate([chunks[ci].dict_table for ci in dict_chunks])
-                         if dict_chunks else np.zeros(0, np.int64))
+                         if dict_chunks else np.zeros(0, np.int64),
+                         dict_scratch=scratch, dict_scratch_n=sum(chunks[k].n for k in scratch))
     _plan_lookback(plan)
     _plan_conv1(plan)
+    _plan_post(plan)
     return plan
 
 
@@ -466,6 +490,100 @@ def _plan_conv1(plan: ContainerPlan) -> None:
     plan.conv1_desc = np.array(rows, np.int64).reshape(-1, dec.C1_DESC_COLS)
     plan.conv1_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
     plan.conv1_scratch, plan.conv1_scratch_n = scratch, scratch_n
+
+
+def _fused(plan: ContainerPlan, ch: ChunkPlan) -> bool:
+    """Whether a chunk's primary is a fused launch's rows: its memory bits."""
+    lkey = ch.var_plans["primary"].launch_key
+    return lkey is not None and plan.launches[lkey].fuse != 0
+
+
+def _post_view(plan: ContainerPlan) -> Optional[tuple]:
+    """(launch key, first number) where every chunk with numbers is a fused
+    launch's rows and they lie end to end in one launch output, else None."""
+    view = end = None
+    for ch in plan.chunks:
+        if ch.n == 0:
+            continue
+        if not _fused(plan, ch):
+            return None
+        vp = ch.var_plans["primary"]
+        start = vp.chain_start * ch.page_n
+        if view is None:
+            view = (vp.launch_key, start)
+        elif vp.launch_key != view[0] or start != end:
+            return None
+        end = start + ch.n
+    return view
+
+
+def _plan_post(plan: ContainerPlan) -> None:
+    """B3's descriptor table: a row per chunk with numbers that no fused
+    view, K3 Classic join or launch-read Dict join leaves final. Each var's
+    latents come from K3's or B1's scratch, from the per-chunk lookback
+    route's scratch (pages too long for K3's launch), or from its launch
+    rows (a trivial var: its constant) under its consecutive delta; a
+    fused primary's rows are copied as they are; a Dict chunk's latents go
+    to K4's scratch."""
+    plan.post_view = _post_view(plan)
+    if plan.post_view is not None:
+        return
+    bases, rows, moments, big = [], [], [], []
+    mom_off = item0 = big_n = 0
+    k3 = plan.lookback_chunks
+
+    def base(key) -> int:
+        if key not in bases:
+            bases.append(key)
+        return bases.index(key)
+
+    def moments_of(vp: VarPlan) -> int:
+        nonlocal mom_off
+        moments.append(vp.moments.reshape(-1))
+        mom_off += vp.moments.size
+        return mom_off - vp.moments.size
+
+    for ci, ch in enumerate(plan.chunks):
+        if ch.n == 0 or (ch.mode_kind == Mode.DICT and _dict_from_launch(ch)):
+            continue  # nothing, or K4 reads the launch's rows
+        if ci in k3 and ch.mode_kind == Mode.CLASSIC:
+            continue  # K3 joined it into the output
+        fused = _fused(plan, ch)
+        big_vars = {}
+
+        def source(key):
+            vp = ch.var_plans[key]
+            for scratch, name in ((plan.lookback_scratch, "lookback"), (plan.conv1_scratch, "conv1")):
+                if (ci, key) in scratch:
+                    return [base((name,)), scratch[(ci, key)], 0, 0, vp.bits]
+            de = ch.delta.for_latent_var(key)
+            if de.kind == DeltaEncoding.LOOKBACK:  # reconstructed a chunk at a time before B3
+                big_vars[key] = (big_n + ch.n * len(big_vars), moments_of(vp))
+                return [base(("lookback_pages",)), big_vars[key][0], 0, 0, vp.bits]
+            order = de.order if de.kind == DeltaEncoding.CONSECUTIVE and not fused else 0
+            mom = moments_of(vp) if order else 0
+            if vp.trivial:
+                return [-1, _i64(vp.const_lower), order, mom, vp.bits]
+            return [base(("launch", vp.launch_key)), vp.chain_start * ch.page_n, order, mom, vp.bits]
+
+        prim = source("primary")
+        sec = source("secondary") if ch.mode_kind in dec.POST_MODES[1:] else [-1, 0, 0, 0, prim[4]]
+        if ch.mode_kind == Mode.DICT:
+            mode, join, out = Mode.CLASSIC, dec.JOIN_LATENTS, (base(("dict",)), plan.dict_scratch[ci])
+        else:
+            mode, join = (Mode.CLASSIC, dec.JOIN_LATENTS) if fused else (ch.mode_kind, dec.JOIN_OF_KIND[plan.nt.kind])
+            out = (base(("out",)), int(plan.offsets[ci]))
+        if big_vars:
+            big.append((ci, big_vars))
+            big_n += ch.n * len(big_vars)
+        row = dec.post_row(prim, sec, base(("moments",)), out, ch.n, ch.page_n, item0, mode, join, plan.nt.latent.bits,
+                           ch.mode_scalar)
+        rows.append(row)
+        item0 += -(-ch.n // row[dec.POST_COLS.index("seg_n")])
+    plan.post_bases = bases
+    plan.post_desc = np.array(rows, np.int64).reshape(-1, dec.POST_DESC_COLS)
+    plan.post_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
+    plan.post_lookback, plan.post_lookback_n = big, big_n
 
 
 def _dict_from_launch(ch: ChunkPlan) -> bool:
@@ -717,125 +835,74 @@ def result_checksum_u64(res) -> int:
     return int(res.sum()) & ((1 << 64) - 1)
 
 
-def reconstruct_var(cp: ChunkPlan, vp: VarPlan, lat, delta_latents, moments):
-    """Undo the var's delta encoding on its (n_pages, page_n) latents (the
-    JAX `_reconstruct_var`); `moments` is the var's stored state on the
-    device and `delta_latents` the chunk's reconstructed `delta` var. A
-    conv1 var is the container's B1 call's (post_chunks), not this."""
-    de = cp.delta.for_latent_var(vp.key)
-    if de.kind == DeltaEncoding.NOOP:
-        return lat
-    if de.kind == DeltaEncoding.CONSECUTIVE:
-        return dec.consecutive_decode_batched(lat, moments, de.order, vp.bits)
-    if de.kind != DeltaEncoding.LOOKBACK:
-        raise ValueError(f"a {de.kind} var is reconstructed by the container's B1 call")
-    P, N = cp.recon_pages
-    return dec.lookback_recon(lat.reshape(P, N), delta_latents.reshape(P, N), moments, de.window_n,
-                              de.state_n, vp.bits).reshape(lat.shape)
+def _var_rows(cp: ChunkPlan, vp: VarPlan, outs: Dict[tuple, torch.Tensor], device) -> torch.Tensor:
+    """A var's (n_pages, page_n) latents: its launch rows, or its constant."""
+    if vp.trivial:
+        return torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64, device=device)
+    return outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
 
 
-def chunk_latents(plan: ContainerPlan, ci: int, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays",
-                  scratch: Optional[torch.Tensor], conv1_out: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Each var's trimmed latents of chunk ci, its delta undone (a fused
-    launch's primary: its final memory bits): K3's output in `scratch` for a
-    var its container launch reconstructed, B1's in `conv1_out` for a conv1
-    var, else the launch rows (or the trivial var's constant) through
-    reconstruct_var."""
-    cp, arrays = plan.chunks[ci], dev.chunks[ci]
-    k3 = _k3_chunk(cp)
-    rows, flat = {}, {}
-    for key in ("delta", "primary", "secondary"):
-        vp = cp.var_plans.get(key)
-        if vp is None or (key == "delta" and k3):  # K3 read the chunk's lookbacks itself
-            continue
-        at, made = plan.lookback_scratch.get((ci, key)), scratch
-        if at is None:
-            at, made = plan.conv1_scratch.get((ci, key)), conv1_out
-        if at is not None:
-            flat[key] = made[at : at + cp.n]
-            continue
-        if vp.trivial:
-            lat = torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64,
-                             device=dev.device)
-        else:
-            lat = outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
-            if plan.launches[vp.launch_key].fuse:
-                flat[key] = trim_pages(lat, cp)
-                continue
-        rows[key] = reconstruct_var(cp, vp, lat, rows.get("delta"), arrays["moments_" + key])
-        flat[key] = trim_pages(rows[key], cp)
-    return flat
-
-
-def chunk_result(plan: ContainerPlan, cp: ChunkPlan, flat: Dict[str, torch.Tensor], out=None) -> torch.Tensor:
-    """Memory bits of a non-Dict chunk from its trimmed var latents: the
-    mode join (a fused launch's primary is final already), written into
-    `out` (the chunk's slice of the container's output) when it is given."""
-    lkey = cp.var_plans["primary"].launch_key
-    if lkey is not None and plan.launches[lkey].fuse:
-        return flat["primary"] if out is None else out.copy_(flat["primary"])
-    return dec.join_mem(plan.nt, cp.mode_kind, cp.mode_scalar, flat["primary"], flat.get("secondary"), out)
+def lookback_pages(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
+    """The trimmed latents of the lookback vars whose pages K3's launch does
+    not take (over kernels.LB_SMEM_MAX_N numbers), a chunk at a time
+    through lookback_recon (K3's device-memory route; the JAX
+    `_reconstruct_var`'s lookback branch), back to back as
+    plan.post_lookback places them."""
+    out = torch.empty(plan.post_lookback_n, dtype=torch.int64, device=dev.device)
+    for ci, var_at in plan.post_lookback:
+        cp = plan.chunks[ci]
+        P, N = cp.recon_pages
+        lbs = _var_rows(cp, cp.var_plans["delta"], outs, dev.device).reshape(P, N)
+        for key, (at, mom) in var_at.items():
+            vp, de = cp.var_plans[key], cp.delta.for_latent_var(key)
+            moments = dev.post_moments[mom : mom + vp.moments.size].view(vp.moments.shape)
+            rows = dec.lookback_recon(_var_rows(cp, vp, outs, dev.device).reshape(P, N), lbs, moments, de.window_n,
+                                      de.state_n, vp.bits)
+            out[at : at + cp.n] = rows.reshape(-1)[: cp.n]
+    return out
 
 
 def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
     """(n,) int64 memory bits of every number of the container (the JAX
-    `_post_chunks` and the concatenation after it). A fused launch's rows
-    are final memory bits already. A container without lookback, conv1,
-    Dict or FloatMult chunks is concatenated, a view where its chunks lie
-    end to end in one launch output. Otherwise one K3 launch reconstructs
-    every lookback var whose pages fit shared memory, joining each Classic
-    chunk straight into the output (the others' latents into a scratch);
-    one B1 call reconstructs every conv1 var into a scratch; the remaining
-    chunks are joined (FloatMult's by B2) into the output, and one K4
-    launch joins every Dict chunk into it."""
+    `_post_chunks` and the concatenation after it). Where every chunk is a
+    fused launch's rows, end to end, a view of them (plan.post_view).
+    Otherwise one K3 launch reconstructs every lookback var whose pages fit
+    shared memory, joining each Classic chunk straight into the output (the
+    others' latents into a scratch); one B1 call reconstructs every conv1
+    var into a scratch; the lookback vars of longer pages go a chunk at a
+    time (lookback_pages); one B3 launch undoes every other delta and joins
+    every other chunk into the output (a Dict chunk's latents into K4's
+    scratch); one K4 launch joins every Dict chunk into the output. No
+    loop over chunks but lookback_pages'."""
     device = dev.device
-    k3_chunks = plan.lookback_chunks
-    if not (plan.dict_chunks or k3_chunks or len(plan.conv1_desc)
-            or any(cp.mode_kind == Mode.FLOAT_MULT for cp in plan.chunks)):
-        return _concat([chunk_result(plan, cp, chunk_latents(plan, ci, outs, dev, None, None))
-                        for ci, cp in enumerate(plan.chunks)], device)
+    if plan.post_view is not None:
+        lkey, start = plan.post_view
+        return outs[lkey].reshape(-1)[start : start + plan.n]
     out = torch.empty(plan.n, dtype=torch.int64, device=device)
-    scratch = torch.empty(plan.lookback_scratch_n, dtype=torch.int64, device=device)
-    conv1_out = torch.empty(plan.conv1_scratch_n, dtype=torch.int64, device=device)
-    if k3_chunks:
-        named = {("out",): out, ("scratch",): scratch, ("moments",): dev.lookback_moments}
-        bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.lookback_bases]
+    named = {("out",): out}
+    if plan.lookback_chunks:
+        scratch = torch.empty(plan.lookback_scratch_n, dtype=torch.int64, device=device)
+        k3 = {("out",): out, ("scratch",): scratch, ("moments",): dev.lookback_moments}
+        bases = [outs[key[1]] if key[0] == "launch" else k3[key] for key in plan.lookback_bases]
         dec.lookback_recon_chunks(bases, plan.lookback_desc, dev.lookback_desc)
+        named[("lookback",)] = scratch
     if len(plan.conv1_desc):
-        named = {("scratch",): conv1_out, ("moments",): dev.conv1_moments}
-        bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.conv1_bases]
+        conv1_out = torch.empty(plan.conv1_scratch_n, dtype=torch.int64, device=device)
+        b1 = {("scratch",): conv1_out, ("moments",): dev.conv1_moments}
+        bases = [outs[key[1]] if key[0] == "launch" else b1[key] for key in plan.conv1_bases]
         dec.conv1_recon_chunks(bases, plan.conv1_desc, dev.conv1_desc)
-    dict_latents = {}  # Dict chunk -> its primary latents made by the post
-    for ci, cp in enumerate(plan.chunks):
-        if cp.mode_kind == Mode.DICT and _dict_from_launch(cp):
-            continue  # K4 reads the launch's rows
-        if ci in k3_chunks and cp.mode_kind == Mode.CLASSIC:
-            continue  # K3 joined it into the output
-        flat = chunk_latents(plan, ci, outs, dev, scratch, conv1_out)
-        if cp.mode_kind == Mode.DICT:
-            dict_latents[ci] = flat["primary"]
-        else:
-            chunk_result(plan, cp, flat, out[plan.offsets[ci] : plan.offsets[ci + 1]])
+        named[("conv1",)] = conv1_out
+    if plan.post_lookback:
+        named[("lookback_pages",)] = lookback_pages(plan, outs, dev)
+    named[("dict",)] = torch.empty(plan.dict_scratch_n, dtype=torch.int64, device=device)
+    named[("moments",)] = dev.post_moments
+    if len(plan.post_desc):
+        bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.post_bases]
+        dec.post_rows(bases, plan.post_desc, dev.post_desc)
     if not plan.dict_chunks:
         return out
-    bases = [outs[key] if kind == "launch" else dict_latents[key] for kind, key in plan.dict_bases]
+    bases = [outs[key[1]] if key[0] == "launch" else named[key] for key in plan.dict_bases]
     return dec.dict_join_chunks(bases, plan.dict_desc, dev.dict_table, out)
-
-
-def _concat(pieces: List[torch.Tensor], device) -> torch.Tensor:
-    """Concatenate chunk results; a view when they already lie end to end in
-    one launch output, as they do for fused full-page chunks."""
-    if not pieces:
-        return torch.zeros(0, dtype=torch.int64, device=device)
-    total = sum(p.numel() for p in pieces)
-    adjacent = all(
-        p.untyped_storage().data_ptr() == pieces[0].untyped_storage().data_ptr()
-        and q.data_ptr() == p.data_ptr() + 8 * p.numel()
-        for p, q in zip(pieces, pieces[1:])
-    )
-    if adjacent:
-        return torch.as_strided(pieces[0], (total,), (1,))
-    return torch.cat(pieces)
 
 
 # ---------------------------------------------------------------------------
@@ -857,13 +924,13 @@ def _resolve_device(device) -> torch.device:
 class DeviceArrays:
     words: torch.Tensor  # the container's words (empty where shards hold them: upload_post)
     launches: Dict[tuple, Dict[str, torch.Tensor]] = field(default_factory=dict)
-    # per chunk: "moments_<var>" (n_pages, state_n)
-    chunks: List[Dict[str, torch.Tensor]] = field(default_factory=list)
     dict_table: Optional[torch.Tensor] = None  # every Dict chunk's table, back to back
     lookback_desc: Optional[torch.Tensor] = None  # K3's rows (plan.lookback_desc)
     lookback_moments: Optional[torch.Tensor] = None  # every K3 row's stored state, back to back
     conv1_desc: Optional[torch.Tensor] = None  # B1's rows (plan.conv1_desc)
     conv1_moments: Optional[torch.Tensor] = None  # every B1 row's stored state, back to back
+    post_desc: Optional[torch.Tensor] = None  # B3's rows (plan.post_desc)
+    post_moments: Optional[torch.Tensor] = None  # every stored state the post reads (plan.post_moments)
 
     @property
     def device(self) -> torch.device:
@@ -890,20 +957,18 @@ def _launch_arrays(cp: ChainPlan, device, chains: slice = slice(None), word0=Non
 
 
 def upload_post(plan: ContainerPlan, device="cuda") -> DeviceArrays:
-    """Copy what the post reads (K3's, B1's and K4's tables, each chunk's
-    stored delta states) to `device`; no container words and no launch."""
+    """Copy what the post reads (K3's, B1's, B3's and K4's tables and their
+    stored states) to `device`; no container words and no launch."""
     device = _resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dev = DeviceArrays(words=torch.zeros(0, dtype=torch.int32, device=device), dict_table=t(plan.dict_table),
-                       lookback_desc=t(plan.lookback_desc),
-                       lookback_moments=_u64_to_tensor(plan.lookback_moments, device),
-                       conv1_desc=t(plan.conv1_desc), conv1_moments=_u64_to_tensor(plan.conv1_moments, device))
-    for ch in plan.chunks:
-        dev.chunks.append({"moments_" + key: _u64_to_tensor(vp.moments, device) for key, vp in ch.var_plans.items()})
-    return dev
+    return DeviceArrays(words=torch.zeros(0, dtype=torch.int32, device=device), dict_table=t(plan.dict_table),
+                        lookback_desc=t(plan.lookback_desc),
+                        lookback_moments=_u64_to_tensor(plan.lookback_moments, device),
+                        conv1_desc=t(plan.conv1_desc), conv1_moments=_u64_to_tensor(plan.conv1_moments, device),
+                        post_desc=t(plan.post_desc), post_moments=_u64_to_tensor(plan.post_moments, device))
 
 
 def upload_plan(plan: ContainerPlan, device="cuda") -> DeviceArrays:

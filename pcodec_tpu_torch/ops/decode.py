@@ -5,16 +5,26 @@ The counterparts of the XLA helpers in the JAX package's
 `pcodec_tpu/ops/pallas_decode.py`:
 
     bijections        latent <-> memory bits of every number type
-    join_mem          the mode joins (Classic, IntMult, FloatQuant, FloatMult)
+    join_mem          the mode joins (Classic, IntMult, FloatQuant, FloatMult),
+                      B3's plain version's
+    post_rows         B3, CUDA (csrc/chunk_post.cu): the decode post of
+                      every chunk a post table names in one launch, a warp
+                      a page: each var's consecutive delta undone (u64
+                      carries, warp scans), the ragged last page trimmed,
+                      the mode join (FloatMult's through B2's per-number
+                      join) into the output, or a Dict chunk's latents into
+                      K4's scratch
     float_mult_join   B2, CUDA (csrc/float_mult_join.cu): the FloatMult join
                       of one chunk in one elementwise pass, the integer
-                      softfloat's multiply inside, straight into the output
+                      softfloat's multiply inside; B3 runs its per-number
+                      join (csrc/softfloat.cuh), so no decode launches it
     dict_join_chunks  K4, CUDA (csrc/dict_join.cu): the Dict join of every
                       Dict chunk of a container in one launch, a clamped
                       gather of each entry's memory bits; dict_join is its
                       one-chunk case
     consecutive_decode_batched
-                      delta reconstruction in plain torch (XLA in JAX)
+                      delta reconstruction in plain torch (XLA in JAX), the
+                      plain version of B3's delta
     conv1_recon_chunks
                       B1, CUDA (csrc/conv1_recon.cu): the conv1 recurrence
                       of every conv1 var of a container in one call, a
@@ -38,7 +48,7 @@ raises.
 import numpy as np
 import torch
 
-from pcodec_tpu_torch.dtypes import NumberType
+from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME, NumberType
 from pcodec_tpu_torch.format.metadata import Mode
 from pcodec_tpu_torch.ops import kernels
 from pcodec_tpu_torch.ops import softfloat as sf
@@ -243,6 +253,106 @@ def consecutive_decode_batched(latents, moments, order: int, latent_bits: int):
         cs = torch.cumsum(out, dim=1)
         out = moments[:, j : j + 1] + torch.cat([z, cs[:, :-1]], dim=1)
     return out
+
+
+# B3's descriptor table: one row per chunk of a container's post,
+# POST_DESC_COLS int64 columns (must match csrc/chunk_post.cu). Per var
+# (prim_, sec_): a base (an index into the call's `bases`; -1 a trivial var
+# whose every latent is its start) and start, the chunk's number i at start
+# + i; its consecutive order (0: no delta) and where its pages' moments
+# start in base mom_base (page p's order moments at mom + p * order); its
+# latent bits. The chunk's n_valid numbers go to out_start + i of out_base
+# after the join; page_n is the delta's page, seg_n the numbers an item
+# (a warp) takes (page_n where a var has a delta), item0 the row's first
+# item in the launch. mode indexes POST_MODES; join is a JOIN_ kind
+# (JOIN_LATENTS: the primary's values as they are); bits the number's
+# latent bits; scalar the mode's (IntMult base, FloatQuant k, FloatMult
+# base latent). A Classic row reads no secondary.
+POST_COLS = ("prim_base", "prim_start", "prim_order", "prim_mom", "prim_bits", "sec_base", "sec_start", "sec_order",
+             "sec_mom", "sec_bits", "mom_base", "out_base", "out_start", "n_valid", "page_n", "seg_n", "item0",
+             "mode", "join", "bits", "scalar")
+POST_DESC_COLS = len(POST_COLS)
+POST_MODES = (Mode.CLASSIC, Mode.INT_MULT, Mode.FLOAT_QUANT, Mode.FLOAT_MULT)  # a row's mode code: the index
+POST_SEG_N = 1024  # numbers an item of a row without a delta takes
+_KIND_OF_JOIN = {JOIN_UNSIGNED: "u", JOIN_SIGNED: "i", JOIN_FLOAT: "f"}
+
+
+def post_row(prim, sec, mom_base: int, out, n_valid: int, page_n: int, item0: int, mode: str, join: int, bits: int,
+             scalar: int) -> list:
+    """One B3 descriptor row: prim and sec (base, start, order, moments
+    offset, latent bits) of the vars, out (base, start)."""
+    seg_n = page_n if prim[2] or (mode != Mode.CLASSIC and sec[2]) else POST_SEG_N
+    return [*prim, *sec, mom_base, *out, n_valid, page_n, seg_n, item0, POST_MODES.index(mode), join, bits,
+            _i64(scalar)]
+
+
+def post_items(desc: np.ndarray) -> int:
+    """The items (warps) of B3's launch over desc's rows."""
+    d = np.asarray(desc, np.int64).reshape(-1, POST_DESC_COLS)
+    return int((-(-d[:, _PC["n_valid"]] // d[:, _PC["seg_n"]])).sum())
+
+
+_PC = {name: i for i, name in enumerate(POST_COLS)}
+
+
+def post_var_latents(bases, r: list, var: str) -> torch.Tensor:
+    """A B3 row's var ("prim" or "sec") as its n_valid latents: its pages
+    (zero past n_valid) through consecutive_decode_batched at its order,
+    trimmed."""
+    n, N = r[_PC["n_valid"]], r[_PC["page_n"]]
+    P = -(-n // N)
+    base, start, order, bits = (r[_PC[f"{var}_{k}"]] for k in ("base", "start", "order", "bits"))
+    if base < 0:
+        lat = torch.full((P, N), start, dtype=torch.int64, device=bases[r[_PC["out_base"]]].device)
+    else:
+        flat = bases[base].reshape(-1)[start : start + n]
+        lat = torch.cat([flat, flat.new_zeros(P * N - n)]).view(P, N)
+    if order:
+        mom = bases[r[_PC["mom_base"]]].reshape(-1)[r[_PC[f"{var}_mom"]] :][: P * order].view(P, order)
+        lat = consecutive_decode_batched(lat, mom, order, bits)
+    return lat.reshape(-1)[:n]
+
+
+def post_row_type(r: list) -> NumberType:
+    """The number type of a B3 row that joins (join not JOIN_LATENTS)."""
+    return NUMBER_TYPES_BY_NAME[_KIND_OF_JOIN[r[_PC["join"]]] + str(r[_PC["bits"]])]
+
+
+def post_rows_plain(bases, desc: np.ndarray, desc_dev=None):
+    """Plain version of B3 over a post table: for each row, each var's
+    latents (post_var_latents), then join_mem of the row's mode (a
+    JOIN_LATENTS row: the primary as it is) into its output base. desc_dev
+    is not read. Returns nothing; the output bases are written in place."""
+    for r in np.asarray(desc, np.int64).reshape(-1, POST_DESC_COLS).tolist():
+        n, mode, scalar = r[_PC["n_valid"]], POST_MODES[r[_PC["mode"]]], r[_PC["scalar"]]
+        dst = bases[r[_PC["out_base"]]].reshape(-1)[r[_PC["out_start"]] : r[_PC["out_start"]] + n]
+        prim = post_var_latents(bases, r, "prim")
+        if r[_PC["join"]] == JOIN_LATENTS:
+            dst.copy_(prim)
+            continue
+        sec = None if mode == Mode.CLASSIC else post_var_latents(bases, r, "sec")
+        if mode == Mode.FLOAT_MULT:  # B2's plain version, on any device
+            float_mult_join_plain(post_row_type(r), scalar, prim, sec, dst)
+        else:
+            join_mem(post_row_type(r), mode, scalar, prim, sec, dst)
+
+
+def post_rows(bases, desc: np.ndarray, desc_dev=None):
+    """B3: every row of a container's post table by one launch, straight
+    into the rows' outputs; arguments as post_rows_plain, desc_dev the rows
+    on the card (uploaded here when None)."""
+    if all(b.device.type == "cpu" for b in bases):
+        return post_rows_plain(bases, desc)
+    desc = np.ascontiguousarray(desc, dtype=np.int64).reshape(-1, POST_DESC_COLS)
+    if len(bases) > kernels.POST_MAX_BASES:
+        raise ValueError(f"post_rows reads at most {kernels.POST_MAX_BASES} tensors a launch")
+    _check_cuda(*((b, torch.int64) for b in bases))
+    if desc_dev is None:
+        desc_dev = torch.from_numpy(desc).to(bases[0].device)
+    _check_cuda((desc_dev, torch.int64))
+    if desc_dev.device != bases[0].device or tuple(desc_dev.shape) != desc.shape:
+        raise ValueError("post_rows: desc_dev must hold desc's rows on the bases' device")
+    kernels.launch_chunk_post(bases, desc, desc_dev)
 
 
 def lookback_rounds(page_n: int) -> int:

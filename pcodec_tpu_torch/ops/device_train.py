@@ -19,9 +19,12 @@ host's.
                       the decisions are the host's; or the pinned spec
     phase_dict        card: TRY_DICT's split, each chunk's dictionary and
                       the numbers' u32 indices, which the rest trains on
-    split_primary     card: the mode split's primary latents (IntMult and
+    split_primary     B6, CUDA (csrc/mode_split.cu): the mode split's
+                      primary latents in one elementwise pass (IntMult and
                       FloatQuant divide, FloatMult multiplies in the
-                      integer softfloat, ops/softfloat.py), before the delta
+                      integer softfloat), before the delta, each unit's
+                      parameters from its chunk's row of the training's
+                      split_table (uploaded once)
     delta_candidates  card: bins of the auto-delta candidates over each
                       chunk's primary sample (stage 1: orders
                       0..STAGE1_ORDERS; stage 2: the later orders of chains
@@ -41,7 +44,8 @@ host's.
     walk_bins         K9, CUDA (csrc/histogram_walk.cu): the histogram walk
                       over the extracts, a warp per row, its tables in
                       shared memory
-    phase_secondary   card: the split chunks' secondary latents (NOOP delta,
+    phase_secondary   card: the split chunks' secondary latents (B6's
+                      split_secondary; NOOP delta,
                       every position stored), a row a chunk sorted by K8 and
                       walked by K9 at no more than
                       LIMITED_UNOPTIMIZED_BINS_LOG bins log
@@ -320,17 +324,38 @@ def _float_mult_split(nt: NumberType, base, inv_base) -> Split:
                  invb=bits(inv_base), base=bits(base))
 
 
-def split_params(splits: List[Optional[Split]], owner: np.ndarray):
-    """(div, flip, invb, base) numpy arrays, one entry per unit (a row or a
-    sample number) of the chunks `owner` names: int64 u64 bits, div 1 and
-    invb 0 where the chunk does not split."""
-    per = [sp or _NO_SPLIT for sp in splits]
+SPLIT_COLS = 4  # a chunk's split parameters (div, flip, invb, base); must match csrc/mode_split.cu's TABLE_COLS
 
-    def col(f, dtype=np.int64):
-        return np.asarray([f(sp) for sp in per], dtype)[owner]
 
-    return (col(lambda sp: _i64(sp.div)), col(lambda sp: sp.flip, bool), col(lambda sp: _i64(sp.invb)),
-            col(lambda sp: _i64(sp.base)))
+def split_params(splits: List[Optional[Split]]) -> np.ndarray:
+    """(n_chunks, SPLIT_COLS) int64 rows (div, flip, invb, base), u64 bits:
+    div 1 and invb 0 where the chunk does not split."""
+    return np.array([[_i64(sp.div), int(sp.flip), _i64(sp.invb), _i64(sp.base)] for sp in
+                     (sp or _NO_SPLIT for sp in splits)], np.int64).reshape(-1, SPLIT_COLS)
+
+
+@dataclass
+class SplitTable:
+    """A training's split parameters, a row a chunk (split_params), on the
+    host and, uploaded once, on the card; B6 reads each unit's row through
+    its chunk (`owner`)."""
+
+    rows: np.ndarray
+    dev: torch.Tensor
+
+    def units(self, owner: torch.Tensor):
+        """(div, flip, invb, base) numpy arrays, an entry a unit of owner."""
+        r = self.rows[owner.cpu().numpy()]
+        return r[:, 0], r[:, 1].astype(bool), r[:, 2], r[:, 3]
+
+    @property
+    def float_mult(self) -> bool:
+        return bool(self.rows[:, 2].any())
+
+
+def split_table(splits: List[Optional[Split]], device) -> SplitTable:
+    rows = split_params(splits)
+    return SplitTable(rows, torch.from_numpy(rows).to(device))
 
 
 def _units(a: np.ndarray, lat: torch.Tensor) -> torch.Tensor:
@@ -338,13 +363,13 @@ def _units(a: np.ndarray, lat: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(lat.device).view((-1,) + (1,) * (lat.dim() - 1))
 
 
-def split_primary(lat: torch.Tensor, div: np.ndarray, invb: np.ndarray, fp) -> torch.Tensor:
-    """The primary latents of the mode split, unit by unit (the rows, or
-    the numbers, of lat's first axis; JAX `_phase_delta_sort`'s transform,
+def split_primary_plain(lat: torch.Tensor, div: np.ndarray, invb: np.ndarray, fp) -> torch.Tensor:
+    """Plain version of B6's primary, unit by unit (the rows, or the
+    numbers, of lat's first axis; JAX `_phase_delta_sort`'s transform,
     device_train.py:375-385): lat // div unsigned (IntMult; FloatQuant's
     logical lat >> k), the FloatMult primary where invb is not 0 (fp: the
     float type's (W, E, P)), the latents as they are elsewhere. div, invb
-    from split_params."""
+    per unit (SplitTable.units)."""
     out = lat.clone()
     d = np.flatnonzero(div != 1)
     if len(d):
@@ -357,12 +382,12 @@ def split_primary(lat: torch.Tensor, div: np.ndarray, invb: np.ndarray, fp) -> t
     return out
 
 
-def split_secondary(lat: torch.Tensor, prim: torch.Tensor, div, flip, invb, base, fp, bits: int) -> torch.Tensor:
-    """The secondary latents of split units (JAX `_phase_secondary`):
-    lat % div unsigned (IntMult), flipped to div - 1 - (lat % div) where
-    `flip` and the latent is below the middle, that is the float is
-    negative (FloatQuant's low k bits), and the FloatMult adjustment where
-    invb is not 0 (prim: those units' primary latents)."""
+def split_secondary_plain(lat: torch.Tensor, prim: torch.Tensor, div, flip, invb, base, fp, bits: int) -> torch.Tensor:
+    """Plain version of B6's secondary (JAX `_phase_secondary`): lat % div
+    unsigned (IntMult), flipped to div - 1 - (lat % div) where `flip` and
+    the latent is below the middle, that is the float is negative
+    (FloatQuant's low k bits), and the FloatMult adjustment where invb is
+    not 0 (prim: those units' primary latents)."""
     d = _units(div, lat)
     r = udivmod(lat, d)[1]
     if flip.any():
@@ -373,6 +398,46 @@ def split_secondary(lat: torch.Tensor, prim: torch.Tensor, div, flip, invb, base
         fi = torch.from_numpy(f).to(lat.device)
         r[fi] = sf.float_mult_adjustment(lat[fi], prim[fi], _units(base[f], lat), *fp)
     return r
+
+
+def _split_args(lat: torch.Tensor, owner: torch.Tensor, table: SplitTable, fp, prim=None) -> int:
+    """Check B6's arguments; returns the latents a unit."""
+    units = lat.shape[0] if lat.dim() else 0
+    if lat.dim() not in (1, 2) or owner.shape != (units,) or (table.float_mult and fp is None):
+        raise ValueError("mode split: lat must be (units,) or (units, m) with an owner a unit, fp for FloatMult")
+    if prim is not None and prim.shape != lat.shape:
+        raise ValueError("mode split: prim must have lat's shape")
+    _check_cuda((lat, i64), (owner, i64), (table.dev, i64), *(((prim, i64),) if prim is not None else ()))
+    return lat.shape[1] if lat.dim() == 2 else 1
+
+
+def split_primary(lat: torch.Tensor, owner: torch.Tensor, table: SplitTable, fp) -> torch.Tensor:
+    """B6: the primary latents of the mode split, unit by unit (the rows,
+    or the numbers, of lat's first axis), each unit's parameters the row of
+    its chunk owner[unit] in `table`; fp the float type's (W, E, P), None
+    for integers. On the CPU split_primary_plain."""
+    if lat.device.type == "cpu":
+        div, _, invb, _ = table.units(owner)
+        return split_primary_plain(lat, div, invb, fp)
+    m = _split_args(lat, owner, table, fp)
+    out = torch.empty_like(lat)
+    kernels.launch_mode_split(lat, None, out, m, owner, table.dev, False, fp[0] if fp else 0, 64)
+    return out
+
+
+def split_secondary(lat: torch.Tensor, prim: Optional[torch.Tensor], owner: torch.Tensor, table: SplitTable, fp,
+                    bits: int) -> torch.Tensor:
+    """B6: the secondary latents of split units; arguments as
+    split_primary, prim the units' primaries (needed where a chunk is
+    FloatMult), bits the latents' width. On the CPU split_secondary_plain."""
+    if lat.device.type == "cpu":
+        return split_secondary_plain(lat, prim, *table.units(owner), fp, bits)
+    if table.float_mult and prim is None:
+        raise ValueError("split_secondary: a FloatMult chunk needs its primaries")
+    m = _split_args(lat, owner, table, fp, prim)
+    out = torch.empty_like(lat)
+    kernels.launch_mode_split(lat, prim, out, m, owner, table.dev, True, fp[0] if fp else 0, bits)
+    return out
 
 
 def sorted_extracts(vals: torch.Tensor, live: torch.Tensor, n_stored: torch.Tensor, nb_log: torch.Tensor):
@@ -891,12 +956,13 @@ def phase_lookback(prim2d: torch.Tensor, rowlen: np.ndarray, wnls: List[int], nr
     return prim, lbs, states, bins_p, bins_d
 
 
-def phase_secondary(lat2d: torch.Tensor, prim2d: torch.Tensor, splits: List[Optional[Split]], rpc: int,
-                    rowlen: np.ndarray, chunk_ns: List[int], ubls: List[int], fp, bits: int):
+def phase_secondary(lat2d: torch.Tensor, prim2d: torch.Tensor, splits: List[Optional[Split]], table: SplitTable,
+                    rpc: int, rowlen: np.ndarray, chunk_ns: List[int], ubls: List[int], fp, bits: int):
     """The secondary latent var of every split chunk (the JAX
     `_phase_secondary` and its phase-2 dispatch, device_train.py:1216,
-    :1407-1418): split_secondary of the chunk's page rows of raw latents
-    (lat2d; prim2d its primaries, for FloatMult), then, with NOOP delta and
+    :1407-1418): split_secondary (B6) of the chunk's page rows of raw
+    latents (lat2d; prim2d its primaries, for FloatMult; table the
+    training's split_table), then, with NOOP delta and
     every position stored, each chunk's row sorted by K8 and walked by K9
     at min(ubl, LIMITED_UNOPTIMIZED_BINS_LOG). Returns (the secondary rows
     of the split chunks in chunk order, rpc each; {chunk: its first row};
@@ -904,9 +970,8 @@ def phase_secondary(lat2d: torch.Tensor, prim2d: torch.Tensor, splits: List[Opti
     cis = [ci for ci, sp in enumerate(splits) if sp is not None]
     rows = _chunk_rows(cis, rpc)
     ridx = torch.from_numpy(rows).to(lat2d.device)
-    div, flip, invb, base = split_params(splits, rows // rpc)
     lat = lat2d[ridx]
-    sec = split_secondary(lat, prim2d[ridx] if invb.any() else None, div, flip, invb, base, fp, bits)
+    sec = split_secondary(lat, prim2d[ridx] if table.float_mult else None, ridx // rpc, table, fp, bits)
     del lat
     col = torch.arange(lat2d.shape[1], device=lat2d.device)[None, :]
     live = col < torch.from_numpy(np.asarray(rowlen, np.int64)[rows]).to(lat2d.device)[:, None]
@@ -1449,12 +1514,14 @@ def plan_encode_device(nums, config: Optional[ChunkConfig] = None, page_n: int =
     lat2d = page_layout(lat, n_chunks * rpc, page_n)
     del lat
     prim2d = lat2d
-    if split_any:  # the primary latents, before the delta
-        div, _, invb, _ = split_params(splits, np.arange(n_chunks * rpc) // rpc)
-        prim2d = split_primary(lat2d, div, invb, fp)
+    table = None
+    if split_any:  # the primary latents, before the delta (B6), the parameters uploaded once
+        table = split_table(splits, device)
+        prim2d = split_primary(lat2d, torch.arange(n_chunks * rpc, device=device) // rpc, table, fp)
         if auto:
-            div, _, invb, _ = split_params(splits, np.repeat(np.arange(n_chunks), [m for _, m in spans]))
-            delta_s = split_primary(delta_s, div, invb, fp)
+            owner = torch.repeat_interleave(torch.arange(n_chunks, device=device),
+                                            torch.tensor([m for _, m in spans], device=device))
+            delta_s = split_primary(delta_s, owner, table, fp)
     if auto:
         encs = _auto_deltas(delta_s, spans, chunk_ns, ubls, plt)
     elif ds.kind == DeltaSpec.TRY_CONSECUTIVE and ds.order:
@@ -1505,8 +1572,8 @@ def plan_encode_device(nums, config: Optional[ChunkConfig] = None, page_n: int =
         del r, mo
     sec_rows, sec_row0, sec_bins = None, {}, [None] * n_chunks
     if split_any:
-        sec_rows, sec_row0, sec_bins = phase_secondary(lat2d, prim2d, splits, rpc, rowlen, chunk_ns, ubls, fp,
-                                                       lt.bits)
+        sec_rows, sec_row0, sec_bins = phase_secondary(lat2d, prim2d, splits, table, rpc, rowlen, chunk_ns, ubls,
+                                                       fp, lt.bits)
     del prim2d
     if is_dict:  # every dictionary read back in one copy
         flat = torch.cat(dicts).cpu().numpy().view(np.uint64).astype(lt.np_dtype)

@@ -29,7 +29,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
            "row_sort", "lookback_recon", "dict_join", "histogram_walk", "lookback_choose",
-           "conv1_recon", "float_mult_join",
+           "conv1_recon", "float_mult_join", "chunk_post", "mode_split",
            # the microbenchmarks of pcodec_tpu_torch/experiments/
            "proto_realign", "proto_dma", "micro_gather", "proto_round_loop", "bitonic_cluster")
 # micro_gather's four routes (its `route` argument), each counted on its own
@@ -44,6 +44,7 @@ LB_CHOOSE_SMEM_MAX_N = 8192
 # longer pages' maps (a region a block)
 LB_CHOOSE_SCRATCH_BYTES = 1 << 30
 C1_MAX_BASES = 64  # tensors one B1 call reads and writes (launch outputs of 62 page lengths); must match csrc/conv1_recon.cu
+POST_MAX_BASES = 64  # tensors one B3 launch reads and writes; must match csrc/chunk_post.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,6 +111,10 @@ _ARGTYPES = {
     "conv1_recon": [_P, _P, _I, _P, _P, _I, _P, _I, _P],
     # prim, sec, base bits, out, n, W, device, stream
     "float_mult_join": [_P, _P, ctypes.c_ulonglong, _P, _L, _I, _I, _P],
+    # bases, numels, n_bases, desc, desc_dev, n_desc, launched, device, stream
+    "chunk_post": [_P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # lat, prim, out, n, m, owner, table, secondary, W, bits, device, stream
+    "mode_split": [_P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
     # raw2d, n_rows, starts_blk, out, n_groups, device, stream
     "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
     # raw, n_raw, starts, colsum, out, n_tiles, heavy_rounds, device, stream
@@ -399,6 +404,27 @@ def launch_float_mult_join(prim, sec, base_bits: int, out, W: int) -> None:
     float's memory bits."""
     _call("float_mult_join", out, prim.data_ptr(), sec.data_ptr(), base_bits & ((1 << 64) - 1), out.data_ptr(),
           out.shape[0], W)
+
+
+def launch_chunk_post(bases, desc, desc_dev) -> None:
+    """B3 over a post table: bases, the int64 tensors the rows name; desc
+    (R, decode.POST_DESC_COLS) int64 numpy rows, desc_dev the same rows on
+    the card. The C side checks every row against its bases. Counts its
+    kernel (none where the rows hold no number)."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64)
+    B = len(bases)
+    launched = ctypes.c_int(0)
+    _call("chunk_post", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
+          (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
+          desc.shape[0], ctypes.byref(launched), launched=launched)
+
+
+def launch_mode_split(lat, prim, out, m: int, owner, table, secondary: bool, W: int, bits: int) -> None:
+    """B6 over lat's latents in units of m: owner (units,) int64 chunk of
+    each unit, table (chunks, 4) int64 rows (div, flip, invb, base); prim
+    (FloatMult's secondary) the units' primaries or None."""
+    _call("mode_split", lat, lat.data_ptr(), None if prim is None else prim.data_ptr(), out.data_ptr(), lat.numel(),
+          m, owner.data_ptr(), table.data_ptr(), int(secondary), W, bits)
 
 
 def launch_proto_realign(raw2d, starts_blk, out) -> None:

@@ -10,9 +10,10 @@ native `decode_page_pre_delta(capture=True)`, which records each (batch,
 var)'s absolute section cursors and tANS entry states, and cuts the chunk
 (one page) into synthetic chains of 1,024 numbers: the entry points a PCT
 directory would store. The plan is the port's own `ContainerPlan`, so the
-decode runs the PCT path unchanged: K1 and K2 decode the chains, the post
-reconstructs a consecutive delta from per-chain moments computed here on
-the host (the cascade streams at each chain's start), K3 and B1 rebuild a
+decode runs the PCT path unchanged: K1 and K2 decode the chains, B3 (the
+post) undoes a consecutive delta a chain at a time from per-chain moments
+computed here on the host (the cascade streams at each chain's start) and
+joins every chunk in one launch, K3 and B1 rebuild a
 lookback or conv1 chunk over the whole chunk from its one stored state (a
 flat chunk: ChunkPlan.flat) and K4 joins the Dict chunks. No chunk is
 decoded on the host instead of the card, and no extent is refused.

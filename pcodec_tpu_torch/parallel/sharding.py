@@ -114,7 +114,8 @@ def upload_sharded(plan: cd.ContainerPlan, devices) -> ShardedArrays:
 def decode_sharded(plan: cd.ContainerPlan, sharded: ShardedArrays) -> torch.Tensor:
     """K1 and K2 on every shard (all launched before the first gather), the
     outputs gathered on the first device in chain order, then the post
-    there: (n,) int64 memory bits, as decode_plan's."""
+    there (K3, B1, B3 and K4, whose wrappers refuse a base on another
+    device): (n,) int64 memory bits, as decode_plan's."""
     outs = [(s.lkey, cd.run_launch(plan.launches[s.lkey], s.words, s.arrays)) for s in sharded.shards]
     dev0 = sharded.post.device
     parts: Dict[tuple, list] = {}

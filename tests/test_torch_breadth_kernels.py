@@ -1,5 +1,6 @@
-"""K3 (lookback_recon), K4 (dict_join), B1 (conv1_recon) and B2
-(float_mult_join) of the port, on their own.
+"""K3 (lookback_recon), K4 (dict_join), B1 (conv1_recon), B2
+(float_mult_join) and B3 (chunk_post, the decode post) of the port, on
+their own.
 
 The plain versions run here on the CPU, held against independent numpy
 references and the port's host decoder; the tests marked `gpu` hold the
@@ -336,6 +337,102 @@ def test_conv1_recon_chunks_plain_is_each_entry_alone(seed):
     assert bool((got[3][~written] == -77).all())
 
 
+# B3's random tables: (mode, number type, numbers, page length, primary,
+# secondary), each var (order, source: "launch" rows, a "flat" scratch or
+# "trivial"); every mode at 16, 32 and 64 bits, orders 0-7, ragged last
+# pages, trivial vars, a Dict chunk's latents under a delta (dict) and a
+# fused chunk's rows copied (copy)
+POST_SPECS = [
+    ("classic", "u16", 700, 256, (0, "launch"), None), ("classic", "i32", 1500, 512, (3, "flat"), None),
+    ("classic", "f64", 3000, 1024, (7, "launch"), None), ("classic", "i64", 300, 256, (2, "trivial"), None),
+    ("int_mult", "u16", 1000, 256, (1, "launch"), (1, "flat")),
+    ("int_mult", "i64", 2049, 1024, (5, "flat"), (0, "trivial")),
+    ("int_mult", "u32", 64, 256, (0, "trivial"), (4, "launch")),
+    ("float_quant", "f16", 777, 256, (6, "launch"), (0, "flat")),
+    ("float_quant", "f32", 5000, 1024, (0, "flat"), (0, "flat")),
+    ("float_quant", "f64", 1025, 256, (1, "launch"), (1, "launch")),
+    ("float_mult", "f16", 900, 256, (3, "flat"), (0, "launch")),
+    ("float_mult", "f32", 4000, 1024, (0, "launch"), (0, "flat")),
+    ("float_mult", "f64", 2500, 512, (2, "launch"), (2, "flat")),
+    ("dict", "i64", 1300, 256, (1, "launch"), None), ("copy", "u64", 1800, 1024, (0, "launch"), None),
+]
+POST_FLOAT_BASES = (0.01, np.inf, np.nan, -0.0, "subnormal")
+
+
+def random_post_table(seed, big_page=False):
+    """A B3 table over six tensors (launch rows, a flat scratch, the stored
+    moments, an output and a Dict scratch filled with -77, and a long
+    page's latents), the rows of POST_SPECS at random starts (odd ones
+    among them) with full-range u64 latents (NaN, inf, +-0 and subnormal
+    FloatMult multipliers among them) and a FloatMult base of
+    POST_FLOAT_BASES by seed; with big_page a Classic i64 row of one page
+    of 2^18 numbers and a ragged second page, order 2. Returns (bases,
+    desc)."""
+    rng = np.random.default_rng(seed)
+    specs = POST_SPECS + ([("classic", "i64", (1 << 18) + 300, 1 << 18, (2, "big"), None)] if big_page else [])
+    used = {"launch": 0, "flat": 0, "big": 0, "moments": 0, "out": 0, "dict": 0}
+    rows = []
+    item0 = 0
+
+    def take(kind, n):
+        at = used[kind] + int(rng.integers(0, 3))
+        used[kind] = at + n
+        return at
+
+    for mode, name, n, N, p, sv in specs:
+        nt = TYPES[name]
+        bits = 32 if mode == "dict" else nt.latent.bits
+        pages = -(-n // N)
+
+        def var(v):
+            order, src = v
+            mom = take("moments", pages * order) if order else 0
+            if src == "trivial":
+                return [-1, int(rng.integers(-(2**63), 2**63)), order, mom, bits]
+            return [{"launch": 0, "flat": 1, "big": 5}[src], take(src, n), order, mom, bits]
+
+        prim = var(p)
+        sec = var(sv) if sv else [-1, 0, 0, 0, bits]
+        scalar = {"int_mult": int(rng.integers(2, 1 << min(bits, 40))), "float_quant": int(rng.integers(1, 9))}.get(mode, 0)
+        if mode == "float_mult":
+            base = POST_FLOAT_BASES[seed % len(POST_FLOAT_BASES)]
+            f = np.array([1], nt.latent.np_dtype).view(nt.np_dtype) if base == "subnormal" else np.array([base], nt.np_dtype)
+            scalar = int(nt.to_latent_ordered(f)[0])
+        out = (4, take("dict", n)) if mode == "dict" else (3, take("out", n))
+        join = dec.JOIN_LATENTS if mode in ("dict", "copy") else dec.JOIN_OF_KIND[nt.kind]
+        row = dec.post_row(prim, sec, 2, out, n, N, item0, mode if mode in dec.POST_MODES else "classic", join,
+                           nt.latent.bits, scalar)
+        rows.append(row)
+        item0 += -(-n // row[dec.POST_COLS.index("seg_n")])
+
+    def lat(n):
+        return torch.from_numpy(rng.integers(0, 2**64, max(n, 1), dtype=np.uint64).view(np.int64))
+
+    bases = [lat(used["launch"]), lat(used["flat"]),
+             lat(used["moments"]), torch.full((used["out"] + 5,), -77, dtype=torch.int64),
+             torch.full((used["dict"] + 5,), -77, dtype=torch.int64), lat(used["big"])]
+    bases[0] = torch.cat([bases[0], bases[0].new_zeros(-len(bases[0]) % 1024)]).view(-1, 1024)  # rows of 1,024
+    return bases, np.array(rows, np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_post_rows_plain_is_each_row_alone(seed):
+    """Exact: on a random table, the plain B3 writes each row's numbers as
+    that row alone does, and nothing else of its outputs."""
+    bases, desc = random_post_table(seed)
+    got = [b.clone() for b in bases]
+    dec.post_rows_plain(got, desc)
+    touched = [torch.zeros(len(bases[i]), dtype=torch.bool) for i in (3, 4)]
+    for r in desc:
+        alone = [b.clone() for b in bases]
+        dec.post_rows_plain(alone, r[None, :])
+        o, at, n = r[dec.POST_COLS.index("out_base")], r[dec.POST_COLS.index("out_start")], r[dec.POST_COLS.index("n_valid")]
+        assert torch.equal(got[o][at : at + n], alone[o][at : at + n])
+        touched[o - 3][at : at + n] = True
+    for i in (3, 4):
+        assert bool((got[i][~touched[i - 3]] == -77).all())
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     lat, lb, mom = _pages(2, 256, 1, 256)
     table = torch.arange(5, dtype=torch.int64)
@@ -348,6 +445,11 @@ def test_wrappers_take_plain_versions_on_cpu():
     nt = pt.dtypes.NUMBER_TYPES_BY_NAME["f32"]
     assert torch.equal(dec.float_mult_join(nt, 7 << 28, lat[0], lb[0]),
                        dec.float_mult_join_plain(nt, 7 << 28, lat[0], lb[0]))
+    bases, desc = random_post_table(2)
+    got, want = [b.clone() for b in bases], [b.clone() for b in bases]
+    dec.post_rows(got, desc)
+    dec.post_rows_plain(want, desc)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert kernels.LAUNCHES == before  # plain versions launch nothing
 
 
@@ -579,8 +681,8 @@ def test_float_mult_join_matches_plain_on_card(name):
 def test_conv1_and_float_mult_decode_on_card(case):
     """Exact: a multi-chunk standalone conv1 file (each chunk one B1 row),
     a conv1 PCT container (a row a page) and a FloatMult standalone file
-    decode on the card to their source, B1 in one call and B2 once a
-    chunk."""
+    decode on the card to their source, B1 in one call, every FloatMult
+    chunk joined by B3's one launch (B2 not launched)."""
     _need_card()
     t = np.arange(70_000, dtype=np.float64)
     if case.startswith("conv1"):
@@ -598,10 +700,9 @@ def test_conv1_and_float_mult_decode_on_card(case):
     got = (pt.decode_container_device(data, device="cuda") if case == "conv1_pct"
            else pt.decode_standalone_device(data, device="cuda"))
     assert np.array_equal(got.view(np.uint8), nums.view(np.uint8))
-    name = "float_mult_join" if case == "float_mult_standalone" else "conv1_recon"
-    assert kernels.LAUNCHES[name] > before[name]
-    if name == "conv1_recon":
-        assert kernels.LAUNCHES[name] == before[name] + 1
+    name = "chunk_post" if case == "float_mult_standalone" else "conv1_recon"
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert kernels.LAUNCHES["float_mult_join"] == before["float_mult_join"]  # B3 joins FloatMult itself
 
 
 @pytest.mark.gpu
@@ -715,3 +816,82 @@ def test_breadth_decode_on_card(case):
         assert kernels.LAUNCHES[name] > before[name]
     if case == "dict_100k":  # one launch a container
         assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_post_rows_matches_plain_on_card(seed):
+    """Exact: B3 against its plain version on random tables (every mode at
+    16, 32 and 64 bits, orders 0-7, trivial vars, ragged last pages, Dict
+    latents under a delta, each FloatMult base of POST_FLOAT_BASES over the
+    seeds; seed 0 also a page of 2^18), one launch a call, nothing else of
+    the outputs written."""
+    _need_card()
+    bases, desc = random_post_table(seed, big_page=seed == 0)
+    want = [b.clone() for b in bases]
+    dec.post_rows_plain(want, desc)
+    got = [b.cuda() for b in bases]
+    before = kernels.LAUNCHES["chunk_post"]
+    dec.post_rows(got, desc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chunk_post"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_post_rows_refuses_wrong_arguments_on_card():
+    """A row past its base, an order past 7 and desc_dev of other rows are
+    refused before any launch."""
+    _need_card()
+    bases, desc = random_post_table(5)
+    bases = [b.cuda() for b in bases]
+    before = kernels.LAUNCHES["chunk_post"]
+    for col, value in (("n_valid", 10**9), ("prim_order", 8)):
+        bad = desc.copy()
+        bad[0, dec.POST_COLS.index(col)] = value
+        with pytest.raises(RuntimeError, match="chunk_post kernel launch failed"):
+            dec.post_rows(bases, bad)
+    with pytest.raises(ValueError):
+        dec.post_rows(bases, desc, torch.from_numpy(desc[:-1]).cuda())
+    assert kernels.LAUNCHES["chunk_post"] == before
+
+
+def _post_decode_input(case):
+    """(numbers, bytes, decode) of a multi-chunk input whose post B3 takes
+    whole: Classic f64 standalone chunks under an order-2 delta, FloatMult
+    f32 and IntMult i64 standalone chunks, and a PCT container of f64 chunks
+    of several modes."""
+    rng = np.random.default_rng(31)
+    n = 90_000
+    if case == "classic_f64":
+        nums, cfg = np.cumsum(rng.standard_normal(n)), pt.ChunkConfig(delta_spec=pt.DeltaSpec("try_consecutive", 2))
+    elif case == "float_mult_f32":
+        nums = (rng.integers(-5000, 5000, n) * np.float32(0.01)).astype(np.float32)
+        nums[::101] = np.nan
+        cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_float_mult", 0.01))
+    elif case == "int_mult_i64":
+        nums = np.cumsum(rng.integers(0, 50, n)) * 1000 + rng.integers(0, 3, n)
+        cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec("try_int_mult", 1000.0))
+    else:
+        nums = np.concatenate([rng.integers(-5000, 5000, 30_000) * 0.01, rng.standard_normal(30_000),
+                               np.full(30_000, 3.25)])
+        data = pt.container_compress(nums, pt.ChunkConfig(), page_n=1024, chunk_n=30_000)
+        return nums, data, pt.decode_container_device
+    data = pt.simple_compress(nums, replace(cfg, paging_spec=pt.PagingSpec.equal_pages_up_to(30_000)))
+    return nums, data, pt.decode_standalone_device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["classic_f64", "float_mult_f32", "int_mult_i64", "mixed_pct"])
+def test_decode_post_is_one_chunk_post_launch_on_card(case):
+    """Exact: a multi-chunk decode whose post is B3's alone makes exactly
+    one chunk_post launch, no B2 launch, and equals its source."""
+    _need_card()
+    nums, data, decode = _post_decode_input(case)
+    before = dict(kernels.LAUNCHES)
+    got = decode(data, device="cuda")
+    torch.cuda.synchronize()
+    assert np.array_equal(got.view(np.uint8), nums.view(np.uint8))
+    assert kernels.LAUNCHES["chunk_post"] == before["chunk_post"] + 1
+    assert kernels.LAUNCHES["float_mult_join"] == before["float_mult_join"]

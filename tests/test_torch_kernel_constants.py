@@ -48,6 +48,18 @@ def _cu_constants(name: str) -> dict:
     ("conv1_recon", "MAX_BASES", kernels.C1_MAX_BASES),
     ("conv1_recon", "DESC_COLS", decode.C1_DESC_COLS),
     ("conv1_recon", "MAX_ORDER", decode.C1_MAX_ORDER),
+    ("chunk_post", "MAX_BASES", kernels.POST_MAX_BASES),
+    ("chunk_post", "DESC_COLS", decode.POST_DESC_COLS),
+    ("chunk_post", "MAX_ORDER", constants.MAX_CONSECUTIVE_DELTA_ORDER),
+    ("chunk_post", "JOIN_LATENTS", decode.JOIN_LATENTS),
+    ("chunk_post", "JOIN_UNSIGNED", decode.JOIN_UNSIGNED),
+    ("chunk_post", "JOIN_SIGNED", decode.JOIN_SIGNED),
+    ("chunk_post", "JOIN_FLOAT", decode.JOIN_FLOAT),
+    ("chunk_post", "MODE_CLASSIC", decode.POST_MODES.index("classic")),
+    ("chunk_post", "MODE_INT_MULT", decode.POST_MODES.index("int_mult")),
+    ("chunk_post", "MODE_FLOAT_QUANT", decode.POST_MODES.index("float_quant")),
+    ("chunk_post", "MODE_FLOAT_MULT", decode.POST_MODES.index("float_mult")),
+    ("mode_split", "TABLE_COLS", device_train.SPLIT_COLS),
     ("row_sort", "TILE", row_sort.RADIX_TILE),
     ("row_sort", "BITS", row_sort.RADIX_BITS),
     ("image_stitch", "SCAN_THREADS", kernels.K7_SCAN_PAGES),
@@ -93,6 +105,14 @@ def test_b1_descriptor_columns_follow_the_kernel_enum():
     names = [name.strip().lower() for name in body.split(",") if name.strip()]
     assert names[:-1] + [f"w{j}" for j in range(decode.C1_MAX_ORDER)] == list(decode.C1_COLS)
     assert names[-1] == "weights"
+
+
+def test_b3_descriptor_columns_follow_the_kernel_enum():
+    """B3's descriptor columns (decode.POST_COLS) in the order of
+    csrc/chunk_post.cu's `enum Col`."""
+    with open(os.path.join(kernels._CSRC, "chunk_post.cu")) as f:
+        body = re.search(r"enum Col \{([^}]*)\}", f.read()).group(1)
+    assert [name.strip().lower() for name in body.split(",") if name.strip()] == list(decode.POST_COLS)
 
 
 def test_k7_descriptor_columns_follow_the_kernel_enum():

@@ -1,6 +1,7 @@
 """K9 (histogram_walk) of the port, on its own, and the extracts that feed
-it; on the card, B5 (lookback_choose) against its plain version and device
-training of every mode and of the lookback delta through K8, K9 and B5.
+it; on the card, B5 (lookback_choose) and B6 (mode_split) against their
+plain versions and device training of every mode and of the lookback delta
+through K8, K9, B5 and B6.
 
 The plain version runs here on the CPU against the host codec's
 histogram(); the tests marked `gpu` hold the CUDA kernel against the plain
@@ -139,6 +140,40 @@ def _meta(cc) -> bytes:
     return w.to_bytes()
 
 
+def _split_inputs(name, rng):
+    """(latents (6, 512), owner, table, fp) of B6: three chunks of two
+    units, the first split (IntMult by a divisor from 2^63 for u64,
+    FloatQuant for f16, FloatMult for f32 and f64), the second unsplit,
+    the third another split; full-range latents, so NaN, inf, +-0 and
+    subnormal floats are among them."""
+    nt = pt.dtypes.NUMBER_TYPES_BY_NAME[name]
+    bits = nt.latent.bits
+    lat = rng.integers(0, 2**64, (6, 512), dtype=np.uint64) & np.uint64((1 << bits) - 1 if bits < 64 else U64_MAX)
+    if nt.kind == "float" and name != "f16":
+        sp = [dt._float_mult_split(nt, 0.01, 100.0), None, dt._float_mult_split(nt, 3.0, 1 / 3.0)]
+    elif name == "f16":
+        sp = [dt._float_quant_split(3), None, dt._float_quant_split(9)]
+    else:
+        sp = [dt._int_mult_split((1 << 63) + 12345 if bits == 64 else 7), None, dt._int_mult_split(1000)]
+    fp = (bits, bits - nt.mantissa_digits, nt.mantissa_digits) if nt.kind == "float" else None
+    owner = torch.tensor([0, 0, 1, 1, 2, 2])
+    return torch.from_numpy(lat.view(np.int64)), owner, dt.split_table(sp, "cpu"), fp, bits
+
+
+def test_mode_split_wrappers_take_plain_versions_on_cpu():
+    """On the CPU B6's wrappers are the plain versions and launch nothing;
+    a unit that does not split keeps its latents, remainder 0."""
+    lat, owner, table, fp, bits = _split_inputs("f32", np.random.default_rng(3))
+    before = dict(kernels.LAUNCHES)
+    div, flip, invb, base = table.units(owner)
+    prim = dt.split_primary(lat, owner, table, fp)
+    assert torch.equal(prim, dt.split_primary_plain(lat, div, invb, fp))
+    sec = dt.split_secondary(lat, prim, owner, table, fp, bits)
+    assert torch.equal(sec, dt.split_secondary_plain(lat, prim, div, flip, invb, base, fp, bits))
+    assert torch.equal(prim[2:4], lat[2:4]) and not bool(sec[2:4].any())
+    assert kernels.LAUNCHES == before
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -205,12 +240,12 @@ def _mode_inputs():
 @pytest.mark.parametrize("case", [c[0] for c in _mode_inputs()])
 def test_every_mode_trains_on_card_to_the_container(case):
     """Exact: each mode's training on the card plans the CPU's chunk metas
-    (a secondary var's and Dict's too), every K8 and K9 call it makes (the
-    secondary rows and the index rows among them) equals the plain
+    (a secondary var's and Dict's too), every K8, K9 and B6 call it makes
+    (the secondary rows and the index rows among them) equals the plain
     version, and the image equals the port's container_compress bytes."""
     _need_card()
     _, nums, cfg = next(c for c in _mode_inputs() if c[0] == case)
-    calls = {"row_sort": [], "walk_bins": []}
+    calls = {"row_sort": [], "walk_bins": [], "split_primary": [], "split_secondary": []}
     saved = {k: getattr(dt, k) for k in calls}
     for k in calls:
         setattr(dt, k, lambda *a, k=k: calls[k].append(a) or saved[k](*a))
@@ -228,6 +263,14 @@ def test_every_mode_trains_on_card_to_the_container(case):
     for a in calls["walk_bins"]:
         for got, want in zip(saved["walk_bins"](*a), dt.walk_bins_plain(*a)):
             assert torch.equal(got, want)
+    splits = any(j.cc.meta.mode.kind in ("int_mult", "float_quant", "float_mult") for j in cpu.enc.jobs)
+    assert bool(calls["split_primary"]) == bool(calls["split_secondary"]) == splits
+    for lat, owner, table, fp in calls["split_primary"]:  # B6 against its plain version
+        div, _, invb, _ = table.units(owner)
+        assert torch.equal(saved["split_primary"](lat, owner, table, fp), dt.split_primary_plain(lat, div, invb, fp))
+    for lat, prim, owner, table, fp, bits in calls["split_secondary"]:
+        assert torch.equal(saved["split_secondary"](lat, prim, owner, table, fp, bits),
+                           dt.split_secondary_plain(lat, prim, *table.units(owner), fp, bits))
     img = asm.file_image_to_bytes(*asm.run_image(plan, asm.upload_image(plan, "cuda")))
     assert img == pt.container_compress(nums, cfg, page_n=256, chunk_n=20_480)
 
@@ -318,3 +361,28 @@ def test_lookback_choose_kernel_on_pages_of_a_chunk_matches_the_native_chooser()
         assert not lbs[k, lens[k] - 1 :].any()
     for a, b in zip((prim, states), dt.lookback_store_plain(xt, lt, lbs, 64, 1)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["u16", "u32", "u64", "i64", "f16", "f32", "f64"])
+def test_mode_split_matches_plain_on_card(name):
+    """Exact: B6's primary and secondary against the plain versions on
+    rows (units of 512) and on sampled numbers (units of 1), one launch a
+    call; a FloatMult secondary without its primaries is refused."""
+    _need_card()
+    lat, owner, table, fp, bits = _split_inputs(name, np.random.default_rng(7))
+    div, flip, invb, base = table.units(owner)
+    want_p = dt.split_primary_plain(lat, div, invb, fp)
+    want_s = dt.split_secondary_plain(lat, want_p, div, flip, invb, base, fp, bits)
+    card = dt.SplitTable(table.rows, table.dev.cuda())
+    before = kernels.LAUNCHES["mode_split"]
+    got_p = dt.split_primary(lat.cuda(), owner.cuda(), card, fp)
+    got_s = dt.split_secondary(lat.cuda(), got_p, owner.cuda(), card, fp, bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mode_split"] == before + 2
+    assert torch.equal(got_p.cpu(), want_p) and torch.equal(got_s.cpu(), want_s)
+    flat, fowner = lat.reshape(-1), owner.repeat_interleave(512)
+    assert torch.equal(dt.split_primary(flat.cuda(), fowner.cuda(), card, fp).cpu(), want_p.reshape(-1))
+    if card.float_mult:
+        with pytest.raises(ValueError):
+            dt.split_secondary(lat.cuda(), None, owner.cuda(), card, fp, bits)

@@ -1,4 +1,4 @@
-"""Variants of the port's E1, E3a, E3b, E4a, E4b, B5 and B1 kernels, timed on the card
+"""Variants of the port's E1, E3a, E3b, E4a, E4b, B5, B1 and B3 kernels, timed on the card
 against the committed ones: each variant is a text edit of a kernel source
 (or an earlier tree's source as it is), built by nvcc beside the port's own
 libraries and called through the same C entry point. A record of the runs
@@ -6,7 +6,7 @@ that chose the designs (PERF.md section 6), not part of the package:
 nothing imports it, and an edit that no longer applies to the committed
 source raises.
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e3b|e4a|e4b|b5|b1]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only e1|e3a|e3b|e4a|e4b|b5|b1|b3]
 
 DIR is an earlier tree of the port (e.g. `git archive` of a parent under
 `build/`). E1: its csrc/proto_dma.cu, where that is the earlier fetch
@@ -23,7 +23,11 @@ committed kernel is held to its plain version on its first 64 pages);
 those that drop work to expose its cost (named "no ...") are only timed.
 E4a's variants are also held against torch.gather. B1's are built for
 order 6 alone, each held to the committed kernel's rows, which are held
-to the plain version on their first 4,096 numbers.
+to the plain version on their first 4,096 numbers. B3's run on two
+random post tables of phase 7's shapes (128 Classic f64 chunks of 256
+pages of 1,024 under an order-1 delta; 32 FloatMult f32 chunks of two
+vars), each held to the committed kernel's output, which is held to the
+plain version.
 Card-alone medians (`hold=True`), each variant timed twice in turns, E1's
 and B5's kernels also split by the profiler's trace; the card's name and
 power limit beside every line. Needs a card and raises without one.
@@ -692,6 +696,74 @@ def b1_variants(card: str) -> None:
               + f"; each == the committed kernel but those named \"no ...\" [{card}]", flush=True)
 
 
+_B3_HEAD = "__global__ void __launch_bounds__(THREADS) chunk_post_kernel"
+_B3 = {
+    "committed": [],
+    "every row's carries and softfloat (the first build's)": [
+        ("int levels = 0;", "int levels = MAX_ORDER;"), ("bool fm = false;", "bool fm = true;")],
+    "ITEMS 8 (the first build's)": [("constexpr int ITEMS = 4;", "constexpr int ITEMS = 8;")],
+    "ITEMS 2": [("constexpr int ITEMS = 4;", "constexpr int ITEMS = 2;")],
+    "6 blocks an SM": [(_B3_HEAD, _B3_HEAD.replace("(THREADS)", "(THREADS, 6)"))],
+    "8 blocks an SM": [(_B3_HEAD, _B3_HEAD.replace("(THREADS)", "(THREADS, 8)"))],
+}
+# (name, chunks, pages a chunk, mode, number type, order)
+B3_TABLES = (("Classic f64, order 1", 128, 256, "classic", "f64", 1),
+             ("FloatMult f32, no delta", 32, 256, "float_mult", "f32", 0))
+
+
+def b3_variants(card: str) -> None:
+    from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME
+
+    libs = build_variants(os.path.join(kernels._CSRC, "chunk_post.cu"), _B3, "b3_")
+    _bind(libs, "chunk_post")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    N = 1024
+    for label, C, P, mode, name, order in B3_TABLES:
+        nt = NUMBER_TYPES_BY_NAME[name]
+        bits = nt.latent.bits
+        n = P * N
+        lat = torch.from_numpy(rng.integers(0, 2**64, (2 * C * P, N), dtype=np.uint64).view(np.int64)).to(dev)
+        mom = torch.from_numpy(rng.integers(0, 2**64, C * P * max(order, 1), dtype=np.uint64).view(np.int64)).to(dev)
+        out = torch.empty(C * n, dtype=torch.int64, device=dev)
+        scalar = int(nt.to_latent_ordered(np.array([0.01], nt.np_dtype))[0]) if mode == "float_mult" else 0
+        rows = [dec.post_row([0, c * n, order, c * P * order, bits], [0, (C + c) * n, 0, 0, bits], 1, (2, c * n), n,
+                             N, c * (n // (N if order else dec.POST_SEG_N)), mode, dec.JOIN_OF_KIND[nt.kind], bits,
+                             scalar) for c in range(C)]
+        desc = np.array(rows, np.int64)
+        desc_dev = torch.from_numpy(desc).to(dev)
+        bases = (lat, mom, out)
+
+        def launch(variant):
+            launched = ctypes.c_int(0)
+            rc = libs[variant].chunk_post((ctypes.c_uint64 * 3)(*[b.data_ptr() for b in bases]),
+                                          (ctypes.c_int64 * 3)(*[b.numel() for b in bases]), 3, desc.ctypes.data,
+                                          desc_dev.data_ptr(), len(desc), ctypes.byref(launched), 0,
+                                          torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"{variant}: CUDA error {rc}")
+
+        def run(variant):
+            out.fill_(-77)
+            launch(variant)
+            return out.clone()
+
+        want = run("committed")
+        plain = [lat, mom, torch.empty_like(out)]
+        dec.post_rows_plain(plain, desc)
+        common.check_equal(want, plain[2], "B3")
+
+        def timed(variant):
+            common.check_equal(run(variant), want, variant)
+            return common.time_ms(lambda: launch(variant), runs=5, warmup=1, hold=True)[0]
+
+        times = _in_turns(libs, timed)
+        bound = common.bound(8 * C * n * (3 if mode != "classic" else 2) + 8 * C * P * order)[0]
+        print(f"B3 {label}: {C} chunks of {P} pages of {N}, card alone ms (two turns), bound {bound:.4f}: "
+              + "; ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in times.items())
+              + f"; each == the committed kernel, == plain [{card}]", flush=True)
+
+
 def main(parent=None, only=None, device="cuda") -> None:
     common.cuda_device(device)
     card = common.card_line()
@@ -712,12 +784,14 @@ def main(parent=None, only=None, device="cuda") -> None:
         b5_variants(card)
     if only in (None, "b1"):
         b1_variants(card)
+    if only in (None, "b3"):
+        b3_variants(card)
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree of the port, whose kernels are timed beside the committed ones")
-    ap.add_argument("--only", choices=("e1", "e3a", "e3b", "e4a", "e4b", "b5", "b1"),
+    ap.add_argument("--only", choices=("e1", "e3a", "e3b", "e4a", "e4b", "b5", "b1", "b3"),
                     help="run one kernel's variants")
     args = ap.parse_args()
     main(args.parent, args.only)
