@@ -2,13 +2,18 @@
 """Build the port's CUDA kernels and drive its main path on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the root of the repository)
-    python3 chip_smoke.py --lookback-decode
-                                   only the 32M lookback decode of phase 5b:
-                                   a call's and the card's time and the CUDA
+    python3 chip_smoke.py --lookback-decode [DIR]
+                                   only the 32M lookback decodes: phase 5b's
+                                   container (K3), and the same numbers at
+                                   2^18-number pages and as phase 7's
+                                   standalone file (B7): a call's and the
+                                   card's time, the launches and the CUDA
                                    kernels and copies torch.profiler counts in
-                                   one decode (through the package beside
-                                   the script, so a copy of the script in
-                                   another tree measures that tree)
+                                   one decode, and a JSON line (through the
+                                   package beside the script, the files
+                                   cached in DIR, so a copy of the script in
+                                   another tree measures that tree on the
+                                   same bytes)
     python3 chip_smoke.py --sharded
                                    only phase 11, over 4 shards of the first
                                    card and then over every visible card
@@ -41,10 +46,10 @@ Phases, one line each (numbers beside the card's name and power limit):
                   and f64), each at page_n 256 and 1024 with a ragged last
                   page, plus a lookback container whose pages are too long
                   for shared memory: the decode equals the source, and every
-                  K3 and K4 call it makes equals the plain version bit for
-                  bit, K3 in shared memory (one call a decode, every lookback
-                  var of the container) and in global memory (a call a
-                  chunk), K4 (one call a decode, every Dict chunk of the
+                  K3, B7 and K4 call it makes equals the plain version bit
+                  for bit, K3 in shared memory (one call a decode, every
+                  lookback var of the container) and B7 past it (one call a
+                  decode, in tiles), K4 (one call a decode, every Dict chunk of the
                   container) with its table in shared and in global memory,
                   B1 (conv1_recon, one call a decode) and B3 (chunk_post,
                   one launch a decode: every chunk's delta, trim and join
@@ -145,7 +150,14 @@ Phases, one line each (numbers beside the card's name and power limit):
                   as a PCT container at page_n 1,024 (8 chunks, 8,192
                   pages): decoded on the card, compared with the source,
                   one B1 call (a row a page) held against its plain version
-                  on every number and timed, one row alone
+                  on every number and timed, one row alone. The
+                  wrapped_lookback_multipage numbers as a PCT container at
+                  ChunkConfig()'s pages of 2^18 (32 chunks, 128 pages):
+                  decoded with the counts set to 0 just before, compared
+                  with the source, exactly one B7 launch and no K3 launch,
+                  B7's call held against its plain version
+                  (lookback_recon_chunks_plain on the card) and timed a
+                  call and alone, the decode timed
   6. experiments   the microbenchmarks of pcodec_tpu_torch/experiments, the
                   ports of the Pallas prototypes in experiments/: every
                   kernel first held bit for bit against its plain version
@@ -175,9 +187,13 @@ Phases, one line each (numbers beside the card's name and power limit):
                   FloatQuant f16): decode_standalone_device on the card
                   equals its CPU route and the source, K1, K2 and every K3
                   and K4 call equal their plain versions; then
-                  bench_matrix.py's seven standalone inputs (its seed-1234
+                  bench_matrix.py's eight standalone inputs (its seed-1234
                   draws replayed): taxi_i64_delta1 (48M), f64_auto_multichunk
-                  (32M) and conv1_i32_lpc (8M, order 6) at full size, the
+                  (32M), wrapped_lookback_multipage (32M, lookback: 128
+                  chunks of 262,144, each one page past K3's shared memory,
+                  exactly one B7 launch and no K3 launch, B7 a call, alone
+                  and its plain version) and conv1_i32_lpc (8M, order 6) at
+                  full size, the
                   first 8M numbers of intmult_i64_timestamps, floatmult_f32,
                   floatquant_f16 and taxi_i64_realistic_ratio; each encoded
                   by the port's simple_compress, planned by
@@ -257,8 +273,12 @@ Phases, one line each (numbers beside the card's name and power limit):
                   bytes of one plan_image (the memcpy events of an exported
                   torch.profiler trace; the main path's tensor route must
                   move under 10% of the numbers either way and copy none);
-                  the 64M IntMult screening on the card and its GCD loop
-                  timed; the 64M image decoded by decode_container_tensor
+                  the 64M IntMult screening on the card and phase_int_gcd
+                  timed, B8 (triple_gcd) held against its plain version
+                  on the screening's 559,445 triples and timed a call,
+                  alone, beside the plain version and torch.gcd of the
+                  differences (the library column: signed, the same GCD
+                  only below 2^63); the 64M image decoded by decode_container_tensor
                   and compared with the source tensor on the card
   11. sharded     parallel/sharding.py over 4 shards of the card: every
                   per-shard K1, K2, K5 and K6 call held against its plain
@@ -312,7 +332,14 @@ Phases, one line each (numbers beside the card's name and power limit):
      `inputs` object (the other B3_INPUTS); B6's (mode_split, phase 8's
      intmult_i64_timestamps training: its launches, its calls a training,
      the calls alone summed, the torch chain) `plan_image_s`, `train_s`
-     and a `trainings` object (the other split inputs); a
+     and a `trainings` object (the other split inputs); B7's
+     (lookback_tiles, phase 7's standalone wrapped_lookback_multipage: its
+     one launch, a call, `device_ms`, the plain version on the card) its
+     rows, pages, tiles and numbers, the decode's ms and a `pct` object
+     (phase 5b's container at 2^18-number pages); B8's (triple_gcd, phase
+     10's screening samples; its launches those of the main path's
+     encode) its triples, the steps of Stein's loop its data takes and
+     torch.gcd's agreement below 2^63; a
      phase-6 row adds its `device_ms`, for E4a
      `library_device_ms` (torch.gather on the card alone), for E1 its two
      kernels' device ms (`colsum_ms`, `tile_ms`, from the profiler) and its
@@ -345,6 +372,14 @@ from pcodec_tpu_torch.experiments.common import (RUNS, bound, card_line, check_e
 N = 64 * 1024 * 1024
 SEED = 1234
 K2_OPS_PER_NUMBER = 40  # integer operations of K2's inner loop per decoded number
+B7_TILE = 16384  # B7's tile: kernels.LB_SMEM_MAX_N positions
+LONG_PAGE_N = 1 << 18  # ChunkConfig()'s pages (constants.DEFAULT_MAX_PAGE_N): past K3's shared memory
+# B8's 32-bit integer operations, counted from csrc/triple_gcd.cu: the
+# loads' addressing, the unsigned sort of three u64, the differences and
+# the trailing zeros and shifts before the loop (~30); one step of Stein's
+# loop on u64 pairs: min, max, subtract, ffs, shift and compares (~16)
+B8_OPS_PER_TRIPLE = 30
+B8_OPS_PER_STEP = 16
 K5_OPS_PER_SYMBOL = 16  # K5's tANS step and offset per coded symbol, besides the search
 K5_OPS_PER_STEP = 4  # K5's operations per binary-search step
 K6_OPS_PER_SYMBOL = 12  # K6's two deposits per coded symbol
@@ -467,11 +502,11 @@ def breadth_cases(pt):
 
 
 @contextlib.contextmanager
-def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks",
-                          "float_mult_join", "post_rows")):
+def capturing(mod, names=("lookback_recon", "lookback_recon_chunks", "lookback_tiles", "dict_join_chunks",
+                          "conv1_recon_chunks", "float_mult_join", "post_rows")):
     """Record the arguments of every call of the named kernel wrappers of
-    `mod` (K3, K4, B1, B2 and B3 of a decode, K8, K9, B5 and B6 of device
-    training), so
+    `mod` (K3, B7, K4, B1, B2 and B3 of a decode, K8, K9, B5, B6 and B8 of
+    device training), so
     the kernels can be held against their plain versions at exactly those
     inputs."""
     calls = {k: [] for k in names}
@@ -564,20 +599,24 @@ def conv1_prefix_plain_s(dec, calls) -> float:
 
 
 def check_breadth_calls(dec, calls) -> float:
-    """K3, K4, B1 and B2 against their plain versions on every recorded
-    call (K3's container call, K4 and B1 into copies of the outputs the
-    decode gave them; B1 on the first CONV1_PREFIX numbers of every row, B2
-    into a new tensor)."""
+    import torch
+
+    """K3, B7, K4, B1 and B2 against their plain versions on every recorded
+    call (K3's and B7's container calls, K4 and B1 into copies of the
+    outputs the decode gave them; B1 on the first CONV1_PREFIX numbers of
+    every row, B2 into a new tensor)."""
     for args in calls["lookback_recon"]:
         check_equal(dec.lookback_recon(*args), dec.lookback_decode_pages_plain(*args))
-    for bases, desc, desc_dev in calls["lookback_recon_chunks"]:
-        written = set(desc[:, dec.LB_COLS.index("out_base")].tolist())
-        got = [b.clone() if i in written else b for i, b in enumerate(bases)]
-        want = [b.clone() if i in written else b for i, b in enumerate(bases)]
-        dec.lookback_recon_chunks(got, desc, desc_dev)
-        dec.lookback_recon_chunks_plain(want, desc)
-        for i in written:
-            check_equal(got[i], want[i])
+    for name in ("lookback_recon_chunks", "lookback_tiles"):
+        for bases, desc, desc_dev in calls[name]:
+            # outputs filled first: B7 reads its earlier tiles back from them
+            written = set(desc[:, dec.LB_COLS.index("out_base")].tolist())
+            got = [torch.full_like(b, -77) if i in written else b for i, b in enumerate(bases)]
+            want = [torch.full_like(b, -77) if i in written else b for i, b in enumerate(bases)]
+            getattr(dec, name)(got, desc, desc_dev)
+            dec.lookback_recon_chunks_plain(want, desc)
+            for i in written:
+                check_equal(got[i], want[i], name)
     for bases, desc, table, out in calls["dict_join_chunks"]:
         check_equal(dec.dict_join_chunks(bases, desc, table, out.clone()),
                     dec.dict_join_chunks_plain(bases, desc, table, out.clone()))
@@ -602,13 +641,14 @@ def check_breadth_calls(dec, calls) -> float:
 
 
 def kernel_route(kernels, name, args, smem_entries) -> str:
-    """Which route of K3 or K4 a recorded call took (B1, B2 and B3 have one)."""
-    if name in ("conv1_recon_chunks", "float_mult_join", "post_rows"):
-        return {"conv1_recon_chunks": "B1", "float_mult_join": "B2", "post_rows": "B3"}[name]
+    """Which kernel or route of K4 a recorded call took (K3 for pages in
+    shared memory, B7 past them)."""
+    if name in ("conv1_recon_chunks", "float_mult_join", "post_rows", "lookback_tiles"):
+        return {"conv1_recon_chunks": "B1", "float_mult_join": "B2", "post_rows": "B3", "lookback_tiles": "B7"}[name]
     if name == "lookback_recon_chunks":
         return "K3 shared memory"
     if name == "lookback_recon":
-        return "K3 shared memory" if args[0].shape[1] <= kernels.LB_SMEM_MAX_N else "K3 global memory"
+        return "K3 shared memory" if args[0].shape[1] <= kernels.LB_SMEM_MAX_N else "B7"
     return "K4 table in shared memory" if args[2].shape[0] <= smem_entries else "K4 table in global memory"
 
 
@@ -684,12 +724,12 @@ def standalone_inputs(pt):
 
 # phase 7's inputs, in bench_matrix.py's order
 STANDALONE = ("taxi_i64_delta1", "f64_auto_multichunk", "intmult_i64_timestamps", "floatmult_f32", "floatquant_f16",
-              "conv1_i32_lpc", "taxi_i64_realistic_ratio")
+              "wrapped_lookback_multipage", "conv1_i32_lpc", "taxi_i64_realistic_ratio")
 
 
 # phase 7: the standalone inputs decoded at full size; the others cut to
 # their first STANDALONE_CUT numbers (host encode time)
-STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "conv1_i32_lpc")
+STANDALONE_FULL = ("taxi_i64_delta1", "f64_auto_multichunk", "wrapped_lookback_multipage", "conv1_i32_lpc")
 STANDALONE_CUT = 8 << 20
 # phase 7's inputs whose B3 call is timed (the kernels line's chunk_post
 # row: the first, the others beside it); --post-decode's inputs
@@ -997,6 +1037,128 @@ def post_line(r) -> str:
             f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
 
 
+def tiles_kernel_numbers(torch, dec, calls, launches: int) -> dict:
+    """B7's row from a decode's one call (already held against the plain
+    version): a call's and the card's time, the plain version's on the card
+    (torch: the rounds over every whole page), and the bound: each valid
+    number's latent and lookback read and its latent written at 8 B, each
+    page's state read (lookback_bytes; the reads of the final numbers that
+    the pointers leaving a tile name are left out)."""
+    ((bases, desc, desc_dev),) = calls
+    c = {k: i for i, k in enumerate(dec.LB_COLS)}
+    ms = time_ms(lambda: dec.lookback_tiles(bases, desc, desc_dev))
+    alone = time_ms(lambda: dec.lookback_tiles(bases, desc, desc_dev), hold=True)[0]
+    written = set(desc[:, c["out_base"]].tolist())
+    want = [b.clone() if i in written else b for i, b in enumerate(bases)]
+    plain = time_ms(lambda: dec.lookback_recon_chunks_plain(want, desc), runs=3, warmup=1)
+    tiles = 0
+    for r in desc.tolist():
+        for p in range(r[c["n_pages"]]):
+            tiles += -(-max(0, min(r[c["page_n"]], r[c["n_valid"]] - p * r[c["page_n"]])) // B7_TILE)
+    n_bytes = lookback_bytes(dec, desc)
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain[0], "bound_ms": bound(n_bytes)[0],
+            "bound_by": "bytes", "library_ms": None, "device_ms": alone, "numbers": int(desc[:, c["n_valid"]].sum()),
+            "rows": len(desc), "pages": int(desc[:, c["n_pages"]].sum()), "tiles": tiles, "ms_min": ms[1],
+            "ms_max": ms[2], "bytes": n_bytes}
+
+
+def long_lookback_decode(torch, cd, dops, kernels, dev, card, case, nums, blob, plan, t_enc) -> dict:
+    """A decode whose lookback pages are all past K3's shared memory: the
+    decode compared with the source, exactly one B7 launch and no K3
+    launch, B7's call held against the plain version; the decode, B7's
+    time alone and its launch count printed. Returns B7's row."""
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    arrays = cd.upload_plan(plan, dev)
+    with capturing(dops) as calls:
+        res = cd.decode_plan(plan, arrays)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if not np.array_equal(cd.to_numbers(res, plan.nt).view(np.uint8), nums.view(np.uint8)):
+        raise AssertionError(f"{case}: the decode differs from the source")
+    del res
+    if launches.get("lookback_tiles") != 1 or launches.get("lookback_recon") or len(calls["lookback_tiles"]) != 1:
+        raise AssertionError(f"{case}: not one B7 launch and no K3 launch: {launches}")
+    check_breadth_calls(dops, calls)
+    dec_t = time_ms(lambda: cd.decode_plan(plan, arrays))
+    k12 = time_ms(lambda: [cd.run_launch(cp, arrays.words, arrays.launches[lk]) for lk, cp in plan.launches.items()])
+    row = tiles_kernel_numbers(torch, dops, calls["lookback_tiles"], launches["lookback_tiles"])
+    pages = sorted({ch.recon_pages[1] for ch in plan.chunks})
+    print(f"long lookback: {case}: {len(nums)} {nums.dtype}, {len(blob)} bytes, {len(plan.chunks)} chunks, "
+          f"reconstructed pages of {pages}, host encode {t_enc:.1f} s; decode == source, launches {launches}; decode "
+          f"{dec_t[0]:.3f} ms median (min {dec_t[1]:.3f}, max {dec_t[2]:.3f}, {RUNS} runs), K1 + K2 {k12[0]:.3f} ms "
+          f"({sum(int((cp.body_n > 0).sum()) for cp in plan.launches.values())} coded chains of up to "
+          f"{max(cp.page_n for cp in plan.launches.values())} numbers); B7 {tiles_line(row)} [{card}]", flush=True)
+    del arrays, calls
+    return row | {"decode_ms": dec_t[0], "chunks": len(plan.chunks)}
+
+
+def tiles_line(r) -> str:
+    return (f"(lookback_tiles) {r['ms']:.4f} ms a call (min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), card alone "
+            f"{r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of the bound, {r['launches']} launch(es); "
+            f"{r['rows']} rows, {r['pages']} pages, {r['tiles']} tiles, {r['numbers']} numbers; plain (torch on the "
+            f"card) {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes); == plain")
+
+
+def gcd_steps(torch, dt, a, b) -> int:
+    """Iterations of Stein's loop (dt.gcd_u64's, counted) that the pairs
+    (a, b) take, summed over the pairs: the loop work of this data."""
+    trivial = (a == 0) | (b == 0)
+    x = torch.where(trivial, 1, dt._srl_t(a, dt._ctz63(a)))
+    y = torch.where(trivial, 0, dt._srl_t(b, dt._ctz63(b)))
+    steps = 0
+    while True:
+        live = y != 0
+        k = int(live.sum())
+        if not k:
+            return steps
+        steps += k
+        small = dt._umin(x, y)
+        diff = dt._umax(x, y) - small
+        ny = torch.where(diff == 0, 0, dt._srl_t(diff, dt._ctz63(diff)))
+        x, y = torch.where(live, small, x), torch.where(live, ny, 0)
+
+
+def gcd_kernel_numbers(torch, dt, sm, valid, launches: int) -> dict:
+    """B8's row on a screening's samples: the kernel held against
+    triple_gcd_plain, a call's and the card's time, the plain version's on
+    the card, the library call (torch.gcd of the sorted triples'
+    differences, precomputed untimed: the same GCD only where both are
+    below 2^63, as signed numbers) and the bound: 8 B and a flag read a
+    number, 8 B written a triple; B8_OPS_PER_TRIPLE operations a triple and
+    B8_OPS_PER_STEP a step of Stein's loop, counted on this data."""
+    err = check_equal(dt.triple_gcd(sm, valid), dt.triple_gcd_plain(sm, valid), "triple_gcd")
+    ms = time_ms(lambda: dt.triple_gcd(sm, valid))
+    alone = time_ms(lambda: dt.triple_gcd(sm, valid), hold=True)[0]
+    plain = time_ms(lambda: dt.triple_gcd_plain(sm, valid), runs=3, warmup=1)
+    n, m = sm.shape
+    t = sm[:, : m // 3 * 3].reshape(n, m // 3, 3)
+    tx = t ^ dt._MIN64
+    lo, hi = tx.amin(2) ^ dt._MIN64, tx.amax(2) ^ dt._MIN64
+    d1, d2 = (t.sum(2) - lo - hi - lo).contiguous(), (hi - lo).contiguous()
+    lib = time_ms(lambda: torch.gcd(d1, d2))
+    below = (d1 >= 0) & (d2 >= 0)
+    same = int(((torch.gcd(d1, d2) == dt.gcd_u64(d1, d2)) & below).sum())
+    steps = gcd_steps(torch, dt, d1.reshape(-1), d2.reshape(-1))
+    triples = d1.numel()
+    n_bytes = sm.numel() * 9 + triples * 8
+    b_ms, by = bound(n_bytes, triples * B8_OPS_PER_TRIPLE + steps * B8_OPS_PER_STEP)
+    return {"launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": plain[0], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib[0], "library_note": "torch.gcd: signed, the same GCD below 2^63",
+            "device_ms": alone, "triples": triples, "steps": steps, "library_equal_below_2_63": same,
+            "pairs_below_2_63": int(below.sum()), "ms_min": ms[1], "ms_max": ms[2]}
+
+
+def gcd_line(r) -> str:
+    return (f"(triple_gcd) {r['ms']:.4f} ms a call (min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), card alone "
+            f"{r['device_ms']:.4f} = {r['bound_ms'] / r['device_ms']:.1%} of the bound, {r['launches']} launch(es) "
+            f"on the main path's training; {r['triples']} triples, {r['steps']} steps of Stein's loop; plain (torch "
+            f"on the card, a host sync a step) {r['plain_ms']:.3f} ms; torch.gcd of the differences "
+            f"{r['library_ms']:.4f} ms (signed: equal on {r['library_equal_below_2_63']} of the "
+            f"{r['pairs_below_2_63']} pairs below 2^63); bound {r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
+
+
 def b2_calls_of(dec, post_calls) -> list:
     """B2's calls on the FloatMult rows of a decode's B3 call: each row's
     latents (dec.post_var_latents), the arguments the decode gave B2 a
@@ -1135,8 +1297,7 @@ def ptxas_lines(reports):
                          f"shared memory, {ept.group(1)} per thread" if ept else
                          ("row in shared memory" if smem.group(1) == "1" else "row in device memory")
                          if smem and "section_pack" in name else
-                         "global route, prologue" if "lb_init_kernel" in name else
-                         "global route, one round" if "lb_round_kernel" in name else
+                         "B7 tiles" if "lb_tiles_kernel" in name else
                          f"fuse {fuse.group(1)}" if fuse else
                          ("table in shared memory" if smem.group(1) == "1" else "table in global memory")
                          if smem else sort_entry(sort) if sort else "kernel")
@@ -2073,7 +2234,7 @@ def main() -> int:
     smem_entries = kernels.dict_join_smem_entries(dev)
     breadth = breadth_cases(pt)
     cases = [(case, nums, cfg, page_n) for case, nums, cfg in breadth for page_n in (256, 1024)]
-    long_pages = np.tile(breadth[0][1], 4)  # pages of 20,480 numbers: K3 in global memory
+    long_pages = np.tile(breadth[0][1], 4)  # pages of 20,480 numbers: B7
     cases.append(("classic_lookback_long_pages", long_pages, breadth[0][2], 20_480))
     seen = set()
     for case, nums, cfg, page_n in cases:
@@ -2087,23 +2248,22 @@ def main() -> int:
         check_breadth_calls(dops, calls)
         check_launches(cd, plan, arrays)
         ch = plan.chunks[0]
-        made = {"K3": bool(calls["lookback_recon"] or calls["lookback_recon_chunks"]),
+        made = {"K3": bool(calls["lookback_recon"] or calls["lookback_recon_chunks"] or calls["lookback_tiles"]),
                 "K4": bool(calls["dict_join_chunks"]), "B1": bool(calls["conv1_recon_chunks"]),
                 "B2": bool(calls["float_mult_join"]), "B3": bool(calls["post_rows"])}
         want = {"K3": ch.delta.kind == "lookback", "K4": ch.mode_kind == "dict", "B1": ch.delta.kind == "conv1",
                 "B2": False, "B3": len(plan.post_desc) > 0}
         if made != want:
             raise AssertionError(f"{case} p{page_n}: K3, K4, B1, B2 and B3 called {made}, expected {want}")
-        for k in ("lookback_recon_chunks", "dict_join_chunks", "conv1_recon_chunks", "post_rows"):
+        for k in ("lookback_recon_chunks", "lookback_tiles", "dict_join_chunks", "conv1_recon_chunks", "post_rows"):
             if len(calls[k]) > 1:
                 raise AssertionError(f"{case} p{page_n}: {len(calls[k])} {k} calls, not one a decode")
         routes = {kernel_route(kernels, k, a, smem_entries) for k, recorded in calls.items() for a in recorded}
         seen |= routes
         print(f"breadth: {case} p{page_n}: decode == source, {ch.mode_kind}/{ch.delta.kind}, "
               f"K1, K2 and {sorted(routes) or 'no K3/K4/B1/B3'} == plain", flush=True)
-    if seen != {"K3 shared memory", "K3 global memory", "K4 table in shared memory", "K4 table in global memory",
-                "B1", "B3"}:
-        raise AssertionError(f"phase 3b did not run both routes of K3 and of K4, B1 and B3: {sorted(seen)}")
+    if seen != {"K3 shared memory", "B7", "K4 table in shared memory", "K4 table in global memory", "B1", "B3"}:
+        raise AssertionError(f"phase 3b did not run K3, B7, both routes of K4, B1 and B3: {sorted(seen)}")
     # B3 on every mode at 16, 32 and 64 bits, orders 0-7, trivial vars,
     # ragged last pages, Dict under a delta, FloatMult's special numbers and
     # a subnormal base, and a page of 2^18: one launch a decode, == plain
@@ -2300,7 +2460,7 @@ def main() -> int:
         image = pt.encode_container_image_device(nums, cfg, page_n=1024, chunk_n=1 << 20, device=dev)
         torch.cuda.synchronize()
     t_img = time.time() - t0
-    enc_launches = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk",
+    enc_launches = {k: kernels.LAUNCHES[k] for k in ("row_sort", "row_sort_span", "histogram_walk", "triple_gcd",
                                                      "bin_ans_encode", "section_pack", "image_stitch")}
     peak_enc = torch.cuda.max_memory_allocated()
     if asm.file_image_to_bytes(*image) != data:
@@ -2635,6 +2795,18 @@ def main() -> int:
     del calls, arrays_c1, plan_c1, data_c1
     torch.cuda.empty_cache()
 
+    # bench_matrix.py's wrapped_lookback_multipage numbers (32M) as a PCT
+    # container at ChunkConfig()'s paging, pages of 2^18: every lookback var
+    # in B7's one launch
+    nums_lb, cfg_lb = inputs["wrapped_lookback_multipage"]
+    t0 = time.time()
+    data_lb = pt.container_compress(nums_lb, cfg_lb, page_n=LONG_PAGE_N)
+    t_enc_lb = time.time() - t0
+    b7_rows = {"pct": long_lookback_decode(torch, cd, dops, kernels, dev, card, "wrapped_lookback_multipage PCT",
+                                           nums_lb, data_lb, cd.plan_container(data_lb), t_enc_lb)}
+    del data_lb
+    torch.cuda.empty_cache()
+
     print(f"breadth: K4 grid sweep, one chunk of {K4_SWEEP_N} random indices, card alone by grid (each == "
           f"plain): {k4_grid_sweep(torch, kernels, dops, dev, smem_entries)} [{card}]", flush=True)
 
@@ -2733,7 +2905,8 @@ def main() -> int:
         del got
         kinds = {(ch.mode_kind, ch.delta.kind) for ch in plan7.chunks}
         need = ["section_gather", "chain_decode"] + [
-            k for k, present in (("lookback_recon", any(d == "lookback" for _, d in kinds)),
+            k for k, present in (("lookback_recon", len(plan7.lookback_desc) > 0),
+                                 ("lookback_tiles", len(plan7.lookback_long_desc) > 0),
                                  ("dict_join", any(m == "dict" for m, _ in kinds)),
                                  ("conv1_recon", any(d == "conv1" for _, d in kinds)),
                                  ("chunk_post", len(plan7.post_desc) > 0)) if present]
@@ -2752,7 +2925,8 @@ def main() -> int:
         post7 = time_ms(lambda: cd.post_chunks(plan7, outs7, arrays7),
                         **({"runs": 3, "warmup": 1} if dec7[0] > 50 else {}))
         k3 = [(dops.lookback_recon_chunks, a) for a in calls["lookback_recon_chunks"]] + [
-            (dops.lookback_recon, a) for a in calls["lookback_recon"]]
+            (dops.lookback_recon, a) for a in calls["lookback_recon"]] + [
+            (dops.lookback_tiles, a) for a in calls["lookback_tiles"]]
         k4 = [(dops.dict_join_chunks, a) for a in calls["dict_join_chunks"]]
         b1 = [(dops.conv1_recon_chunks, a) for a in calls["conv1_recon_chunks"]]
         b3 = [(dops.post_rows, a) for a in calls["post_rows"]]
@@ -2771,10 +2945,17 @@ def main() -> int:
               f"[{card}]", flush=True)
         print(f"standalone: {case}: decode {dec7[0]:.3f} ms median (min {dec7[1]:.3f}, max {dec7[2]:.3f}, "
               f"{RUNS} runs), {nb7 / (dec7[0] * 1e-3) / 1e9:.2f} GB/s of output, byte bound {bound7:.4f} ms = "
-              f"{bound7 / dec7[0]:.1%}; K1 + K2 {k12[0]:.4f} ms ({len(plan7.launches)} launches), K3 "
+              f"{bound7 / dec7[0]:.1%}; K1 + K2 {k12[0]:.4f} ms ({len(plan7.launches)} launches), K3 and B7 "
               f"{k3_t:.4f} ms ({len(k3)} calls), K4 {k4_t:.4f} ms ({len(k4)} calls), B1 {b1_t:.4f} ms ({len(b1)} "
               f"calls), B3 {b3_t:.4f} ms ({len(b3)} calls), post (post_chunks, K3/K4/B1/B3 inside) {post7[0]:.4f} ms "
               f"(min {post7[1]:.4f}, max {post7[2]:.4f}, {3 if dec7[0] > 50 else RUNS} runs) [{card}]", flush=True)
+        if case == "wrapped_lookback_multipage":
+            if launches7.get("lookback_tiles") != 1 or launches7.get("lookback_recon"):
+                raise AssertionError(f"standalone {case}: not one B7 launch and no K3 launch: {launches7}")
+            b7_rows["standalone"] = tiles_kernel_numbers(torch, dops, calls["lookback_tiles"],
+                                                         launches7["lookback_tiles"]) | {"decode_ms": dec7[0],
+                                                                                         "chunks": len(plan7.chunks)}
+            print(f"standalone: {case}: B7 {tiles_line(b7_rows['standalone'])} [{card}]", flush=True)
         if case == "conv1_i32_lpc":
             b1_row = conv1_kernel_numbers(torch, dops, kernels, calls["conv1_recon_chunks"], launches7["conv1_recon"])
             print(f"standalone: {case}: B1 {conv1_line(b1_row)} [{card}]", flush=True)
@@ -3001,9 +3182,12 @@ def main() -> int:
     gcd_t = time_ms(lambda: dt.phase_int_gcd(mode_s, np.arange(0, len(idx_main), m_s), [m_s] * (N >> 20)), runs=3,
                     warmup=1)
     print(f"resident: main path, IntMult screening on the card (no host copy) {screen[0]:.2f} ms a plan (min "
-          f"{screen[1]:.2f}, max {screen[2]:.2f}, 3 runs), of it phase_int_gcd (the triple GCDs' loop, "
-          f"{len(idx_main) // 3} triples) {gcd_t[0]:.2f} ms [{card}]", flush=True)
-    del lat_main, mode_s
+          f"{screen[1]:.2f}, max {screen[2]:.2f}, 3 runs), of it phase_int_gcd (B8's triple GCDs, then the sort "
+          f"and counts, {len(idx_main) // 3} triples) {gcd_t[0]:.2f} ms [{card}]", flush=True)
+    sm_main, valid_main = dt._sample_rows(mode_s, np.arange(0, len(idx_main), m_s), [m_s] * (N >> 20))
+    b8_row = gcd_kernel_numbers(torch, dt, sm_main, valid_main, enc_launches["triple_gcd"])
+    print(f"resident: main path's screening samples, B8 {gcd_line(b8_row)} [{card}]", flush=True)
+    del lat_main, mode_s, sm_main, valid_main
     res10 = cd.decode_container_tensor(data, dev)
     if not torch.equal(res10, x_main):  # one bool read back
         raise AssertionError("the 64M image decoded on the card differs from the source tensor")
@@ -3104,6 +3288,10 @@ def main() -> int:
         {"name": "mode_split", "route": "cuda", "source": "pcodec_tpu_torch/csrc/mode_split.cu",
          "replaces": "pcodec_tpu/ops/device_train.py:375", **b6_rows["intmult_i64_timestamps"],
          "trainings": {case: r for case, r in b6_rows.items() if case != "intmult_i64_timestamps"}},
+        {"name": "lookback_tiles", "route": "cuda", "source": "pcodec_tpu_torch/csrc/lookback_recon.cu",
+         "replaces": "pcodec_tpu/ops/pallas_decode.py:1354", **b7_rows["standalone"], "pct": b7_rows["pct"]},
+        {"name": "triple_gcd", "route": "cuda", "source": "pcodec_tpu_torch/csrc/triple_gcd.cu",
+         "replaces": "pcodec_tpu/ops/device_train.py:177", **b8_row},
     ]
     # phase 6's rows: the numbers of each kernel's last shape; launches at
     # that shape (its check, warm-ups and timed runs), beside the phase's
@@ -3119,47 +3307,91 @@ def main() -> int:
                                           "colsum_ms", "tile_ms", "colsum_route", "one_row_ms", "rows_per_block",
                                           "take_route") if k in r}})
     print(f"wall: {time.time() - t_wall:.1f} s from the start of main [{card}]", flush=True)
+    print(card, flush=True)  # the card's name and power limit as nvidia-smi gives them, alone on a line
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def lookback_decode_only() -> int:
-    """The 32M lookback decode of phase 5b alone, through the entry points
-    every tree of the port has (container_compress, plan_container,
-    upload_plan, decode_plan): compared with the source, then a call's and
-    the card's time and what torch.profiler counts in one decode."""
+def cached_blob(cache, name: str, encode) -> bytes:
+    """encode()'s bytes, read from cache/name.bin where an earlier run wrote
+    them (cache a directory, or None for no cache)."""
+    import os
+
+    path = os.path.join(cache, name + ".bin") if cache else None
+    if path and os.path.exists(path):
+        with open(path, "rb") as f:
+            return f.read()
+    blob = encode()
+    if path:
+        os.makedirs(cache, exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(blob)
+    return blob
+
+
+def lookback_decode_only(cache=None) -> int:
+    """The 32M lookback decodes alone: phase 5b's container (1,024-number
+    pages, K3), the same numbers at ChunkConfig()'s 2^18-number pages and
+    as a standalone file (phase 7's: a chunk of 262,144 numbers is one
+    page), the last two past K3's shared memory. Through the entry points
+    every tree of the port has (container_compress, simple_compress,
+    plan_container, plan_standalone, upload_plan, decode_plan): each
+    compared with the source, then a call's and the card's time, the
+    launches and what torch.profiler counts in one decode, and one JSON
+    line. With `cache` (a directory) the files are read from it where an
+    earlier run wrote them, so a copy of the script in another tree times
+    that tree on the same bytes."""
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.codec import standalone as sa
     from pcodec_tpu_torch.ops import container_decode as cd
     from pcodec_tpu_torch.ops import kernels
+    from pcodec_tpu_torch.ops import standalone_decode as sd
 
     dev = torch.device("cuda")
     card = card_line()
     case, nums, cfg, _ = matrix_inputs(pt)[0]
-    data = pt.container_compress(nums, cfg)
-    plan = cd.plan_container(data)
-    arrays = cd.upload_plan(plan, dev)
-    src = torch.from_numpy(nums).to(dev)
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
-    res = cd.decode_plan(plan, arrays)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    if not torch.equal(res, src):
-        raise AssertionError(f"{case}: decode differs at {int((res != src).sum())} of {len(nums)} numbers")
-    del res, src
-    t = time_ms(lambda: cd.decode_plan(plan, arrays))
-    alone = time_ms(lambda: cd.decode_plan(plan, arrays), hold=True)[0]
-    counted = profiled_kernels(torch, lambda: cd.decode_plan(plan, arrays))
-    print(f"lookback-decode: {case} ({len(nums)} i64, {len(plan.chunks)} chunks) == source, launches {launches}; "
-          f"decode {t[0]:.3f} ms median (min {t[1]:.3f}, max {t[2]:.3f}, {RUNS} runs), card alone (hold) "
-          f"{alone:.4f} ms; one decode runs {kernels_line(counted)} [{card}]", flush=True)
+    nums_l, cfg_l = standalone_inputs(pt)["wrapped_lookback_multipage"]
+    cases = [(case, nums, lambda: pt.container_compress(nums, cfg), cd.plan_container),
+             (case + "_pages_2e18", nums_l, lambda: pt.container_compress(nums_l, cfg_l, page_n=LONG_PAGE_N),
+              cd.plan_container),
+             (case + "_standalone", nums_l, lambda: sa.simple_compress(nums_l, cfg_l), sd.plan_standalone)]
+    got = {}
+    for name, x, encode, plan_of in cases:
+        blob = cached_blob(cache, name, encode)
+        plan = plan_of(blob)
+        arrays = cd.upload_plan(plan, dev)
+        src = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        res = cd.decode_plan(plan, arrays)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if not torch.equal(res, src):
+            raise AssertionError(f"{name}: decode differs at {int((res != src).sum())} of {len(x)} numbers")
+        del res, src
+        t = time_ms(lambda: cd.decode_plan(plan, arrays))
+        alone = time_ms(lambda: cd.decode_plan(plan, arrays), hold=True)[0]
+        counted = profiled_kernels(torch, lambda: cd.decode_plan(plan, arrays))
+        got[name] = {"n": len(x), "chunks": len(plan.chunks), "decode_ms": t[0], "decode_min_ms": t[1],
+                     "decode_max_ms": t[2], "device_ms": alone, "launches": launches,
+                     "cuda_kernels": counted[0], "device_time_ms": counted[2]}
+        print(f"lookback-decode: {name} ({len(x)} i64, {len(blob)} bytes, {len(plan.chunks)} chunks) == source, "
+              f"launches {launches}; decode {t[0]:.3f} ms median (min {t[1]:.3f}, max {t[2]:.3f}, {RUNS} runs), card "
+              f"alone (hold) {alone:.4f} ms; one decode runs {kernels_line(counted)} [{card}]", flush=True)
+        del arrays, plan, blob
+        torch.cuda.empty_cache()
+    print(json.dumps({"lookback_decode": got, "tree": os.path.dirname(os.path.abspath(__file__)), "card": card}),
+          flush=True)
     return 0
 
 
@@ -3197,15 +3429,7 @@ def post_decode_only(cache=None) -> int:
                                                                               chunk_n=1 << 20), cd.plan_container))
     got = {}
     for case, nums, encode, plan_of in cases:
-        path = os.path.join(cache, case + ".bin") if cache else None
-        if path and os.path.exists(path):
-            blob = open(path, "rb").read()
-        else:
-            blob = encode(nums)
-            if path:
-                os.makedirs(cache, exist_ok=True)
-                with open(path, "wb") as f:
-                    f.write(blob)
+        blob = cached_blob(cache, case, lambda: encode(nums))
         plan = plan_of(blob)
         arrays = cd.upload_plan(plan, dev)
         torch.cuda.synchronize()

@@ -17,17 +17,16 @@ holds the 4 interleaved tANS states and the delta moments of the page.
                      fused form it also applies the order-1 delta and the
                      Classic join
     lookback         K3, CUDA (csrc/lookback_recon.cu): every lookback var
-                     of the container in one launch, from the plan's
-                     descriptor table, each Classic chunk trimmed and
-                     joined straight into the output
+                     of the container whose pages fit shared memory in one
+                     launch, from the plan's descriptor table, each Classic
+                     chunk trimmed and joined straight into the output;
+                     B7 (the same source): every lookback var of longer
+                     pages in one launch, in tiles, into K3's scratch
     conv1            B1, CUDA (csrc/conv1_recon.cu): every conv1 var of the
                      container in one call (a launch an order), a thread
                      or a warp a row (a PCT page, or a standalone chunk
                      whole), from
                      the plan's descriptor table, into a scratch
-    lookback pages   the lookback vars of pages too long for K3's launch
-                     (over kernels.LB_SMEM_MAX_N numbers), a chunk at a time
-                     through K3's device-memory route, into a scratch
     post             B3, CUDA (csrc/chunk_post.cu): every other chunk in
                      one launch from the plan's descriptor table, a warp a
                      page: each var's consecutive delta undone, the ragged
@@ -163,13 +162,16 @@ class ContainerPlan:
     dict_desc: np.ndarray  # (len(dict_chunks), 6) int64
     dict_table: np.ndarray  # (sum of D,) int64 memory bits
     # K3's plan: a row (decode.LB_COLS) per lookback var of every chunk whose
-    # pages fit shared memory; the tensors the rows name, ("launch", launch
-    # key), ("out",) the container's output, ("scratch",) the latents of the
-    # non-Classic chunks' rows or ("moments",) every row's stored state back
-    # to back (lookback_moments); where each scratch row starts, by (chunk,
-    # var key), and the scratch's numbers
+    # pages fit shared memory; B7's: a row per lookback var of every chunk
+    # with longer pages, its latents into the scratch. The tensors both
+    # tables name, ("launch", launch key), ("out",) the container's output,
+    # ("scratch",) the latents of the non-Classic chunks' K3 rows and of
+    # every B7 row, or ("moments",) every row's stored state back to back
+    # (lookback_moments); where each scratch row starts, by (chunk, var
+    # key), and the scratch's numbers
     lookback_bases: List[tuple] = field(default_factory=list)
     lookback_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.LB_DESC_COLS), np.int64))
+    lookback_long_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.LB_DESC_COLS), np.int64))
     lookback_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
     lookback_scratch: Dict[tuple, int] = field(default_factory=dict)
     lookback_scratch_n: int = 0
@@ -187,18 +189,13 @@ class ContainerPlan:
     # Classic joins and K4's launch-read Dict chunks leave; the tensors the
     # rows name (("launch", launch key), ("out",), ("dict",) the Dict
     # chunks' latents K4 reads (dict_scratch, dict_scratch_n), ("lookback",)
-    # and ("conv1",) K3's and B1's scratches, ("lookback_pages",) the
-    # latents of the lookback chunks whose pages K3's launch does not take,
-    # ("moments",) every stored state the post reads, back to back:
-    # post_moments); per such lookback chunk (chunk, {var key: (its start in
-    # ("lookback_pages",), its state's start in post_moments)}) and that
-    # scratch's numbers. post_view: (launch key, first number) where every
-    # chunk is a fused launch's rows, end to end: the output is a view.
+    # and ("conv1",) K3's and B7's and B1's scratches, ("moments",) every
+    # stored state the post reads, back to back: post_moments). post_view:
+    # (launch key, first number) where every chunk is a fused launch's
+    # rows, end to end: the output is a view.
     post_bases: List[tuple] = field(default_factory=list)
     post_desc: np.ndarray = field(default_factory=lambda: np.zeros((0, dec.POST_DESC_COLS), np.int64))
     post_moments: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
-    post_lookback: List[tuple] = field(default_factory=list)
-    post_lookback_n: int = 0
     dict_scratch: Dict[int, int] = field(default_factory=dict)
     dict_scratch_n: int = 0
     post_view: Optional[tuple] = None
@@ -415,12 +412,16 @@ def _k3_chunk(ch: ChunkPlan) -> bool:
 
 
 def _plan_lookback(plan: ContainerPlan) -> None:
-    """K3's descriptor table: a row per lookback var (primary, and secondary
-    where it shares the delta) of each _k3_chunk. A Classic chunk's row
-    joins into the output at the chunk's offset; another chunk's rows leave
-    their latents in the scratch for its mode's join (or K4)."""
-    bases, rows, moments, scratch = [], [], [], {}
-    mom_off = scratch_n = page0 = 0
+    """K3's and B7's descriptor tables: a row per lookback var (primary, and
+    secondary where it shares the delta) of each lookback chunk, in K3's
+    table for a _k3_chunk, else in B7's. A Classic chunk's K3 row joins into
+    the output at the chunk's offset; every other row leaves its latents in
+    the scratch for the chunk's join in B3 (or K4): B7 reads its tiles'
+    earlier numbers back from there."""
+    bases, moments, scratch = [], [], {}
+    rows = {True: [], False: []}  # K3's, B7's
+    page0 = {True: 0, False: 0}
+    mom_off = scratch_n = 0
 
     def base(key) -> int:
         if key not in bases:
@@ -433,27 +434,29 @@ def _plan_lookback(plan: ContainerPlan) -> None:
         return base(("launch", vp.launch_key)), vp.chain_start * ch.page_n
 
     for ci, ch in enumerate(plan.chunks):
-        if not _k3_chunk(ch):
+        if ch.delta.kind != DeltaEncoding.LOOKBACK or ch.n_pages == 0:
             continue
+        k3 = _k3_chunk(ch)
         for key in ("primary", "secondary"):
             vp = ch.var_plans.get(key)
             de = ch.delta.for_latent_var(key)
             if vp is None or de.kind != DeltaEncoding.LOOKBACK:
                 continue
-            if ch.mode_kind == Mode.CLASSIC:
+            if k3 and ch.mode_kind == Mode.CLASSIC:
                 out, join = (base(("out",)), int(plan.offsets[ci])), dec.JOIN_OF_KIND[plan.nt.kind]
             else:
                 out, join = (base(("scratch",)), scratch_n), dec.JOIN_LATENTS
                 scratch[(ci, key)] = scratch_n
                 scratch_n += ch.n
             n_pages, page_n = ch.recon_pages
-            rows.append([*source(vp, ch), *source(ch.var_plans["delta"], ch), base(("moments",)), mom_off, *out,
-                         n_pages, page_n, ch.n, de.state_n, de.window_n, vp.bits, join, page0])
+            rows[k3].append([*source(vp, ch), *source(ch.var_plans["delta"], ch), base(("moments",)), mom_off, *out,
+                             n_pages, page_n, ch.n, de.state_n, de.window_n, vp.bits, join, page0[k3]])
             moments.append(vp.moments.reshape(-1))
             mom_off += vp.moments.size
-            page0 += n_pages
+            page0[k3] += n_pages
     plan.lookback_bases = bases
-    plan.lookback_desc = np.array(rows, np.int64).reshape(-1, dec.LB_DESC_COLS)
+    plan.lookback_desc = np.array(rows[True], np.int64).reshape(-1, dec.LB_DESC_COLS)
+    plan.lookback_long_desc = np.array(rows[False], np.int64).reshape(-1, dec.LB_DESC_COLS)
     plan.lookback_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
     plan.lookback_scratch, plan.lookback_scratch_n = scratch, scratch_n
 
@@ -520,16 +523,15 @@ def _post_view(plan: ContainerPlan) -> Optional[tuple]:
 def _plan_post(plan: ContainerPlan) -> None:
     """B3's descriptor table: a row per chunk with numbers that no fused
     view, K3 Classic join or launch-read Dict join leaves final. Each var's
-    latents come from K3's or B1's scratch, from the per-chunk lookback
-    route's scratch (pages too long for K3's launch), or from its launch
-    rows (a trivial var: its constant) under its consecutive delta; a
-    fused primary's rows are copied as they are; a Dict chunk's latents go
-    to K4's scratch."""
+    latents come from K3's, B7's or B1's scratch, or from its launch rows
+    (a trivial var: its constant) under its consecutive delta; a fused
+    primary's rows are copied as they are; a Dict chunk's latents go to
+    K4's scratch."""
     plan.post_view = _post_view(plan)
     if plan.post_view is not None:
         return
-    bases, rows, moments, big = [], [], [], []
-    mom_off = item0 = big_n = 0
+    bases, rows, moments = [], [], []
+    mom_off = item0 = 0
     k3 = plan.lookback_chunks
 
     def base(key) -> int:
@@ -549,7 +551,6 @@ def _plan_post(plan: ContainerPlan) -> None:
         if ci in k3 and ch.mode_kind == Mode.CLASSIC:
             continue  # K3 joined it into the output
         fused = _fused(plan, ch)
-        big_vars = {}
 
         def source(key):
             vp = ch.var_plans[key]
@@ -557,9 +558,6 @@ def _plan_post(plan: ContainerPlan) -> None:
                 if (ci, key) in scratch:
                     return [base((name,)), scratch[(ci, key)], 0, 0, vp.bits]
             de = ch.delta.for_latent_var(key)
-            if de.kind == DeltaEncoding.LOOKBACK:  # reconstructed a chunk at a time before B3
-                big_vars[key] = (big_n + ch.n * len(big_vars), moments_of(vp))
-                return [base(("lookback_pages",)), big_vars[key][0], 0, 0, vp.bits]
             order = de.order if de.kind == DeltaEncoding.CONSECUTIVE and not fused else 0
             mom = moments_of(vp) if order else 0
             if vp.trivial:
@@ -573,9 +571,6 @@ def _plan_post(plan: ContainerPlan) -> None:
         else:
             mode, join = (Mode.CLASSIC, dec.JOIN_LATENTS) if fused else (ch.mode_kind, dec.JOIN_OF_KIND[plan.nt.kind])
             out = (base(("out",)), int(plan.offsets[ci]))
-        if big_vars:
-            big.append((ci, big_vars))
-            big_n += ch.n * len(big_vars)
         row = dec.post_row(prim, sec, base(("moments",)), out, ch.n, ch.page_n, item0, mode, join, plan.nt.latent.bits,
                            ch.mode_scalar)
         rows.append(row)
@@ -583,7 +578,6 @@ def _plan_post(plan: ContainerPlan) -> None:
     plan.post_bases = bases
     plan.post_desc = np.array(rows, np.int64).reshape(-1, dec.POST_DESC_COLS)
     plan.post_moments = np.concatenate(moments).astype(np.uint64) if moments else np.zeros(0, np.uint64)
-    plan.post_lookback, plan.post_lookback_n = big, big_n
 
 
 def _dict_from_launch(ch: ChunkPlan) -> bool:
@@ -835,56 +829,32 @@ def result_checksum_u64(res) -> int:
     return int(res.sum()) & ((1 << 64) - 1)
 
 
-def _var_rows(cp: ChunkPlan, vp: VarPlan, outs: Dict[tuple, torch.Tensor], device) -> torch.Tensor:
-    """A var's (n_pages, page_n) latents: its launch rows, or its constant."""
-    if vp.trivial:
-        return torch.full((cp.n_pages, cp.page_n), _i64(vp.const_lower), dtype=torch.int64, device=device)
-    return outs[vp.launch_key][vp.chain_start : vp.chain_start + cp.n_pages]
-
-
-def lookback_pages(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
-    """The trimmed latents of the lookback vars whose pages K3's launch does
-    not take (over kernels.LB_SMEM_MAX_N numbers), a chunk at a time
-    through lookback_recon (K3's device-memory route; the JAX
-    `_reconstruct_var`'s lookback branch), back to back as
-    plan.post_lookback places them."""
-    out = torch.empty(plan.post_lookback_n, dtype=torch.int64, device=dev.device)
-    for ci, var_at in plan.post_lookback:
-        cp = plan.chunks[ci]
-        P, N = cp.recon_pages
-        lbs = _var_rows(cp, cp.var_plans["delta"], outs, dev.device).reshape(P, N)
-        for key, (at, mom) in var_at.items():
-            vp, de = cp.var_plans[key], cp.delta.for_latent_var(key)
-            moments = dev.post_moments[mom : mom + vp.moments.size].view(vp.moments.shape)
-            rows = dec.lookback_recon(_var_rows(cp, vp, outs, dev.device).reshape(P, N), lbs, moments, de.window_n,
-                                      de.state_n, vp.bits)
-            out[at : at + cp.n] = rows.reshape(-1)[: cp.n]
-    return out
-
-
 def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "DeviceArrays") -> torch.Tensor:
     """(n,) int64 memory bits of every number of the container (the JAX
     `_post_chunks` and the concatenation after it). Where every chunk is a
     fused launch's rows, end to end, a view of them (plan.post_view).
     Otherwise one K3 launch reconstructs every lookback var whose pages fit
     shared memory, joining each Classic chunk straight into the output (the
-    others' latents into a scratch); one B1 call reconstructs every conv1
-    var into a scratch; the lookback vars of longer pages go a chunk at a
-    time (lookback_pages); one B3 launch undoes every other delta and joins
-    every other chunk into the output (a Dict chunk's latents into K4's
-    scratch); one K4 launch joins every Dict chunk into the output. No
-    loop over chunks but lookback_pages'."""
+    others' latents into a scratch); one B7 launch reconstructs every
+    lookback var of longer pages into the same scratch; one B1 call
+    reconstructs every conv1 var into a scratch; one B3 launch undoes every
+    other delta and joins every other chunk into the output (a Dict chunk's
+    latents into K4's scratch); one K4 launch joins every Dict chunk into
+    the output. No loop over chunks."""
     device = dev.device
     if plan.post_view is not None:
         lkey, start = plan.post_view
         return outs[lkey].reshape(-1)[start : start + plan.n]
     out = torch.empty(plan.n, dtype=torch.int64, device=device)
     named = {("out",): out}
-    if plan.lookback_chunks:
+    if plan.lookback_bases:
         scratch = torch.empty(plan.lookback_scratch_n, dtype=torch.int64, device=device)
         k3 = {("out",): out, ("scratch",): scratch, ("moments",): dev.lookback_moments}
         bases = [outs[key[1]] if key[0] == "launch" else k3[key] for key in plan.lookback_bases]
-        dec.lookback_recon_chunks(bases, plan.lookback_desc, dev.lookback_desc)
+        if len(plan.lookback_desc):
+            dec.lookback_recon_chunks(bases, plan.lookback_desc, dev.lookback_desc)
+        if len(plan.lookback_long_desc):
+            dec.lookback_tiles(bases, plan.lookback_long_desc, dev.lookback_long_desc)
         named[("lookback",)] = scratch
     if len(plan.conv1_desc):
         conv1_out = torch.empty(plan.conv1_scratch_n, dtype=torch.int64, device=device)
@@ -892,8 +862,6 @@ def post_chunks(plan: ContainerPlan, outs: Dict[tuple, torch.Tensor], dev: "Devi
         bases = [outs[key[1]] if key[0] == "launch" else b1[key] for key in plan.conv1_bases]
         dec.conv1_recon_chunks(bases, plan.conv1_desc, dev.conv1_desc)
         named[("conv1",)] = conv1_out
-    if plan.post_lookback:
-        named[("lookback_pages",)] = lookback_pages(plan, outs, dev)
     named[("dict",)] = torch.empty(plan.dict_scratch_n, dtype=torch.int64, device=device)
     named[("moments",)] = dev.post_moments
     if len(plan.post_desc):
@@ -926,6 +894,7 @@ class DeviceArrays:
     launches: Dict[tuple, Dict[str, torch.Tensor]] = field(default_factory=dict)
     dict_table: Optional[torch.Tensor] = None  # every Dict chunk's table, back to back
     lookback_desc: Optional[torch.Tensor] = None  # K3's rows (plan.lookback_desc)
+    lookback_long_desc: Optional[torch.Tensor] = None  # B7's rows (plan.lookback_long_desc)
     lookback_moments: Optional[torch.Tensor] = None  # every K3 row's stored state, back to back
     conv1_desc: Optional[torch.Tensor] = None  # B1's rows (plan.conv1_desc)
     conv1_moments: Optional[torch.Tensor] = None  # every B1 row's stored state, back to back
@@ -957,15 +926,15 @@ def _launch_arrays(cp: ChainPlan, device, chains: slice = slice(None), word0=Non
 
 
 def upload_post(plan: ContainerPlan, device="cuda") -> DeviceArrays:
-    """Copy what the post reads (K3's, B1's, B3's and K4's tables and their
-    stored states) to `device`; no container words and no launch."""
+    """Copy what the post reads (K3's, B7's, B1's, B3's and K4's tables and
+    their stored states) to `device`; no container words and no launch."""
     device = _resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return DeviceArrays(words=torch.zeros(0, dtype=torch.int32, device=device), dict_table=t(plan.dict_table),
-                        lookback_desc=t(plan.lookback_desc),
+                        lookback_desc=t(plan.lookback_desc), lookback_long_desc=t(plan.lookback_long_desc),
                         lookback_moments=_u64_to_tensor(plan.lookback_moments, device),
                         conv1_desc=t(plan.conv1_desc), conv1_moments=_u64_to_tensor(plan.conv1_moments, device),
                         post_desc=t(plan.post_desc), post_moments=_u64_to_tensor(plan.post_moments, device))

@@ -424,6 +424,22 @@ def lookback_recon_chunks_plain(bases, desc: np.ndarray, desc_dev=None):
                                                                       add.reshape(-1)[:n])
 
 
+def _lookback_table(name: str, bases, desc: np.ndarray, desc_dev):
+    """desc as (R, LB_DESC_COLS) int64 rows and desc_dev the same rows on
+    the bases' card (uploaded where None), the bases checked."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64).reshape(-1, LB_DESC_COLS)
+    if len(bases) > kernels.LB_MAX_BASES:
+        raise ValueError(f"{name} reads at most {kernels.LB_MAX_BASES} tensors a launch")
+    _check_cuda(*((b, torch.int64) for b in bases))
+    dev = bases[0].device
+    if desc_dev is None:
+        desc_dev = torch.from_numpy(desc).to(dev)
+    _check_cuda((desc_dev, torch.int64))
+    if desc_dev.device != dev or tuple(desc_dev.shape) != desc.shape:
+        raise ValueError(f"{name}: desc_dev must hold desc's rows on the bases' device")
+    return desc, desc_dev
+
+
 def lookback_recon_chunks(bases, desc: np.ndarray, desc_dev=None):
     """K3: every row of a container's lookback table (pages of at most
     kernels.LB_SMEM_MAX_N numbers) reconstructed by one launch, straight
@@ -431,24 +447,30 @@ def lookback_recon_chunks(bases, desc: np.ndarray, desc_dev=None):
     desc_dev the rows on the card (uploaded here when None)."""
     if all(b.device.type == "cpu" for b in bases):
         return lookback_recon_chunks_plain(bases, desc)
-    desc = np.ascontiguousarray(desc, dtype=np.int64).reshape(-1, LB_DESC_COLS)
-    if len(bases) > kernels.LB_MAX_BASES:
-        raise ValueError(f"lookback_recon_chunks reads at most {kernels.LB_MAX_BASES} tensors a launch")
-    _check_cuda(*((b, torch.int64) for b in bases))
-    dev = bases[0].device
-    if desc_dev is None:
-        desc_dev = torch.from_numpy(desc).to(dev)
-    _check_cuda((desc_dev, torch.int64))
-    if desc_dev.device != dev or tuple(desc_dev.shape) != desc.shape:
-        raise ValueError("lookback_recon_chunks: desc_dev must hold desc's rows on the bases' device")
+    desc, desc_dev = _lookback_table("lookback_recon_chunks", bases, desc, desc_dev)
     kernels.launch_lookback_chunks(bases, desc, desc_dev)
 
 
+def lookback_tiles(bases, desc: np.ndarray, desc_dev=None):
+    """B7: every row of a lookback table whose rows store latents
+    (JOIN_LATENTS), pages of any length, reconstructed by one launch in
+    tiles of kernels.LB_SMEM_MAX_N numbers, a tile waiting for its page's
+    earlier tiles' final numbers; arguments as lookback_recon_chunks_plain,
+    its plain version."""
+    if all(b.device.type == "cpu" for b in bases):
+        return lookback_recon_chunks_plain(bases, desc)
+    desc, desc_dev = _lookback_table("lookback_tiles", bases, desc, desc_dev)
+    c = {name: i for i, name in enumerate(LB_COLS)}
+    tiles = -(-int(desc[:, c["page_n"]].max(initial=0)) // kernels.LB_SMEM_MAX_N)
+    sync = torch.empty(1 + int(desc[:, c["n_pages"]].sum()) * tiles, dtype=torch.int32, device=bases[0].device)
+    kernels.launch_lookback_tiles(bases, desc, desc_dev, sync)
+
+
 def lookback_recon(latents, lookbacks, moments, window_n: int, state_n: int, bits: int):
-    """K3 on one chunk's pages; arguments as lookback_decode_pages_plain.
-    Pages of at most kernels.LB_SMEM_MAX_N numbers run as a one-row table
-    of lookback_recon_chunks, a block a page in shared memory; longer pages
-    run the same rounds in device memory, one launch a round."""
+    """K3 on one chunk's pages; arguments as lookback_decode_pages_plain:
+    a one-row table of lookback_recon_chunks (pages of at most
+    kernels.LB_SMEM_MAX_N numbers, a block a page in shared memory) or of
+    lookback_tiles (longer pages)."""
     if latents.device.type == "cpu":
         return lookback_decode_pages_plain(latents, lookbacks, moments, window_n, state_n, bits)
     P, N = latents.shape
@@ -456,13 +478,9 @@ def lookback_recon(latents, lookbacks, moments, window_n: int, state_n: int, bit
         raise ValueError("lookback_recon: argument shapes do not match the pages")
     _check_cuda((latents, torch.int64), (lookbacks, torch.int64), (moments, torch.int64))
     out = torch.empty_like(latents)
-    if N <= kernels.LB_SMEM_MAX_N:
-        row = [0, 0, 1, 0, 2, 0, 3, 0, P, N, P * N, state_n, window_n, bits, JOIN_LATENTS, 0]
-        lookback_recon_chunks([latents, lookbacks, moments, out], np.array([row], np.int64))
-        return out
-    kernels.launch_lookback_recon(latents, lookbacks, moments, out, window_n, state_n, _i64(1 << (bits - 1)),
-                                  lookback_rounds(N), torch.empty_like(latents),
-                                  torch.empty((2, P, N), dtype=torch.int32, device=latents.device))
+    row = [0, 0, 1, 0, 2, 0, 3, 0, P, N, P * N, state_n, window_n, bits, JOIN_LATENTS, 0]
+    table = lookback_recon_chunks if N <= kernels.LB_SMEM_MAX_N else lookback_tiles
+    table([latents, lookbacks, moments, out], np.array([row], np.int64))
     return out
 
 

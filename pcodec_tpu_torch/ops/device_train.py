@@ -15,8 +15,10 @@ host's.
                       float bids on samples gathered on the card at the
                       host sampler's index sets (phase_int_gcd,
                       phase_int_est and int_bases_collect screen IntMult
-                      there, phase_float_keep flags the float draws), so
-                      the decisions are the host's; or the pinned spec
+                      there, the triples' GCDs by B8, CUDA
+                      (csrc/triple_gcd.cu), a thread a triple;
+                      phase_float_keep flags the float draws), so the
+                      decisions are the host's; or the pinned spec
     phase_dict        card: TRY_DICT's split, each chunk's dictionary and
                       the numbers' u32 indices, which the rest trains on
     split_primary     B6, CUDA (csrc/mode_split.cu): the mode split's
@@ -71,8 +73,8 @@ decision's lookback cost stays on the host (_lookback_costs, JAX's default
 route).
 
 u64 values travel as int64 tensors holding the same bits (torch's // and %
-are signed: udivmod divides them unsigned). The K9 and B5 wrappers take
-their plain PyTorch versions only for CPU tensors; for CUDA tensors they
+are signed: udivmod divides them unsigned). The K9, B5, B6 and B8
+wrappers take their plain PyTorch versions only for CPU tensors; for CUDA tensors they
 launch the kernel or raise.
 """
 
@@ -1158,6 +1160,36 @@ def gcd_u64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(trivial, a | b, x << shift)
 
 
+def triple_gcd_plain(sm: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of B8: sm (n, m) int64 u64 bits and valid (n, m) bool,
+    consecutive positions in threes; each triple sorted unsigned, the GCD
+    of its two differences (gcd_u64). Returns (n, m // 3) int64: the GCD
+    where the triple is valid and it is above 1, else 0."""
+    n, m = sm.shape
+    nt3 = m // 3
+    t = sm[:, : nt3 * 3].reshape(n, nt3, 3)
+    tvalid = valid[:, : nt3 * 3].reshape(n, nt3, 3).all(2)
+    tx = t ^ _MIN64
+    lo, hi = tx.amin(2) ^ _MIN64, tx.amax(2) ^ _MIN64
+    mid = t.sum(2) - lo - hi
+    g = gcd_u64(mid - lo, hi - lo)
+    return torch.where(tvalid & (g != 0) & (g != 1), g, 0)
+
+
+def triple_gcd(sm: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """B8 (csrc/triple_gcd.cu): triple_gcd_plain in one launch, a thread a
+    triple running Stein's loop to its own end."""
+    if sm.device.type == "cpu":
+        return triple_gcd_plain(sm, valid)
+    if sm.dim() != 2 or valid.shape != sm.shape:
+        raise ValueError("triple_gcd takes (n, m) samples and their (n, m) mask")
+    _check_cuda((sm, torch.int64), (valid, torch.bool))
+    out = torch.empty((sm.shape[0], sm.shape[1] // 3), dtype=i64, device=sm.device)
+    if out.numel():
+        kernels.launch_triple_gcd(sm, valid, out)
+    return out
+
+
 def _sample_rows(mode_s: torch.Tensor, starts, lens):
     """Each chunk's sample as a row (n_chunks, longest), zeros past its
     length, and the mask of its positions."""
@@ -1179,15 +1211,8 @@ def phase_int_gcd(mode_s: torch.Tensor, starts, lens, k: int = GCD_K):
     u64 bits, cnts (n_chunks, k) int64, n_unique (n_chunks,) int64); zeros
     past each chunk's distinct GCDs."""
     sm, valid = _sample_rows(mode_s, starts, lens)
-    n, m = sm.shape
-    nt3 = m // 3
-    t = sm[:, : nt3 * 3].reshape(n, nt3, 3)
-    tvalid = valid[:, : nt3 * 3].reshape(n, nt3, 3).all(2)
-    tx = t ^ _MIN64
-    lo, hi = tx.amin(2) ^ _MIN64, tx.amax(2) ^ _MIN64
-    mid = t.sum(2) - lo - hi
-    g = gcd_u64(mid - lo, hi - lo)
-    gs = _usort(torch.where(tvalid & (g != 0) & (g != 1), g, 0))
+    n = sm.shape[0]
+    gs = _usort(triple_gcd(sm, valid))
     nonzero = gs != 0
     is_start = nonzero & torch.cat([torch.ones_like(nonzero[:, :1]), gs[:, 1:] != gs[:, :-1]], 1)
     u = torch.where(nonzero, (torch.cumsum(is_start.to(i64), 1) - 1).clamp(max=k), k)  # slot k: dropped

@@ -29,12 +29,14 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcodec_tpu_torch")
 SOURCES = ("section_gather", "chain_decode", "bin_ans_encode", "section_pack", "image_stitch",
            "row_sort", "lookback_recon", "dict_join", "histogram_walk", "lookback_choose",
-           "conv1_recon", "float_mult_join", "chunk_post", "mode_split",
+           "conv1_recon", "float_mult_join", "chunk_post", "mode_split", "triple_gcd",
            # the microbenchmarks of pcodec_tpu_torch/experiments/
            "proto_realign", "proto_dma", "micro_gather", "proto_round_loop", "bitonic_cluster")
 # micro_gather's four routes (its `route` argument), each counted on its own
 GATHER_ROUTES = ("gather_take", "gather_taa", "gather_lane", "gather_row")
 LB_SMEM_MAX_N = 16384  # longest page K3 reconstructs in shared memory; must match csrc/lookback_recon.cu
+# longest page B7 reconstructs (tiles of LB_SMEM_MAX_N); must match csrc/lookback_recon.cu
+LB_MAX_PAGE_N = 1 << 30
 LB_MAX_BASES = 68  # tensors one K3 launch reads and writes; must match csrc/lookback_recon.cu
 # longest page of B5's two-pass route (hash reads, then the chain over
 # latents and counts in shared memory); longer pages keep their maps on the
@@ -69,8 +71,10 @@ K7_SCAN_PAGES = 256  # pages a block of K7's offsets pass scans; must match csrc
 # consecutive pages a warp of K7's placement places, from chip_smoke.py's sweep
 K7_PAGES_PER_WARP = 4
 
-# C calls that launched kernels, by name; dict_join's counts its kernels
-LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES + ("row_sort_span",) if name != "micro_gather"}
+# C calls that launched kernels, by name; dict_join's counts its kernels;
+# lookback_recon counts K3's launches, lookback_tiles B7's
+LAUNCHES = {name: 0 for name in SOURCES + GATHER_ROUTES + ("row_sort_span", "lookback_tiles")
+            if name != "micro_gather"}
 _LIBS = {}
 _DICT_SMEM_ENTRIES = {}
 _K6_SMEM_WORDS = {}
@@ -95,9 +99,6 @@ _ARGTYPES = {
     "image_stitch": [_P, _P, _P, _L, _P, _I, _P, _P, _I, _I, _P, _P, _L, _I, _I, _P],
     # in, out, rows, m, in_bytes, key_bytes, passes, mm, keys, hist, device, stream
     "row_sort": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _I, _P],
-    # lat, lb, mom, out, P, N, state_n, window_n, mid, rounds, add_scratch,
-    # ptr_scratch, launched, device, stream
-    "lookback_recon": [_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P, _P, _P, _I, _P],
     # bases, numels, n_bases, desc, n_chunks, table, n_table, out, n_out, smem, walk, launched,
     # device, stream
     "dict_join": [_P, _P, _I, _P, _I, _P, _L, _P, _L, _I, _I, _P, _I, _P],
@@ -115,6 +116,8 @@ _ARGTYPES = {
     "chunk_post": [_P, _P, _I, _P, _P, _I, _P, _I, _P],
     # lat, prim, out, n, m, owner, table, secondary, W, bits, device, stream
     "mode_split": [_P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
+    # sm, valid, rows, m, out, device, stream
+    "triple_gcd": [_P, _P, _L, _L, _P, _I, _P],
     # raw2d, n_rows, starts_blk, out, n_groups, device, stream
     "proto_realign": [_P, _L, _P, _P, _I, _I, _P],
     # raw, n_raw, starts, colsum, out, n_tiles, heavy_rounds, device, stream
@@ -132,6 +135,8 @@ _MORE_FUNCS = {
     "row_sort_span": ("row_sort", [_P, _I, _L, _I, _P, _I, _P]),
     # bases, numels, n_bases, desc, desc_dev, n_rows, threads, launched, device, stream
     "lookback_chunks": ("lookback_recon", [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P]),
+    # bases, numels, n_bases, desc, desc_dev, n_rows, sync, sync_n, launched, device, stream
+    "lookback_tiles": ("lookback_recon", [_P, _P, _I, _P, _P, _I, _P, _L, _P, _I, _P]),
     # desc, n_chunks, total_bits, ans_len, off_len, VK, B, sections, W, states,
     # moments, MO, pfx_words, head_host, H, R, E, head, scan, pages, device, stream
     "image_offsets": ("image_stitch", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _L, _L, _P, _P,
@@ -189,7 +194,8 @@ def _lib(name: str):
     if name not in _LIBS:
         build((name,))
         lib = ctypes.CDLL(_lib_path(name))
-        funcs = [(name, _ARGTYPES[name])] + [(f, a) for f, (src, a) in _MORE_FUNCS.items() if src == name]
+        funcs = ([(name, _ARGTYPES[name])] if name in _ARGTYPES else []) + [
+            (f, a) for f, (src, a) in _MORE_FUNCS.items() if src == name]
         for fn_name, argtypes in funcs:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
@@ -300,16 +306,6 @@ def launch_row_sort(x, out, mm, keys, hist, key_bytes: int, passes: int) -> None
           mm.data_ptr(), keys.data_ptr(), hist.data_ptr())
 
 
-def launch_lookback_recon(lat, lb, mom, out, window_n: int, state_n: int, mid: int, rounds: int,
-                          add_scratch, ptr_scratch) -> None:
-    """K3's device-memory route for one chunk's pages: add_scratch (P, N)
-    int64 and ptr_scratch (2, P, N) int32. Counts its kernels."""
-    launched = ctypes.c_int(0)
-    _call("lookback_recon", lat, lat.data_ptr(), lb.data_ptr(), mom.data_ptr(), out.data_ptr(),
-          lat.shape[0], lat.shape[1], state_n, window_n, mid, rounds, add_scratch.data_ptr(),
-          ptr_scratch.data_ptr(), ctypes.byref(launched), launched=launched)
-
-
 def launch_lookback_chunks(bases, desc, desc_dev) -> None:
     """bases: the int64 tensors the rows name; desc (R, DESC_COLS) int64
     numpy rows, desc_dev the same rows on the card. The C side checks every
@@ -320,6 +316,20 @@ def launch_lookback_chunks(bases, desc, desc_dev) -> None:
     _call("lookback_chunks", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
           (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
           desc.shape[0], K3_THREADS, ctypes.byref(launched), count="lookback_recon", launched=launched)
+
+
+def launch_lookback_tiles(bases, desc, desc_dev, sync) -> None:
+    """B7 over a lookback table whose rows store latents (pages of any
+    length, tiles of LB_SMEM_MAX_N): arguments as launch_lookback_chunks;
+    sync, int32 words on the card for its ticket counter and a flag a
+    ticket (decode.lookback_tiles sizes it), zeroed by the call. Counts its
+    kernel under lookback_tiles."""
+    desc = np.ascontiguousarray(desc, dtype=np.int64)
+    B = len(bases)
+    launched = ctypes.c_int(0)
+    _call("lookback_tiles", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
+          (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
+          desc.shape[0], sync.data_ptr(), sync.numel(), ctypes.byref(launched), launched=launched)
 
 
 def dict_join_smem_entries(device) -> int:
@@ -417,6 +427,12 @@ def launch_chunk_post(bases, desc, desc_dev) -> None:
     _call("chunk_post", desc_dev, (ctypes.c_uint64 * B)(*[b.data_ptr() for b in bases]),
           (ctypes.c_int64 * B)(*[b.numel() for b in bases]), B, desc.ctypes.data, desc_dev.data_ptr(),
           desc.shape[0], ctypes.byref(launched), launched=launched)
+
+
+def launch_triple_gcd(sm, valid, out) -> None:
+    """B8 over sm's (rows, m) samples and their valid mask: out (rows, m //
+    3) int64 gets each triple's GCD of differences, or 0."""
+    _call("triple_gcd", sm, sm.data_ptr(), valid.data_ptr(), sm.shape[0], sm.shape[1], out.data_ptr())
 
 
 def launch_mode_split(lat, prim, out, m: int, owner, table, secondary: bool, W: int, bits: int) -> None:

@@ -1,6 +1,6 @@
-"""K3 (lookback_recon), K4 (dict_join), B1 (conv1_recon), B2
-(float_mult_join) and B3 (chunk_post, the decode post) of the port, on
-their own.
+"""K3 (lookback_recon), B7 (lookback_tiles, its pages past shared memory),
+K4 (dict_join), B1 (conv1_recon), B2 (float_mult_join) and B3 (chunk_post,
+the decode post) of the port, on their own.
 
 The plain versions run here on the CPU, held against independent numpy
 references and the port's host decoder; the tests marked `gpu` hold the
@@ -235,6 +235,43 @@ def _random_lookback_table(seed):
         at, mo, page0 = at + P * N, mo + P * sn, page0 + P
         oo, so = (oo + nv, so) if join else (oo, so + nv)
     return [lat, torch.from_numpy(lbs), mom, out, scratch], np.array(rows, np.int64)
+
+
+def random_long_table(seed):
+    """A random B7 table over four tensors (latents, lookbacks with some 0
+    and past the window, stored states, and a scratch filled with -77), every
+    row storing latents: pages of 16,385 to 300,000 numbers, window_n 1,
+    2^15 and 2^17 (a pointer skipping tiles), state_n 0 to 32, ragged last
+    pages (one shorter than a tile, one that holds no number), rows starting
+    at odd numbers, trivial latents and lookbacks, latent bits 8 to 64.
+    Returns (bases, desc)."""
+    rng = np.random.default_rng(seed)
+    specs = [  # P, N, n, state_n, window_n, bits, lat trivial, lb trivial
+        (1, 16_385, 16_385, 0, 1, 64, False, False), (2, 300_000, 450_000, 32, 2**17, 64, False, False),
+        (3, 40_000, 100_001, 3, 2**15, 32, False, False), (1, 70_000, 70_000, 1, 2**17, 16, True, False),
+        (2, 20_000, 39_000, 5, 1, 8, False, True), (1, 50_000, 12_000, 0, 2**15, 64, False, False),
+        (3, 16_400, 32_800, 32, 2**17, 64, False, False), (2, 30_000, 60_000, 2, 3, 64, True, True),
+    ]
+    order = rng.permutation(len(specs))
+    specs = [specs[i] for i in order]
+    n_lat = sum(p * n for p, n, *_ in specs) + len(specs)
+    lat = torch.from_numpy(rng.integers(0, 2**64, n_lat, dtype=np.uint64).view(np.int64))
+    lbs = np.zeros(n_lat, np.int64)
+    mom = torch.from_numpy(rng.integers(0, 2**64, sum(p * s for p, _, _, s, *_ in specs), dtype=np.uint64)
+                           .view(np.int64))
+    scratch = torch.full((sum(s[2] for s in specs),), -77, dtype=torch.int64)
+    rows, at, mo, so, page0 = [], 0, 0, 0, 0
+    for i, (P, N, nv, sn, wn, bits, lat_t, lb_t) in enumerate(specs):
+        at += i % 2  # every other row starts at an odd number
+        seg = rng.integers(1, wn + 1, P * N)
+        seg[::13] = 0
+        seg[5::31] = wn + 77
+        lbs[at : at + P * N] = seg
+        src_lat = (-1, int(rng.integers(-(2**63), 2**63))) if lat_t else (0, at)
+        src_lb = (-1, int(rng.integers(0, 2 * wn))) if lb_t else (1, at)
+        rows.append([*src_lat, *src_lb, 2, mo, 3, so, P, N, nv, sn, wn, bits, dec.JOIN_LATENTS, page0])
+        at, mo, so, page0 = at + P * N, mo + P * sn, so + nv, page0 + P
+    return [lat, torch.from_numpy(lbs), mom, scratch], np.array(rows, np.int64)
 
 
 def test_lookback_recon_chunks_plain_matches_per_row_pages():
@@ -476,17 +513,18 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("P,N,state_n,window_n,bits", [
     (5, 256, 32, 2048, 64), (3, 1024, 1, 1024, 64), (2, 3000, 40, 5000, 16),  # shared memory
-    (2, 16384, 2, 16384, 64), (3, 20000, 8, 30000, 32),  # the largest shared page; global memory
+    (2, 16384, 2, 16384, 64), (3, 20000, 8, 30000, 32),  # the largest shared page; B7's tiles
 ])
 def test_lookback_recon_matches_plain_on_card(P, N, state_n, window_n, bits):
     _need_card()
     args = [t.cuda() for t in _pages(P, N, state_n, window_n)]
-    before = kernels.LAUNCHES["lookback_recon"]
+    before = dict(kernels.LAUNCHES)
     got = dec.lookback_recon(*args, window_n, state_n, bits)
     torch.cuda.synchronize()
-    # a one-row table in shared memory, or the device-memory route's prologue and rounds
-    kernels_n = 1 if N <= kernels.LB_SMEM_MAX_N else 1 + dec.lookback_rounds(N)
-    assert kernels.LAUNCHES["lookback_recon"] == before + kernels_n
+    # a one-row table of K3 in shared memory, or of B7's tiles: one launch
+    name = "lookback_recon" if N <= kernels.LB_SMEM_MAX_N else "lookback_tiles"
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
     assert (N > kernels.LB_SMEM_MAX_N) == (N == 20000)
     assert torch.equal(got, dec.lookback_decode_pages_plain(*args, window_n, state_n, bits))
 
@@ -895,3 +933,81 @@ def test_decode_post_is_one_chunk_post_launch_on_card(case):
     assert np.array_equal(got.view(np.uint8), nums.view(np.uint8))
     assert kernels.LAUNCHES["chunk_post"] == before["chunk_post"] + 1
     assert kernels.LAUNCHES["float_mult_join"] == before["float_mult_join"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_lookback_tiles_matches_plain_on_card(seed):
+    """Exact: one counted B7 launch on a random long table (pages of 16,385
+    to 300,000 numbers, window_n 1 to 2^17, state_n 0 to 32, ragged and
+    empty last pages, trivial vars, bits 8 to 64) equals the plain version
+    and writes every row's numbers and nothing else; no K3 launch."""
+    _need_card()
+    bases, desc = random_long_table(seed)
+    want = bases[:3] + [bases[3].clone()]
+    dec.lookback_recon_chunks_plain(want, desc)
+    got = [b.cuda() for b in bases]
+    before = dict(kernels.LAUNCHES)
+    dec.lookback_tiles(got, desc, torch.from_numpy(desc).cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lookback_tiles"] == before["lookback_tiles"] + 1
+    assert kernels.LAUNCHES["lookback_recon"] == before["lookback_recon"]
+    assert torch.equal(got[3].cpu(), want[3])
+    assert not bool((want[3] == -77).any())
+
+
+@pytest.mark.gpu
+def test_lookback_tiles_refuses_wrong_arguments_on_card():
+    """A row that joins (B7 stores latents only), a row past its base, rows
+    that do not follow each other and rows on the card that are not the
+    table's are refused, and nothing is launched."""
+    _need_card()
+    bases, desc = random_long_table(1)
+    bases = [b.cuda() for b in bases]
+    before = kernels.LAUNCHES["lookback_tiles"]
+    c = {name: i for i, name in enumerate(dec.LB_COLS)}
+    for col, value in ((c["join"], dec.JOIN_SIGNED), (c["out_start"], int(bases[3].numel())), (c["page0"], 1)):
+        bad = desc.copy()
+        bad[0, col] = value
+        with pytest.raises(RuntimeError, match="lookback_tiles kernel launch failed"):
+            dec.lookback_tiles(bases, bad)
+    with pytest.raises(ValueError):
+        dec.lookback_tiles(bases, desc, torch.from_numpy(desc[:-1]).cuda())
+    assert kernels.LAUNCHES["lookback_tiles"] == before
+
+
+def long_lookback_blobs():
+    """(name, numbers, bytes, decode entry) of lookback inputs whose pages
+    are past K3's shared memory: PCT containers of 20,480-number pages in
+    45,000-number chunks (Classic i64 and u16, IntMult) and a standalone
+    file of 50,000 numbers (one flat chunk)."""
+    rng = np.random.default_rng(31)
+    n = 3 * 45_000
+    reps = np.tile(rng.integers(0, 50_000, 512), n // 512 + 1)[:n] + rng.integers(0, 2, n)
+    lb = pt.DeltaSpec("try_lookback", 0)
+    out = []
+    for name, nums, mode in (("i64", reps.astype(np.int64), ("classic", 0.0)),
+                             ("u16", reps.astype(np.uint16), ("classic", 0.0)),
+                             ("int_mult", reps.astype(np.int64) * 1000, ("try_int_mult", 1000.0))):
+        cfg = pt.ChunkConfig(mode_spec=pt.ModeSpec(*mode), delta_spec=lb)
+        out.append((name, nums, pt.container_compress(nums, cfg, page_n=20_480, chunk_n=45_000),
+                    pt.decode_container_device))
+    nums = reps[:50_000].astype(np.int64)
+    out.append(("standalone", nums, pt.simple_compress(nums, pt.ChunkConfig(delta_spec=lb)),
+                pt.decode_standalone_device))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(4))
+def test_long_lookback_decode_one_launch_on_card(case):
+    """Exact: lookback containers and a standalone file whose pages are past
+    K3's shared memory decode on the card to their source with exactly one
+    B7 launch and no K3 launch."""
+    _need_card()
+    name, nums, data, decode = long_lookback_blobs()[case]
+    before = dict(kernels.LAUNCHES)
+    got = decode(data)
+    assert kernels.LAUNCHES["lookback_tiles"] == before["lookback_tiles"] + 1, name
+    assert kernels.LAUNCHES["lookback_recon"] == before["lookback_recon"], name
+    assert np.array_equal(got.view(np.uint8), nums.view(np.uint8)), name

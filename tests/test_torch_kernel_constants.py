@@ -39,6 +39,7 @@ def _cu_constants(name: str) -> dict:
     ("bin_ans_encode", "CHAINS_PER_GROUP", kernels.CHAINS_PER_BLOCK),
     ("bin_ans_encode", "TILE_ROUNDS", kernels.K5_TILE_ROUNDS),
     ("lookback_recon", "SMEM_MAX_N", kernels.LB_SMEM_MAX_N),
+    ("lookback_recon", "MAX_PAGE_N", kernels.LB_MAX_PAGE_N),
     ("lookback_recon", "MAX_BASES", kernels.LB_MAX_BASES),
     ("lookback_recon", "DESC_COLS", decode.LB_DESC_COLS),
     ("lookback_recon", "JOIN_LATENTS", decode.JOIN_LATENTS),

@@ -2,9 +2,10 @@
 without the caller's host copy) against the JAX package.
 
 The screening that runs on the card when there is no host copy is held
-against JAX's own device functions: `gcd_u64`, `phase_int_gcd`,
-`phase_int_est` and `phase_float_keep` against `_gcd_u64`,
-`_phase_int_gcd`, `_phase_int_est` and `_phase_float_keep`, and
+against JAX's own device functions: `gcd_u64`, `triple_gcd_plain` (B8's
+plain version), `phase_int_gcd`, `phase_int_est` and `phase_float_keep`
+against `_gcd_u64`, `_phase_int_gcd`, `_phase_int_est` and
+`_phase_float_keep`, and
 `int_bases_collect` against the host `int_mult.choose_base_from_sample`.
 Each file image planned from a CPU tensor equals pcodec_tpu's
 `container_compress` bytes and the port's numpy route. Inputs come from
@@ -27,6 +28,7 @@ from pcodec_tpu_torch import ChunkConfig, DeltaSpec, ModeSpec
 from pcodec_tpu_torch.dtypes import number_type_from_np
 from pcodec_tpu_torch.ops import assemble as asm
 from pcodec_tpu_torch.ops import device_train as dt
+from tests.test_torch_train_kernels import gcd_triples
 
 torch.set_num_threads(1)  # the test workers share the cores: more intra-op threads spin on theirs
 
@@ -56,6 +58,21 @@ def test_gcd_u64_matches_jax():
     got = _u64(dt.gcd_u64(_t(a), _t(b)))
     assert np.array_equal(got, np.asarray(jdt._gcd_u64(jnp.asarray(a), jnp.asarray(b))))
     assert np.array_equal(got, np.gcd(a, b))
+
+
+def test_triple_gcd_plain_matches_jax():
+    """triple_gcd_plain (B8's plain version) equals JAX's _gcd_u64 of each
+    triple's differences, the triple sorted unsigned in numpy, where the
+    triple is valid and the GCD is above 1: zeros, equal triples, powers of
+    two, values from 2^63, multiples of a base and random triples."""
+    sm, valid = gcd_triples(np.random.default_rng(4), 5000)
+    n, m = sm.shape
+    t = np.sort(_u64(sm)[:, : m // 3 * 3].reshape(n, m // 3, 3), axis=2)
+    g = np.asarray(jdt._gcd_u64(jnp.asarray(t[..., 1] - t[..., 0]), jnp.asarray(t[..., 2] - t[..., 0])))
+    ok = valid.numpy()[:, : m // 3 * 3].reshape(n, m // 3, 3).all(2) & (g > 1)
+    got = _u64(dt.triple_gcd_plain(sm, valid))
+    assert np.array_equal(got, np.where(ok, g, np.uint64(0)))
+    assert (got != 0).sum() > 1000 and (got[ok] >= 2**63).any()
 
 
 def _screen_samples(rng):

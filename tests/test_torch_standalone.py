@@ -136,8 +136,8 @@ def test_standalone_plan_equals_jax_plan(name):
 
 def test_standalone_lookback_state_n_64_stays_on_the_chains(monkeypatch):
     """A lookback chunk whose stored state has 64 latents (the JAX planner
-    sends state_n > 32 to the host) and over 16,384 numbers (K3's
-    device-memory route on the card): no chunk leaves the chains, and both
+    sends state_n > 32 to the host) and over 16,384 numbers (B7's tiles on
+    the card): no chunk leaves the chains, and both
     entry points return the host decode's numbers."""
     monkeypatch.setattr(port_compress, "new_lookback",
                         lambda n: DeltaEncoding.lookback(max(6, (n - 1).bit_length()), 6))

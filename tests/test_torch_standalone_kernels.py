@@ -72,7 +72,7 @@ def _need_card():
 def test_standalone_decode_on_card_equals_cpu_route(name):
     """Exact: both entry points on the card return the CPU route's numbers
     and the host decode's, K1 and K2 launched (K3 for a lookback chunk,
-    its device-memory route past 16,384 numbers; K4 for a Dict chunk)."""
+    B7 past 16,384 numbers; K4 for a Dict chunk)."""
     _need_card()
     nums, cfg = _case(name)
     blob = simple_compress(nums, cfg)
@@ -82,7 +82,8 @@ def test_standalone_decode_on_card_equals_cpu_route(name):
     torch.cuda.synchronize()
     assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
     assert np.array_equal(got.view(np.uint8), simple_decompress(blob)[0].view(np.uint8))
-    for k in ("section_gather", "chain_decode") + (("lookback_recon",) if "lookback" in name else ()) + (
+    lookback = "lookback_tiles" if name.endswith("_long") else "lookback_recon"
+    for k in ("section_gather", "chain_decode") + ((lookback,) if "lookback" in name else ()) + (
             ("dict_join",) if "dict" in name else ()):
         assert kernels.LAUNCHES[k] > before[k], k
     out, seconds = pt.decode_standalone_with_device(blob, time_it=True)

@@ -1,7 +1,7 @@
 """K9 (histogram_walk) of the port, on its own, and the extracts that feed
-it; on the card, B5 (lookback_choose) and B6 (mode_split) against their
-plain versions and device training of every mode and of the lookback delta
-through K8, K9, B5 and B6.
+it; on the card, B5 (lookback_choose), B6 (mode_split) and B8 (triple_gcd)
+against their plain versions and device training of every mode and of the
+lookback delta through K8, K9, B5 and B6.
 
 The plain version runs here on the CPU against the host codec's
 histogram(); the tests marked `gpu` hold the CUDA kernel against the plain
@@ -386,3 +386,60 @@ def test_mode_split_matches_plain_on_card(name):
     if card.float_mult:
         with pytest.raises(ValueError):
             dt.split_secondary(lat.cuda(), None, owner.cuda(), card, fp, bits)
+
+
+def gcd_triples(rng, n_random: int):
+    """IntMult screening samples for B8: rows of u64 values in triples with
+    their valid mask. Zeros, equal triples, triples with two equal values,
+    powers of two, values from 2^63 (their differences too), multiples of
+    a common base, then n_random random triples; rows of lengths not a
+    multiple of 3, invalid tails and an invalid position inside a row."""
+    pows = np.left_shift(np.uint64(1), np.arange(64, dtype=np.uint64))
+    top = np.uint64(2**63)
+    edge = [
+        [0, 0, 0], [5, 5, 5], [0, 7, 7], [9, 9, 3], [0, 0, 12], [1, 2, 3], [2**64 - 1, 0, 2**63],
+        [2**63, 2**63 + 6, 2**63 + 10], [2**64 - 1, 2**64 - 5, 2**64 - 9], [2**63 - 1, 2**63, 2**63 + 1],
+        [2**62, 0, 2**63], [3, 2**63 + 3, 2**64 - 1], [2**63 + 1, 1, 2**64 - 1],
+    ]
+    edge += [[0, int(p), 2 * int(p) % 2**64] for p in pows]
+    edge += [[int(p), 0, int(q)] for p, q in zip(pows, pows[::-1])]
+    base = rng.integers(2, 10**6, 300).astype(np.uint64)
+    mult = (base[:, None] * rng.integers(0, 10**9, (300, 3)).astype(np.uint64)) ^ np.where(
+        rng.random((300, 1)) < 0.3, top, np.uint64(0))
+    rand = rng.integers(0, 2**64, (n_random, 3), dtype=np.uint64)
+    flat = np.concatenate([np.array(edge, np.uint64).reshape(-1), mult.reshape(-1), rand.reshape(-1)])
+    m = 3 * 1024 + 2  # rows of whole triples and a partial one
+    rows = -(-len(flat) // m) + 1  # the last row past the numbers: no valid triple
+    sm = np.zeros(rows * m, np.uint64)
+    sm[: len(flat)] = flat
+    valid = np.zeros(rows * m, bool)
+    valid[: len(flat)] = True
+    valid[7] = False  # an invalid position inside a triple
+    sm, valid = sm.reshape(rows, m), valid.reshape(rows, m)
+    valid[1, m - 200 :] = False  # a shorter row
+    return torch.from_numpy(sm.view(np.int64)), torch.from_numpy(valid)
+
+
+def test_triple_gcd_wrapper_takes_the_plain_version_on_cpu():
+    sm, valid = gcd_triples(np.random.default_rng(3), 1000)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(dt.triple_gcd(sm, valid), dt.triple_gcd_plain(sm, valid))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_random", [0, 10**6])
+def test_triple_gcd_matches_plain_on_card(n_random):
+    """Exact: B8 against triple_gcd_plain on the edge cases and on 10^6
+    random triples, one counted launch; no triple, no launch."""
+    _need_card()
+    sm, valid = gcd_triples(np.random.default_rng(5), n_random)
+    want = dt.triple_gcd_plain(sm, valid)
+    before = kernels.LAUNCHES["triple_gcd"]
+    got = dt.triple_gcd(sm.cuda(), valid.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["triple_gcd"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert bool((want != 0).any()) and bool((want == 0).any())
+    empty = dt.triple_gcd(sm[:, :2].contiguous().cuda(), valid[:, :2].contiguous().cuda())
+    assert empty.shape == (sm.shape[0], 0) and kernels.LAUNCHES["triple_gcd"] == before + 1
