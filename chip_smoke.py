@@ -14,6 +14,15 @@
                                    cached in DIR, so a copy of the script in
                                    another tree measures that tree on the
                                    same bytes)
+    python3 chip_smoke.py --conv1-decode [DIR]
+                                   only the conv1_i32_lpc decodes (8M i32,
+                                   order 6): phase 7's standalone file and
+                                   phase 5b's PCT container, each decode and
+                                   its B1 call (routes, ns a step, the
+                                   chain by count) timed, and a JSON line
+                                   (the files cached in DIR, so a copy of
+                                   the script in another tree times that
+                                   tree on the same bytes)
     python3 chip_smoke.py --sharded
                                    only phase 11, over 4 shards of the first
                                    card and then over every visible card
@@ -149,8 +158,11 @@ Phases, one line each (numbers beside the card's name and power limit):
                   bench_matrix.py's conv1_i32_lpc numbers (8M i32, order 6)
                   as a PCT container at page_n 1,024 (8 chunks, 8,192
                   pages): decoded on the card, compared with the source,
-                  one B1 call (a row a page) held against its plain version
-                  on every number and timed, one row alone. The
+                  one B1 call (a thread a row) held against its plain
+                  version on every number and timed, one row alone, its
+                  rows of each arithmetic, ns a step and the chain by
+                  count (cuobjdump's stall cycles over its loop at the SM
+                  clock read during the call). The
                   wrapped_lookback_multipage numbers as a PCT container at
                   ChunkConfig()'s pages of 2^18 (32 chunks, 128 pages):
                   decoded with the counts set to 0 just before, compared
@@ -206,7 +218,9 @@ Phases, one line each (numbers beside the card's name and power limit):
                   chunk one row, on its first 16,384 numbers) and B3 held
                   against their plain versions, and timed: the decode, K1 +
                   K2, K3, K4, B1, B3 and the post; for conv1_i32_lpc B1 a
-                  call, on the card alone and one row alone; for
+                  call, on the card alone and one row alone (a warp a
+                  row), its rows of each arithmetic, ns a step and the
+                  chain by count; for
                   B3_INPUTS (f64_auto_multichunk, floatmult_f32,
                   taxi_i64_delta1, intmult_i64_timestamps) B3 a call, alone
                   and its plain version; for floatmult_f32 and
@@ -359,13 +373,16 @@ without the package beside this script, it fails at once.
 import contextlib
 import json
 import math
+import os
 import re
+import subprocess
 import sys
 import time
 from dataclasses import replace
 
 import numpy as np
 
+from pcodec_tpu_torch.experiments import sass
 from pcodec_tpu_torch.experiments.common import (RUNS, bound, card_line, check_equal, kernel_split_ms, nbytes,
                                                  time_ms, traced_kernels)
 
@@ -934,6 +951,50 @@ def breadth_kernel_numbers(torch, dec, name, calls):
             lambda: [torch.take(t, i) for t, i in zip(tables, idx)])
 
 
+def conv1_routes(dec, desc, sms: int) -> dict:
+    """B1's routes for one call's table: a warp a row (rows at most 4 x
+    the card's SMs) or a thread a row, and the rows of each arithmetic
+    after their first K steps: narrow rows step narrow on the warp route
+    only (a table without the narrow column, from a tree before it, is all
+    64-bit)."""
+    c = {k: i for i, k in enumerate(dec.C1_COLS)}
+    rows = desc[:, c["n_rows"]]
+    warp = int(rows.sum()) <= 4 * sms
+    narrow = desc[:, c["narrow"]] if "narrow" in c and warp else np.zeros(len(desc), np.int64)
+    return {"lane_route": "warp" if warp else "thread",
+            "rows_64bit": int(rows[narrow == 0].sum()),
+            "rows_32bit": int(rows[(narrow == 1) & (desc[:, c["bits"]] <= 16)].sum()),
+            "rows_widening": int(rows[(narrow == 1) & (desc[:, c["bits"]] == 32)].sum())}
+
+
+def sm_clock_mhz_during(torch, fn, calls: int):
+    """The SM clock nvidia-smi reads while the card runs `calls` calls of fn
+    (enqueued first, read while they run); None where it reads none."""
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-i",
+                          str(torch.cuda.current_device())], capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    try:
+        return float(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def conv1_chain_by_count(kernels, K: int, lane_route: str, form: str):
+    """B1's step by count from the SASS of its order-K kernel of the lane
+    route (`experiments.sass.b1_chain`): the loop of the arithmetic `form`
+    (the page route's rows are all 64-bit), its dependent chain and its
+    issue stall cycles a step. None where cuobjdump or the loop is not
+    found."""
+    name = {"warp": "conv1_warp_kernel", "thread": "conv1_tile_kernel"}[lane_route]
+    form = form if lane_route == "warp" else "64bit"
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    text = sass.dump(tool, kernels._lib_path("conv1_recon"), f"{name}ILi{K}E")
+    return sass.b1_chain(text, f"{name}ILi{K}E", form) if text else None
+
+
 def conv1_kernel_numbers(torch, dec, kernels, calls, launches: int) -> dict:
     """B1's row from the one call of a decode (already held against the
     plain version): a call's and the card's time, the plain version's on
@@ -941,7 +1002,10 @@ def conv1_kernel_numbers(torch, dec, kernels, calls, launches: int) -> dict:
     row, one row alone (the first row of the first entry), the longest
     row's steps and the bound: 8 B of latent in (none for a trivial var)
     and 8 B out a number, the states; K multiply-adds and B1_OPS_PER_STEP
-    more operations a number."""
+    more operations a number. Beside them the call's routes (conv1_routes),
+    its time a step of the longest row, and the chain by count: the first
+    entry's loop (conv1_chain_by_count) over the longest row's steps at the
+    SM clock read while the call runs."""
     ((bases, desc, desc_dev),) = calls
     c = {k: i for i, k in enumerate(dec.C1_COLS)}
     ms = time_ms(lambda: dec.conv1_recon_chunks(bases, desc, desc_dev))
@@ -960,18 +1024,38 @@ def conv1_kernel_numbers(torch, dec, kernels, calls, launches: int) -> dict:
         rows += r[c["n_rows"]]
         numbers += nv
     b_ms, by = bound(n_bytes, n_ops)
+    routes = conv1_routes(dec, desc, torch.cuda.get_device_properties(desc_dev.device).multi_processor_count)
+    mhz = sm_clock_mhz_during(torch, lambda: dec.conv1_recon_chunks(bases, desc, desc_dev),
+                              max(3, int(300 / max(alone, 0.01))))
+    r0 = desc[0]
+    form = "64bit" if not ("narrow" in c and r0[c["narrow"]]) else "32bit" if r0[c["bits"]] <= 16 else "widening"
+    chain = conv1_chain_by_count(kernels, int(r0[c["order"]]), routes["lane_route"], form)
     return {"launches": launches, "max_abs_err": 0.0, "ms": ms[0], "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": None, "device_ms": alone, "numbers": numbers, "rows": rows,
             "plain_on": "cpu", "plain_prefix_n": CONV1_PREFIX, "longest_row_steps": steps, "one_row_ms": one_row,
-            "one_row_steps": int(one[0, c["n_valid"]] - one[0, c["order"]]), "ms_min": ms[1], "ms_max": ms[2]}
+            "one_row_steps": int(one[0, c["n_valid"]] - one[0, c["order"]]), "ms_min": ms[1], "ms_max": ms[2],
+            **routes, "ns_a_step": alone * 1e6 / max(steps, 1), "sm_mhz": mhz,
+            "chain_form": form if routes["lane_route"] == "warp" else "64bit",
+            **{f"{k}_a_step": chain and chain[k] for k in ("chain_cycles", "chain_instructions", "chain_variable",
+                                                           "issue_cycles", "instructions")},
+            "chain_ms": chain and mhz and chain["chain_cycles"] * steps / (mhz * 1e3)}
 
 
 def conv1_line(r) -> str:
+    chain = ("not found" if r["chain_cycles_a_step"] is None else
+             f"{r['chain_cycles_a_step']:.2f} cycles ({r['chain_instructions_a_step']:.2f} instructions, "
+             f"{r['chain_variable_a_step']:.2f} of them waited on by scoreboard) a step, "
+             + ("no SM clock read" if r["chain_ms"] is None else
+                f"{r['chain_ms']:.4f} ms over the longest row at {r['sm_mhz']:.0f} MHz")
+             + f"; issue stall cycles {r['issue_cycles_a_step']:.2f} and {r['instructions_a_step']:.2f} "
+             "instructions a step")
     return (f"(conv1_recon) {r['ms']:.4f} ms a call (min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), card "
-            f"alone {r['device_ms']:.4f}, {r['launches']} launches; {r['rows']} rows, {r['numbers']} numbers; one row "
-            f"alone {r['one_row_ms']:.4f} ms ({r['one_row_steps']} steps, "
-            f"{r['one_row_ms'] * 1e6 / max(r['one_row_steps'], 1):.1f} ns a step), the longest row "
-            f"{r['longest_row_steps']} steps; plain "
+            f"alone {r['device_ms']:.4f}, {r['launches']} launches; {r['rows']} rows, {r['numbers']} numbers, a "
+            f"{r['lane_route']} a row, rows by arithmetic: 64-bit {r['rows_64bit']}, 32-bit {r['rows_32bit']}, "
+            f"widening {r['rows_widening']}; {r['ns_a_step']:.2f} ns a step of the longest row "
+            f"({r['longest_row_steps']} steps); one row alone {r['one_row_ms']:.4f} ms ({r['one_row_steps']} steps, "
+            f"{r['one_row_ms'] * 1e6 / max(r['one_row_steps'], 1):.2f} ns a step); chain by count of the "
+            f"{r['chain_form']} loop: {chain}; plain "
             f"version on the CPU on the first {r['plain_prefix_n']} numbers of every row {r['plain_ms']:.3f} ms; bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); == plain")
 
@@ -1290,8 +1374,9 @@ def ptxas_lines(reports):
                 ept = re.search(r"lb_chunks_kernelILi(\d+)E", name)
                 sort = re.search(r"(minmax|span|hist|scan|scatter)_kernel(?:I([yj]+)((?:Lb\dE)*))?", name)
                 image = re.search(r"image_(sums|blocks|stitch)_kernel", name)
-                b12 = re.search(r"(conv1|float_mult_join)_kernelILi(\d+)E", name)
-                entry = (f"{'order' if b12.group(1) == 'conv1' else 'W'} {b12.group(2)}" if b12 else
+                b12 = re.search(r"(conv1_warp|conv1_tile|float_mult_join)_kernelILi(\d+)E", name)
+                entry = ({"conv1_warp": "a warp a row, order ", "conv1_tile": "tiles, order ",
+                          "float_mult_join": "W "}[b12.group(1)] + b12.group(2) if b12 else
                          {"sums": "page offsets and head", "blocks": "blocks' scan",
                           "stitch": "placement"}[image.group(1)] if image else
                          f"shared memory, {ept.group(1)} per thread" if ept else
@@ -3278,7 +3363,10 @@ def main() -> int:
         {"name": "conv1_recon", "route": "cuda", "source": "pcodec_tpu_torch/csrc/conv1_recon.cu",
          "replaces": "pcodec_tpu/ops/decode.py:442", **b1_row,
          "pct": {k: b1_pct[k] for k in ("launches", "numbers", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "longest_row_steps", "one_row_ms", "one_row_steps")}},
+                                        "bound_by", "longest_row_steps", "one_row_ms", "one_row_steps", "lane_route",
+                                        "rows_64bit", "rows_32bit", "rows_widening", "ns_a_step", "sm_mhz",
+                                        "chain_cycles_a_step", "chain_instructions_a_step", "issue_cycles_a_step",
+                                        "chain_ms")}},
         {"name": "float_mult_join", "route": "cuda", "source": "pcodec_tpu_torch/csrc/float_mult_join.cu",
          "replaces": "pcodec_tpu/ops/pallas_decode.py:1534", **b2_rows["floatmult_f32"],
          "f64_auto_multichunk": b2_rows["f64_auto_multichunk"], "on_decode_path": False},
@@ -3391,6 +3479,68 @@ def lookback_decode_only(cache=None) -> int:
         del arrays, plan, blob
         torch.cuda.empty_cache()
     print(json.dumps({"lookback_decode": got, "tree": os.path.dirname(os.path.abspath(__file__)), "card": card}),
+          flush=True)
+    return 0
+
+
+def conv1_decode_only(cache=None) -> int:
+    """bench_matrix.py's conv1_i32_lpc numbers (8M i32, order 6) decoded
+    alone, as phase 7's standalone file (32 chunks, B1 a warp a row) and as
+    phase 5b's PCT container (8,192 pages, B1 a thread a row), through the
+    entry points every tree of the port has (simple_compress,
+    container_compress, plan_standalone, plan_container, upload_plan,
+    decode_plan, conv1_recon_chunks): each decode compared with the source
+    and its B1 call with the plain version, then the decode and B1's row
+    (conv1_kernel_numbers) timed, and one JSON line. With `cache` (a
+    directory) the files are read from it where an earlier run wrote them,
+    so a copy of the script in another tree times that tree on the same
+    bytes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import pcodec_tpu_torch as pt
+    from pcodec_tpu_torch.codec import standalone as sa
+    from pcodec_tpu_torch.ops import container_decode as cd
+    from pcodec_tpu_torch.ops import decode as dops
+    from pcodec_tpu_torch.ops import kernels
+    from pcodec_tpu_torch.ops import standalone_decode as sd
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kernels.build()
+    nums, cfg = standalone_inputs(pt)["conv1_i32_lpc"]
+    cases = [("conv1_i32_lpc_standalone", lambda: sa.simple_compress(nums, cfg), sd.plan_standalone),
+             ("conv1_i32_lpc_pct", lambda: pt.container_compress(nums, cfg), cd.plan_container)]
+    got = {}
+    for name, encode, plan_of in cases:
+        blob = cached_blob(cache, name, encode)
+        plan = plan_of(blob)
+        arrays = cd.upload_plan(plan, dev)
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        with capturing(dops) as calls:
+            res = cd.decode_plan(plan, arrays)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if not np.array_equal(cd.to_numbers(res, plan.nt), nums):
+            raise AssertionError(f"{name}: the decode differs from the source")
+        if launches.get("conv1_recon") != 1 or len(calls["conv1_recon_chunks"]) != 1:
+            raise AssertionError(f"{name}: not one B1 launch in one call: {launches}")
+        del res
+        check_breadth_calls(dops, calls)
+        t = time_ms(lambda: cd.decode_plan(plan, arrays))
+        b1 = conv1_kernel_numbers(torch, dops, kernels, calls["conv1_recon_chunks"], launches["conv1_recon"])
+        got[name] = {"n": len(nums), "chunks": len(plan.chunks), "decode_ms": t[0], "decode_min_ms": t[1],
+                     "decode_max_ms": t[2], "launches": launches, "b1": b1}
+        print(f"conv1-decode: {name} ({len(nums)} i32, {len(blob)} bytes, {len(plan.chunks)} chunks) == source, "
+              f"launches {launches}; decode {t[0]:.3f} ms median (min {t[1]:.3f}, max {t[2]:.3f}, {RUNS} runs); "
+              f"B1 {conv1_line(b1)} [{card}]", flush=True)
+        del arrays, plan, blob, calls
+        torch.cuda.empty_cache()
+    print(json.dumps({"conv1_decode": got, "tree": os.path.dirname(os.path.abspath(__file__)), "card": card}),
           flush=True)
     return 0
 
@@ -3559,5 +3709,5 @@ def sharded_only() -> int:
 
 if __name__ == "__main__":
     modes = {"--lookback-decode": lookback_decode_only, "--train": train_only, "--sharded": sharded_only,
-             "--post-decode": post_decode_only}
+             "--post-decode": post_decode_only, "--conv1-decode": conv1_decode_only}
     sys.exit(modes[sys.argv[1]](*sys.argv[2:3]) if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -1,5 +1,5 @@
 // B1 conv1_recon: the conv1 (linear-prediction) delta reconstruction of
-// every conv1 var of a container in one call, a thread or a warp a row.
+// every conv1 var of a container in one call, a warp or a thread a row.
 //
 // Replaces: pcodec_tpu/ops/decode.py::_conv1_decode, the lax.scan that the
 // JAX package runs vmapped over a chunk's pages
@@ -19,80 +19,107 @@
 // tensor and a start, or a constant for a trivial var), its stored state
 // (K numbers a row) and its output lie; its rows, row length and count of
 // valid numbers (a ragged last row); K, q, bias, latent bits, its first row
-// in the call, and the 32 weights (the first K used). A PCT chunk's rows are
-// its pages; a standalone chunk is one row over the whole chunk, from the
-// page's one stored state.
+// in the call, whether it is narrow, and the 32 weights (the first K used).
+// A PCT chunk's rows are its pages; a standalone chunk is one row over the
+// whole chunk, from the page's one stored state.
 //
 // What bounds it on Hopper: the dependent chain. Each row is serial: v[p]
 // needs v[p - 1]. Bytes (8 in, 8 out a number) and operations (K
 // multiply-adds a number) are far below what a row's steps take; a
 // standalone chunk of 262,144 numbers is 262,144 dependent steps however
-// wide the card is.
+// wide the card is. A step's time is its chain's latency or, where that is
+// shorter, the issue of every instruction the step carries.
 //
-// What the design does about it: a thread a row, the rows of every chunk of
-// the container in one launch (a launch for each order present), so the
-// chunks' chains run side by side; where there are no more rows than the
-// card has warp schedulers, a warp a row (its lane 0), so that no load
-// gathers 32 rows. K is a template argument (1..32, a
-// switch), so the window and the weights stay in registers. Only the newest
-// value's term sits on the chain: the sum of the older K - 1 terms for the
-// next step is formed while the current value is computed, so a step's
-// chain is one 64-bit multiply-add, a max, a shift, an add and a mask. The
-// row's latents are read through a ring of AHEAD registers, each slot
-// refilled as soon as it is used, so the loads run AHEAD steps ahead of
-// the chain, their indices clamped into the row rather than guarded (a
-// guard made each load a branch: 67 ns a step against 51, and 40 without
-// loads, on an H100); the steps are unrolled AHEAD at a time, so ring and
-// window indices are constants (the last round's steps past the row
-// computed and not stored).
+// What the design does about it:
+// - On the warp route, narrow arithmetic where the descriptor allows it
+//   (NARROW, set by the host from ChunkMeta's own limits and checked here): with the window's
+//   values below 2^bits, every partial sum of a row whose |bias| + 2^bits *
+//   sum|w| < 2^(conv_bits - 1) fits conv_bits - 1 signed bits (conv_bits 16,
+//   32, 64 for 8-, 16-, 32-bit latents). 8- and 16-bit latents step in
+//   32-bit arithmetic; 32-bit latents keep a centred 32-bit window (v -
+//   2^31, 2^31 * sum w folded into the bias), each term one widening
+//   32 x 32 -> 64 multiply-add, the prediction's low word by one 64-bit
+//   funnel shift and its sign from the high word, mid and the centring
+//   cancelling in the delta. The first K steps, whose window reads the
+//   stored state (any 64-bit value), and every other row (64-bit latents,
+//   weights past the bound) take the 64-bit step.
+// - Only the newest value's term sits on the chain: the sum of the older
+//   K - 1 terms for the next step is formed while the current value is
+//   computed. K is a template argument (1..32, one launch for each order
+//   present), so the window and the weights stay in registers and the
+//   steps unroll with constant window indices.
+// - Where there are no more rows than the card has warp schedulers (a
+//   standalone file's few long rows), a warp a row: every lane runs the
+//   chain; lane l loads latent i0 + l of each block of 32 steps into a
+//   register a block ahead of the chain; each step takes its latent from
+//   its lane by a shuffle, step u's value goes to the warp's entry u in
+//   shared memory, and lane u stores it after the block, the 32 values
+//   together: no load index, store address or lane select on a step. (A
+//   ring of cp.async copies several blocks ahead measured slower, 37.5
+//   against 36.3 ns a step; a compare and select a step into lane u's
+//   register 28.8 against 26.5, H100.)
+// - More rows (a PCT chunk's pages): a thread a row, a block of
+//   TILE_THREADS rows staging TILE steps of every row by coalesced cp.async
+//   copies into shared memory, the next tile in flight while one is walked;
+//   each thread walks its row there in the 64-bit step, writes its values
+//   back in place, and the block stores the tile coalesced. (The narrow
+//   steps bought nothing here: 0.1846 ms against 0.1840 with every row
+//   64-bit on 8,192 rows of 1,024, H100.)
+//
+// The orders are built in parts: ops/kernels.py compiles this source in
+// BUILD_PARTS nvcc processes at once (-DBUILD_PART=p -DBUILD_PARTS=n) and
+// links them. Part p holds the kernels of the orders K with (K - 1) % n ==
+// p and enters their launches in g_launch as the library loads; part 0
+// holds the C entry. Compiled alone, the source is one part of every order.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
-namespace {
+#ifndef BUILD_PARTS
+#define BUILD_PART 0
+#define BUILD_PARTS 1
+#endif
 
+namespace c1 {  // shared by the parts
+
+using u32 = unsigned;
 using u64 = unsigned long long;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // the warp route's block: four rows
 constexpr int MAX_ORDER = 32;
-constexpr int AHEAD = 32;      // latents loaded ahead of the chain
 constexpr int MAX_BASES = 64;  // tensors one call reads and writes (the launch outputs, the states, the scratch); must match ops/kernels.py
-constexpr int DESC_COLS = 46;  // must match ops/decode.py
+constexpr int DESC_COLS = 47;  // must match ops/decode.py
+constexpr int TILE_THREADS = 64;  // the page route's block: a row a thread
+constexpr int TILE = 32;  // steps of each row a tile
+constexpr int TILE_PAD = TILE + 1;  // a row's stride in a tile, in u64: odd, so a half-warp's rows hit distinct banks
+constexpr int TILE_STAGES = 2;  // tiles in shared memory: one walked, one in flight
 
 // descriptor columns, then the 32 weights at WEIGHTS
 enum Col {
   LAT_BASE, LAT_START, MOM_BASE, MOM_START, OUT_BASE, OUT_START, N_ROWS, ROW_N, N_VALID, ORDER, QUANT, BIAS, BITS,
-  ROW0, WEIGHTS
+  ROW0, NARROW, WEIGHTS
 };
+
+// a row's arithmetic after its first K steps
+enum Form { FORM_WIDE, FORM_S32, FORM_S64 };
 
 struct Bases {
   u64 p[MAX_BASES];  // addresses of the int64 tensors the rows name
 };
 
-// One step of a row: v[K] from the window v (oldest first), whose older
-// terms' sum `part` (bias included) was formed in the step before. Only
-// w[K - 1] * v[K - 1] and what follows it wait on the previous step; the
-// next step's `part` is formed from values already known.
-template <int K>
-__device__ __forceinline__ u64 step(u64 (&v)[K], const u64 (&w)[K], u64& part, u64 bias, u64 dm, int q, u64 mask) {
-  const long long s = (long long)(part + w[K - 1] * v[K - 1]);
-  u64 next = bias;
-#pragma unroll
-  for (int j = 0; j + 1 < K; ++j) next += w[j] * v[j + 1];
-  const u64 val = (dm + (s > 0 ? (u64)s >> q : 0ull)) & mask;
-#pragma unroll
-  for (int j = 0; j + 1 < K; ++j) v[j] = v[j + 1];
-  v[K - 1] = val;
-  part = next;
-  return val;
-}
+struct Row {
+  const long long* d;  // its descriptor row
+  const u64* lat;      // latent i at lat[i & smask]
+  long long smask;     // 0 for a trivial var: its one latent read for every i
+  const u64* mom;      // its K stored numbers
+  u64* out;            // its count numbers
+  long long count;
+};
 
+// Call row t's descriptor and row; false where the row is of another order
+// than K or holds no number.
 template <int K>
-__global__ void __launch_bounds__(THREADS) conv1_kernel(const __grid_constant__ Bases bs,
-                                                       const long long* __restrict__ desc, int n_desc,
-                                                       long long total_rows, int lane_shift) {
-  // a row a thread, or a row a warp (lane_shift 5: lane 0 walks it)
-  if (threadIdx.x & ((1 << lane_shift) - 1)) return;
-  const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) >> lane_shift;
-  if (t >= total_rows) return;
+__device__ __forceinline__ bool find_row(const Bases& bs, const long long* desc, int n_desc, long long t,
+                                         Row& row) {
   int lo = 0, hi = n_desc - 1;  // the last descriptor whose first row is <= t
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -100,56 +127,361 @@ __global__ void __launch_bounds__(THREADS) conv1_kernel(const __grid_constant__ 
     else hi = mid - 1;
   }
   const long long* d = desc + (long long)lo * DESC_COLS;
-  if (__ldg(d + ORDER) != K) return;
+  if (__ldg(d + ORDER) != K) return false;
   const long long r = t - __ldg(d + ROW0);
   const long long N = __ldg(d + ROW_N);
   long long count = __ldg(d + N_VALID) - r * N;
   if (count > N) count = N;
-  if (count <= 0) return;
-  const int bits = (int)__ldg(d + BITS);
-  const int q = (int)__ldg(d + QUANT);
-  const u64 mask = bits >= 64 ? ~0ull : (1ull << bits) - 1;
-  const u64 mid = 1ull << (bits - 1);
-  const u64 bias = (u64)__ldg(d + BIAS);
-  // a trivial var's latents all read its descriptor's LAT_START: stride 0
+  if (count <= 0) return false;
   const long long lat_base = __ldg(d + LAT_BASE);
-  const bool is_const = lat_base < 0;
-  const u64* lat = is_const ? reinterpret_cast<const u64*>(d + LAT_START)
-                            : reinterpret_cast<const u64*>(bs.p[lat_base]) + __ldg(d + LAT_START) + r * N;
-  const long long stride_mask = is_const ? 0 : -1;
-  const u64* mom = reinterpret_cast<const u64*>(bs.p[__ldg(d + MOM_BASE)]) + __ldg(d + MOM_START) + r * K;
-  u64* out = reinterpret_cast<u64*>(bs.p[__ldg(d + OUT_BASE)]) + __ldg(d + OUT_START) + r * N;
+  row.d = d;
+  row.lat = lat_base < 0 ? reinterpret_cast<const u64*>(d + LAT_START)
+                         : reinterpret_cast<const u64*>(bs.p[lat_base]) + __ldg(d + LAT_START) + r * N;
+  row.smask = lat_base < 0 ? 0 : -1;
+  row.mom = reinterpret_cast<const u64*>(bs.p[__ldg(d + MOM_BASE)]) + __ldg(d + MOM_START) + r * K;
+  row.out = reinterpret_cast<u64*>(bs.p[__ldg(d + OUT_BASE)]) + __ldg(d + OUT_START) + r * N;
+  row.count = count;
+  return true;
+}
 
-  u64 w[K], v[K];  // weights; the window, oldest first
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    w[j] = (u64)__ldg(d + WEIGHTS + j);
-    v[j] = __ldg(mom + j);
-    if (j < count) out[j] = v[j] & mask;
-  }
-  const long long S = count - K;  // steps: v[K + i] from delta[i], i < S
-  if (S <= 0) return;
-  out += K;
-  u64 part = bias;
-#pragma unroll
-  for (int j = 0; j + 1 < K; ++j) part += w[j] * v[j];
+__device__ __forceinline__ int row_form(const long long* d) {
+  return !__ldg(d + NARROW) ? FORM_WIDE : __ldg(d + BITS) <= 16 ? FORM_S32 : FORM_S64;
+}
 
-  // delta[i0 + u] in slot u; every load's index clamped into the row, so
-  // no load waits on a branch (the slots past S are read and never used)
-  u64 ring[AHEAD];
+// The 64-bit step: the first K steps of every row, and every step of a wide
+// row. One step: v[K] from the window v (oldest first), whose older terms'
+// sum `part` (bias included) was formed in the step before; only w[K - 1] *
+// v[K - 1] and what follows it wait on the previous step.
+template <int K>
+struct Wide {
+  static constexpr int FORM = FORM_WIDE;
+  using D = u64;  // a latent as a step takes it
+  using V = u64;  // a value in the window
+  u64 w[K], v[K], part, bias, mid, mask;
+  int q;
+
+  __device__ __forceinline__ void init(const Row& r) {
+    const int bits = (int)__ldg(r.d + BITS);
+    q = (int)__ldg(r.d + QUANT);
+    mask = bits >= 64 ? ~0ull : (1ull << bits) - 1;
+    mid = 1ull << (bits - 1);
+    bias = (u64)__ldg(r.d + BIAS);
 #pragma unroll
-  for (int u = 0; u < AHEAD; ++u) ring[u] = __ldg(lat + ((u < S ? u : S - 1) & stride_mask));
-  for (long long i0 = 0; i0 < S; i0 += AHEAD) {
-#pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      const u64 dm = ring[u] + mid;
-      const long long ahead = i0 + AHEAD + u;
-      ring[u] = __ldg(lat + ((ahead < S ? ahead : S - 1) & stride_mask));
-      const u64 val = step<K>(v, w, part, bias, dm, q, mask);  // past S: computed, not stored
-      if (i0 + u < S) out[i0 + u] = val;
+    for (int j = 0; j < K; ++j) {
+      w[j] = (u64)__ldg(r.d + WEIGHTS + j);
+      v[j] = __ldg(r.mom + j);
     }
+    part = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) part += w[j] * v[j];
+  }
+  __device__ __forceinline__ D prep(u64 delta) const { return delta + mid; }
+  __device__ __forceinline__ V step(D dm) {
+    const long long s = (long long)(part + w[K - 1] * v[K - 1]);
+    u64 next = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) next += w[j] * v[j + 1];
+    const u64 val = (dm + (s >= 0 ? (u64)s >> q : 0ull)) & mask;  // a zero sum shifts to 0 too
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) v[j] = v[j + 1];
+    v[K - 1] = val;
+    part = next;
+    return val;
+  }
+  static __device__ __forceinline__ u64 value(V x) { return x; }
+};
+
+// 8- and 16-bit latents in the domain (the warp route): the sums fit 31 bits, so the step is
+// 32-bit multiply-adds, max, shift, add and mask (wrapping unsigned sums
+// whose true values are the signed ones).
+template <int K>
+struct Narrow16 {
+  static constexpr int FORM = FORM_S32;
+  using D = u32;
+  using V = u32;
+  u32 w[K], v[K], part, bias, mid, mask;
+  int q;
+
+  __device__ __forceinline__ void init(const Wide<K>& f) {
+    q = f.q;
+    mask = (u32)f.mask;
+    mid = (u32)f.mid;
+    bias = (u32)f.bias;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      w[j] = (u32)f.w[j];
+      v[j] = (u32)f.v[j];
+    }
+    part = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) part += w[j] * v[j];
+  }
+  __device__ __forceinline__ D prep(u64 delta) const { return (u32)delta + mid; }
+  __device__ __forceinline__ V step(D dm) {
+    const u32 s = part + w[K - 1] * v[K - 1];
+    u32 next = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) next += w[j] * v[j + 1];
+    const u32 val = (dm + ((int)s >= 0 ? s >> q : 0u)) & mask;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) v[j] = v[j + 1];
+    v[K - 1] = val;
+    part = next;
+    return val;
+  }
+  static __device__ __forceinline__ u64 value(V x) { return x; }
+};
+
+// a * b + c, the product widened to 64 bits: one IMAD.WIDE (written out,
+// as nvcc otherwise multiplies the sign-extended operands in 64 bits)
+__device__ __forceinline__ long long mad_wide(int a, int b, long long c) {
+  long long d;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+}
+
+// 32-bit latents in the domain (the warp route): every |w| < 2^31, so the window is kept
+// centred (c = v - 2^31, a signed 32-bit value), bias + 2^31 * sum w is the
+// bias, and each term is one widening multiply-add into a 64-bit sum. The
+// new value's centred form is delta + pred mod 2^32 (mid and the centring
+// cancel), and q may be up to 63.
+template <int K>
+struct Narrow32 {
+  static constexpr int FORM = FORM_S64;
+  using D = u32;
+  using V = int;
+  int w[K], c[K];
+  long long part, bias;
+  int q;
+
+  __device__ __forceinline__ void init(const Wide<K>& f) {
+    q = f.q;
+    long long sw = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      w[j] = (int)(u32)f.w[j];
+      c[j] = (int)((u32)f.v[j] ^ 0x80000000u);
+      sw += w[j];
+    }
+    bias = (long long)f.bias + sw * (1ll << 31);
+    part = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) part = mad_wide(w[j], c[j], part);
+  }
+  __device__ __forceinline__ D prep(u64 delta) const { return (u32)delta; }
+  __device__ __forceinline__ V step(D d) {
+    const long long s = mad_wide(w[K - 1], c[K - 1], part);
+    long long next = bias;
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) next = mad_wide(w[j], c[j + 1], next);
+    // the prediction's low word (one funnel shift of the pair), kept
+    // where the high word's sign says the sum is not negative
+    const u32 pred = (int)(s >> 32) >= 0 ? (u32)((u64)s >> q) : 0u;
+    const int val = (int)(d + pred);
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) c[j] = c[j + 1];
+    c[K - 1] = val;
+    part = next;
+    return val;
+  }
+  static __device__ __forceinline__ u64 value(V x) { return (u32)x ^ 0x80000000u; }
+};
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A row's first min(K, S) steps, whose window reads the stored state, in
+// 64-bit arithmetic; their latents' indices clamped into the row, the steps
+// past S computed and not stored.
+template <int K>
+__device__ __forceinline__ void wide_prefix(Wide<K>& f, const Row& r, long long S, bool store) {
+  u64 lat[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) lat[i] = __ldg(r.lat + ((i < S ? i : S - 1) & r.smask));
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const u64 val = f.step(f.prep(lat[i]));
+    if (store && i < S) r.out[K + i] = val;
   }
 }
+
+// The warp route's steps K..S-1 of one row, every lane running the chain.
+template <int K, class F>
+__device__ __forceinline__ void warp_walk(F& f, const Row& r, long long S, int lane) {
+  // latent i into lane i % 32, 0 past the row (its steps computed, not stored)
+  auto load = [&](long long i) { return i < S ? __ldg(r.lat + (i & r.smask)) : 0ull; };
+  // step u of a block stored by every lane to the warp's entry u (one
+  // address) and read back by lane u after the block: no compare and
+  // select on a step
+  __shared__ typename F::V warp_vals[THREADS / 32][32];
+  typename F::V* vals = warp_vals[threadIdx.x >> 5];
+  u64 ahead = load(K + lane);
+  u64* o = r.out + K;  // step i's value at o[i]
+  for (long long i0 = K; i0 < S; i0 += 32) {
+    const typename F::D cur = f.prep(ahead);
+    ahead = load(i0 + 32 + lane);  // the next block's, a block ahead of the chain
+#pragma unroll
+    for (int u = 0; u < 32; ++u) vals[u] = f.step(__shfl_sync(0xffffffffu, cur, u));
+    __syncwarp();
+    if (i0 + lane < S) o[i0 + lane] = F::value(vals[lane]);
+    __syncwarp();  // every lane's read done before the next block's stores
+  }
+}
+
+// A row a warp (a standalone file's few long rows).
+template <int K>
+__global__ void __launch_bounds__(THREADS) conv1_warp_kernel(const __grid_constant__ Bases bs,
+                                                            const long long* __restrict__ desc, int n_desc,
+                                                            long long total_rows) {
+  const int lane = threadIdx.x & 31;
+  const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+  Row r;
+  if (t >= total_rows || !find_row<K>(bs, desc, n_desc, t, r)) return;  // the warp together
+  Wide<K> f;
+  f.init(r);
+  if (lane < K && lane < r.count) r.out[lane] = __ldg(r.mom + lane) & f.mask;
+  const long long S = r.count - K;  // steps: v[K + i] from latent i, i < S
+  if (S <= 0) return;
+  wide_prefix<K>(f, r, S, lane == 0);
+  if (S <= K) return;
+  const int form = row_form(r.d);
+  if (form == FORM_WIDE) {
+    warp_walk<K>(f, r, S, lane);
+  } else if (form == FORM_S32) {
+    Narrow16<K> n;
+    n.init(f);
+    warp_walk<K>(n, r, S, lane);
+  } else {
+    Narrow32<K> n;
+    n.init(f);
+    warp_walk<K>(n, r, S, lane);
+  }
+}
+
+struct alignas(16) TileRow {  // a page-route row as the block's copies (lat to len) and stores (len, out) read it
+  const u64* lat;
+  long long smask;
+  long long len;  // its steps walked in the tiles, 0 where it walks none
+  u64* out;       // step i's value at out[i]
+};
+
+// A row a thread (a PCT chunk's pages), every step 64-bit: the block's rows
+// stepped from K to their ends, TILE steps a tile. Element k of a thread's
+// copies and stores is step e of row `row` of the tile, consecutive threads
+// on consecutive steps.
+template <int K>
+__global__ void __launch_bounds__(TILE_THREADS) conv1_tile_kernel(const __grid_constant__ Bases bs,
+                                                                 const long long* __restrict__ desc, int n_desc,
+                                                                 long long total_rows) {
+  __shared__ u64 tiles[TILE_STAGES * TILE_THREADS * TILE_PAD];
+  __shared__ TileRow rows[TILE_THREADS];
+  const int tid = threadIdx.x;
+  const long long t = (long long)blockIdx.x * TILE_THREADS + tid;
+  Row r{};
+  Wide<K> f{};
+  long long S = 0;
+  if (t < total_rows && find_row<K>(bs, desc, n_desc, t, r)) {
+    f.init(r);
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < r.count) r.out[j] = f.v[j] & f.mask;
+    S = r.count - K;
+    if (S > 0) wide_prefix<K>(f, r, S, true);
+  }
+  const bool mine = S > K;
+  rows[tid] = TileRow{r.lat, r.smask, mine ? S : 0, r.out + K};
+  if (!__syncthreads_or(mine)) return;
+  auto stage = [&](long long tt) {
+    u64* slot = tiles + (int)(tt % TILE_STAGES) * (TILE_THREADS * TILE_PAD);
+    const long long i0 = K + tt * TILE;
+#pragma unroll 8
+    for (int k = 0; k < TILE; ++k) {
+      const int q = tid + TILE_THREADS * k, row = q / TILE, e = q % TILE;
+      const TileRow& x = rows[row];
+      if (i0 + e < x.len) cp_async8(slot + row * TILE_PAD + e, x.lat + ((i0 + e) & x.smask));
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s + 1 < TILE_STAGES; ++s) stage(s);
+  for (long long tt = 0;; ++tt) {
+    cp_async_wait<TILE_STAGES - 2>();  // the thread's copies of tile tt have landed
+    const long long i0 = K + tt * TILE;
+    const bool active = mine && i0 < S;
+    // every thread's copies of tile tt landed, every store of tile tt - 1 done
+    if (!__syncthreads_or(active)) break;
+    stage(tt + TILE_STAGES - 1);  // into tile tt - 1's slot
+    u64* slot = tiles + (int)(tt % TILE_STAGES) * (TILE_THREADS * TILE_PAD);
+    if (active) {  // steps past S computed on stale entries, not stored
+      u64* x = slot + tid * TILE_PAD;
+#pragma unroll
+      for (int e = 0; e < TILE; ++e) x[e] = f.step(f.prep(x[e]));
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < TILE; ++k) {
+      const int q = tid + TILE_THREADS * k, row = q / TILE, e = q % TILE;
+      const TileRow& x = rows[row];
+      if (i0 + e < x.len) x.out[i0 + e] = slot[row * TILE_PAD + e];
+    }
+  }
+  cp_async_wait<0>();  // no copy still lands in shared memory as the block exits
+}
+
+template <int K>
+cudaError_t launch(const Bases& bs, const long long* desc_dev, int n_desc, long long rows, bool warp_route,
+                   cudaStream_t s) {
+  if (warp_route) {
+    const unsigned grid = (unsigned)((rows * 32 + THREADS - 1) / THREADS);
+    conv1_warp_kernel<K><<<grid, THREADS, 0, s>>>(bs, desc_dev, n_desc, rows);
+  } else {
+    const unsigned grid = (unsigned)((rows + TILE_THREADS - 1) / TILE_THREADS);
+    conv1_tile_kernel<K><<<grid, TILE_THREADS, 0, s>>>(bs, desc_dev, n_desc, rows);
+  }
+  return cudaGetLastError();
+}
+
+// order K's launch, entered by its part as the library loads (null for an
+// order no part holds)
+using Launch = cudaError_t (*)(const Bases&, const long long*, int, long long, bool, cudaStream_t);
+extern Launch g_launch[MAX_ORDER + 1];
+
+}  // namespace c1
+
+using namespace c1;
+
+namespace {
+
+template <int K>
+void enter_order() {
+  if constexpr ((K - 1) % BUILD_PARTS == BUILD_PART) g_launch[K] = &launch<K>;
+}
+
+template <int... Is>
+bool enter_orders(std::integer_sequence<int, Is...>) {
+  (enter_order<Is + 1>(), ...);
+  return true;
+}
+
+[[maybe_unused]] const bool g_entered = enter_orders(std::make_integer_sequence<int, MAX_ORDER>());
+
+}  // namespace
+
+#if BUILD_PART == 0
+
+Launch c1::g_launch[MAX_ORDER + 1] = {};
+
+namespace {
 
 cudaError_t use_device(int device) {
   int current = -1;
@@ -162,20 +494,17 @@ bool in_base(long long base, long long start, long long n, const long long* nume
   return base >= 0 && base < n_bases && start >= 0 && n >= 0 && start + n <= numels[base];
 }
 
-template <int K>
-cudaError_t launch(const Bases& bs, const long long* desc_dev, int n_desc, long long rows, int lane_shift,
-                   cudaStream_t s) {
-  const unsigned grid = (unsigned)(((rows << lane_shift) + THREADS - 1) / THREADS);
-  conv1_kernel<K><<<grid, THREADS, 0, s>>>(bs, desc_dev, n_desc, rows, lane_shift);
-  return cudaGetLastError();
-}
-
-template <int... Ks>
-cudaError_t launch_order(int k, const Bases& bs, const long long* desc_dev, int n_desc, long long rows,
-                         int lane_shift, cudaStream_t s) {
-  cudaError_t err = cudaErrorInvalidValue;
-  ((k == Ks ? (err = launch<Ks>(bs, desc_dev, n_desc, rows, lane_shift, s), 0) : 0), ...);
-  return err;
+// Whether a row lies in the narrow domain, exactly: latents of 8, 16 or 32
+// bits, q <= conv_bits - 1 and |bias| + 2^bits * sum|w| < 2^(conv_bits - 1).
+bool narrow_ok(const long long* d) {
+  const long long bits = d[BITS];
+  const int conv_bits = bits == 8 ? 16 : bits == 16 ? 32 : bits == 32 ? 64 : 0;
+  if (!conv_bits || d[QUANT] > conv_bits - 1) return false;
+  using u128 = unsigned __int128;
+  auto mag = [](long long x) { return x < 0 ? (u128)(0ull - (u64)x) : (u128)x; };
+  u128 sum = 0;
+  for (long long j = 0; j < d[ORDER]; ++j) sum += mag(d[WEIGHTS + j]);
+  return mag(d[BIAS]) + (sum << bits) < ((u128)1 << (conv_bits - 1));
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -196,9 +525,10 @@ cudaError_t sm_count(int device, int* out) {
 
 // Every row of a container's conv1 table. bases, numels: the n_bases int64
 // tensors the rows name, as addresses and element counts; desc: the n_desc
-// rows on the host (checked here against the bases) and desc_dev the same
-// rows on the device (read by the kernels). *launched gets the kernels
-// launched: one for each order the rows hold (0 where they hold no row).
+// rows on the host (checked here against the bases, a row marked narrow
+// against the narrow domain) and desc_dev the same rows on the device (read
+// by the kernels). *launched gets the kernels launched: one for each order
+// the rows hold (0 where they hold no row).
 extern "C" int conv1_recon(const u64* bases, const long long* numels, int n_bases, const long long* desc,
                            const void* desc_dev, int n_desc, int* launched, int device, void* stream) {
   *launched = 0;
@@ -211,7 +541,8 @@ extern "C" int conv1_recon(const u64* bases, const long long* numels, int n_base
     const long long* d = desc + (long long)i * DESC_COLS;
     const long long R = d[N_ROWS], N = d[ROW_N], nv = d[N_VALID], K = d[ORDER];
     if (R < 0 || N < 1 || nv < 0 || nv > R * N || K < 1 || K > MAX_ORDER || d[QUANT] < 0 || d[QUANT] > 63 ||
-        d[BITS] < 1 || d[BITS] > 64 || d[ROW0] != rows ||
+        d[BITS] < 1 || d[BITS] > 64 || d[ROW0] != rows || d[NARROW] < 0 || d[NARROW] > 1 ||
+        (d[NARROW] && !narrow_ok(d)) ||
         (d[LAT_BASE] >= 0 && !in_base(d[LAT_BASE], d[LAT_START], nv, numels, n_bases)) ||
         !in_base(d[MOM_BASE], d[MOM_START], R * K, numels, n_bases) ||
         !in_base(d[OUT_BASE], d[OUT_START], nv, numels, n_bases))
@@ -221,22 +552,21 @@ extern "C" int conv1_recon(const u64* bases, const long long* numels, int n_base
   }
   if (!orders) return 0;
   if (rows > 0x7FFFFFFFLL * THREADS / 32 || !desc_dev) return (int)cudaErrorInvalidValue;
-  // a row a warp where each row's warp can have a scheduler to itself: its
-  // loads then ask for one line, not 32 rows' lines (a standalone file's 32
-  // rows of 262,144, H100: 53 against 74 ns a step). More rows keep a row
-  // a thread, a warp's instructions serving 32 rows (8,192 rows of 1,024:
-  // 0.21 ms against 0.72 a warp a row, whose warps share the schedulers)
+  // a row a warp where each row's warp can have a scheduler to itself (a
+  // standalone file's few long rows); more rows a row a thread, a warp's
+  // instructions serving 32 rows (8,192 rows of 1,024 took 0.21 ms against
+  // 0.72 a warp a row before the tiles, H100)
   int sms = 0;
   if ((err = sm_count(device, &sms)) != cudaSuccess) return (int)err;
-  const int lane_shift = rows <= (long long)sms * SCHEDULERS_PER_SM ? 5 : 0;
+  const bool warp_route = rows <= (long long)sms * SCHEDULERS_PER_SM;
   Bases bs;
   for (int b = 0; b < n_bases; ++b) bs.p[b] = bases[b];
   auto s = static_cast<cudaStream_t>(stream);
   auto dd = static_cast<const long long*>(desc_dev);
   for (int k = 1; k <= MAX_ORDER; ++k) {
     if (!(orders >> (k - 1) & 1)) continue;
-    err = launch_order<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,
-                       26, 27, 28, 29, 30, 31, 32>(k, bs, dd, n_desc, rows, lane_shift, s);
+    // an order no part holds (a build of some orders only) is refused
+    err = g_launch[k] ? g_launch[k](bs, dd, n_desc, rows, warp_route, s) : cudaErrorInvalidDeviceFunction;
     if (err != cudaSuccess) return (int)err;
     ++*launched;
   }
@@ -246,3 +576,5 @@ extern "C" int conv1_recon(const u64* bases, const long long* numels, int n_base
 extern "C" const char* pcodec_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // BUILD_PART == 0

@@ -513,19 +513,34 @@ def conv1_decode_pages_plain(latents, moments, weights, quantization: int, bias:
 # lat_start + r * row_n and its state at mom_start + r * order; number i <
 # n_valid of the entry (its rows' numbers, in order) goes to out_start + i.
 # row0 is the entry's first row in the call (the sum of the rows before it).
+# narrow (conv1_narrow) routes the entry's steps after its first `order` to
+# the kernel's 32-bit window; the C side refuses a narrow row outside it.
 C1_COLS = ("lat_base", "lat_start", "mom_base", "mom_start", "out_base", "out_start", "n_rows", "row_n",
-           "n_valid", "order", "quant", "bias", "bits", "row0") + tuple(f"w{j}" for j in range(32))
+           "n_valid", "order", "quant", "bias", "bits", "row0", "narrow") + tuple(f"w{j}" for j in range(32))
 C1_DESC_COLS = len(C1_COLS)
 C1_MAX_ORDER = 32
+# conv1's signed arithmetic width for each latent width (dtypes.LatentType.conv_dtype)
+C1_CONV_BITS = {8: 16, 16: 32, 32: 64}
+
+
+def conv1_narrow(weights, quantization: int, bias: int, bits: int) -> bool:
+    """Whether B1 may step a row in narrow arithmetic: latents of 8, 16 or
+    32 bits, q <= conv_bits - 1 and |bias| + 2^bits * sum|w| <
+    2^(conv_bits - 1), in exact integers (ChunkMeta.validate's bound, there
+    in floats). Then every partial sum over a window of values below 2^bits
+    fits conv_bits - 1 signed bits."""
+    conv_bits = C1_CONV_BITS.get(bits)
+    return (conv_bits is not None and 0 <= quantization <= conv_bits - 1
+            and abs(int(bias)) + (sum(abs(int(w)) for w in weights) << bits) < 1 << (conv_bits - 1))
 
 
 def conv1_row(weights, quantization: int, bias: int, bits: int, n_rows: int, row_n: int, n_valid: int, row0: int,
               lat=(-1, 0), mom=(0, 0), out=(0, 0)) -> list:
     """One B1 descriptor row of order len(weights): (base, start) pairs of
-    its latents, state and output."""
+    its latents, state and output; narrow where conv1_narrow admits it."""
     w = [int(x) for x in weights]
     return [*lat, *mom, *out, n_rows, row_n, n_valid, len(w), quantization, bias, bits, row0,
-            *w, *[0] * (C1_MAX_ORDER - len(w))]
+            int(conv1_narrow(w, quantization, bias, bits)), *w, *[0] * (C1_MAX_ORDER - len(w))]
 
 
 def conv1_row_pages(bases, r):

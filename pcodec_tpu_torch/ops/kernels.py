@@ -51,6 +51,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# sources compiled in parts, all at once: part p of n is built with
+# -DBUILD_PART=p -DBUILD_PARTS=n and holds its share of the source's template
+# instances (B1's orders, its build's longest by far as one process)
+PARTS = {"conv1_recon": 8}
 
 # K4's shared-memory table past which its blocks fill the card and walk
 # tiles (the copy paid once a block) instead of a block a tile: chip_smoke.py's
@@ -156,28 +160,40 @@ def _lib_path(name: str) -> str:
     for header in re.findall(rb'#include "([^"]+)"', src):
         with open(os.path.join(_CSRC, header.decode()), "rb") as f:
             src += f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + str(PARTS.get(name, 1)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{h}.so")
 
 
 def build(names=SOURCES) -> dict:
     """Compile the named kernels that are not built yet, all nvcc processes
-    at once. Returns {name: ptxas report (registers, shared memory, spills)}."""
+    at once (a source of PARTS one a part, its objects then linked).
+    Returns {name: ptxas report (registers, shared memory, spills)}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
         so = _lib_path(name)
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, name + ".cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True), tmp, so)
+            tmp, src, n = f"{so}.{os.getpid()}.tmp", os.path.join(_CSRC, name + ".cu"), PARTS.get(name, 1)
+            cmds = ([[nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]] if n == 1 else
+                    [[nvcc_path(), *(f for f in NVCC_FLAGS if f != "-shared"), "-c", f"-DBUILD_PART={p}",
+                      f"-DBUILD_PARTS={n}", "-o", f"{tmp}.{p}.o", src] for p in range(n)])
+            procs[name] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                            for cmd in cmds], tmp, so)
     failed = []
-    for name, (proc, tmp, so) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+    for name, (ps, tmp, so) in procs.items():
+        logs = [proc.communicate()[0] for proc in ps]
+        log = "".join(logs)
+        if any(proc.returncode for proc in ps):
+            failed.append(f"{name}: nvcc exited {[proc.returncode for proc in ps]}\n{log}")
             continue
+        if len(ps) > 1:
+            objs = [f"{tmp}.{p}.o" for p in range(len(ps))]
+            link = subprocess.run([nvcc_path(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+            for obj in objs:
+                os.remove(obj)
+            if link.returncode:
+                failed.append(f"{name}: nvcc link exited {link.returncode}\n{link.stdout}{link.stderr}")
+                continue
         with open(so[:-3] + ".ptxas.txt", "w") as f:
             f.write(log)
         os.replace(tmp, so)

@@ -11,16 +11,20 @@ imports no JAX, so on a GPU machine without JAX it runs as
 """
 
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 import pcodec_tpu_torch as pt
+from pcodec_tpu_torch import constants as C
 from pcodec_tpu_torch.codec import compress as port_compress
 from pcodec_tpu_torch.delta import conv1_decode_in_place
+from pcodec_tpu_torch.dtypes import LATENT_TYPES
 from pcodec_tpu_torch.dtypes import NUMBER_TYPES_BY_NAME as TYPES
-from pcodec_tpu_torch.format.metadata import DeltaEncoding
+from pcodec_tpu_torch.errors import CorruptionError
+from pcodec_tpu_torch.format.metadata import ChunkMeta, DeltaEncoding
 from pcodec_tpu_torch.ops import container_decode as cd
 from pcodec_tpu_torch.ops import decode as dec
 from pcodec_tpu_torch.ops import kernels
@@ -350,6 +354,38 @@ def _random_conv1_table(seed, orders=(1, 6, 32), bits=(32, 16, 8, 64)):
     return [lat, lat.reshape(-1)[7:], mom, out], np.array(rows, np.int64)
 
 
+def conv1_admitted(weights, quantization, bias, bits) -> bool:
+    """Whether the port's ChunkMeta validation admits this conv1 encoding
+    on latents of `bits` bits."""
+    meta = SimpleNamespace(delta_encoding=DeltaEncoding.conv1(quantization, bias, weights),
+                           per_latent_var=SimpleNamespace(primary=SimpleNamespace(latent_type=LATENT_TYPES[bits])))
+    try:
+        ChunkMeta.validate(meta)
+    except CorruptionError:
+        return False
+    return True
+
+
+def conv1_edge_params(rng, order, bits, q_cap, sign):
+    """Weights, q and bias of a conv1 row at the edge of what ChunkMeta's
+    validation admits for `bits`-bit latents: random weights (all of
+    `sign`, or mixed for 0) whose 2^bits * sum|w| takes a random share of
+    the bound, then the largest |bias| (of the weights' sign, or either)
+    the validation admits beside them; q its cap (conv_bits - 1) or 0."""
+    conv_bits = dec.C1_CONV_BITS[bits]
+    wsum = int(rng.integers(order, max(order, (1 << (conv_bits - 1 - bits)) - 1) + 1))
+    parts = rng.multinomial(wsum - order, np.ones(order) / order) + 1
+    signs = rng.choice([-1, 1], order) if sign == 0 else np.full(order, sign)
+    w = [int(p) * int(s) for p, s in zip(parts, signs)]
+    q = min(C.MAX_CONV1_DELTA_QUANTIZATION, conv_bits - 1) if q_cap else 0
+    bias_sign = sign or int(rng.choice([-1, 1]))
+    lo, hi = 0, 1 << (conv_bits - 1)  # admitted at |bias| lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if conv1_admitted(w, q, bias_sign * mid, bits) else (lo, mid)
+    return w, q, bias_sign * lo
+
+
 @pytest.mark.parametrize("seed", [1, 2])
 def test_conv1_recon_chunks_plain_is_each_entry_alone(seed):
     """Exact: the table form of B1's plain version equals each entry's rows
@@ -673,6 +709,130 @@ def test_conv1_recon_chunks_refuses_wrong_arguments_on_card():
     with pytest.raises(ValueError):
         dec.conv1_recon_chunks(bases, desc, torch.from_numpy(desc[:-1]).cuda())
     assert kernels.LAUNCHES["conv1_recon"] == before
+
+
+def _conv1_edge_table(seed, orders, bits, rows_per_entry, row_n, wide_too=False):
+    """Bases (flat latents and states, full 64-bit; an output filled with
+    -77) and a B1 table of narrow entries at the domain's edge
+    (conv1_edge_params: q 0 with positive weights and bias, q at its cap
+    with negative ones, and mixed signs) for each order and width, each
+    `rows_per_entry` rows of `row_n` numbers, the last row 3 short; with
+    `wide_too`, beside each a wide entry of 64-bit latents and one whose
+    weights pass the bound."""
+    rng = np.random.default_rng(seed)
+    params = []
+    for k in orders:
+        for b in bits:
+            params += [(b, *conv1_edge_params(rng, k, b, q_cap, sign)) for q_cap, sign in ((False, 1), (True, -1),
+                                                                                        (True, 0))]
+            if wide_too:
+                w = rng.integers(-(1 << 20), 1 << 20, k).tolist()
+                params += [(64, w, 9, 12345), (b, [abs(x) + (1 << (dec.C1_CONV_BITS[b] - 1 - b)) for x in w], 3, -5)]
+    R, nv = rows_per_entry, rows_per_entry * row_n - 3
+    lat = torch.from_numpy(rng.integers(0, 2**64, len(params) * nv, dtype=np.uint64).view(np.int64))
+    mom = torch.from_numpy(rng.integers(0, 2**64, R * sum(len(w) for _, w, _, _ in params),
+                                        dtype=np.uint64).view(np.int64))
+    rows, mom_at = [], 0
+    for i, (b, w, q, bias) in enumerate(params):
+        rows.append(dec.conv1_row(w, q, bias, b, R, row_n, nv, i * R, lat=(0, i * nv), mom=(1, mom_at),
+                                  out=(2, i * (nv + 2))))
+        mom_at += R * len(w)
+    return [lat, mom, torch.full((len(params) * (nv + 2),), -77, dtype=torch.int64)], np.array(rows, np.int64)
+
+
+def _conv1_on_card_equals_plain(bases, desc, orders):
+    """B1 on the card equals the plain version on the CPU, one launch an order."""
+    got = [b.cuda() for b in bases]
+    before = kernels.LAUNCHES["conv1_recon"]
+    dec.conv1_recon_chunks(got, desc, torch.from_numpy(desc).cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv1_recon"] == before + len(orders)
+    want = bases[:2] + [bases[2].clone()]
+    dec.conv1_recon_chunks_plain(want, desc)
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+def _warp_route(rows: int) -> bool:
+    """Whether conv1_recon takes a warp a row for a call of `rows` rows."""
+    return rows <= 4 * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 16, 32])
+@pytest.mark.parametrize("route", ["warp", "thread"])
+def test_conv1_narrow_tables_match_plain_on_card(bits, route):
+    """Exact: a B1 call on narrow entries at the domain's edge, orders 1-32
+    (q 0 and its cap, sums driven positive and negative, latents with
+    garbage above the W bits, full 64-bit states) equals the plain version,
+    on the warp route (one row an entry) and the thread route (eight)."""
+    _need_card()
+    orders = list(range(1, 33))
+    R, N = (1, 300) if route == "warp" else (8, 200)
+    bases, desc = _conv1_edge_table(bits, orders, (bits,), R, N)
+    assert desc[:, dec.C1_COLS.index("narrow")].all()
+    assert _warp_route(int(desc[:, dec.C1_COLS.index("n_rows")].sum())) == (route == "warp")
+    _conv1_on_card_equals_plain(bases, desc, orders)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["warp", "thread"])
+def test_conv1_narrow_and_wide_rows_in_one_call_on_card(route):
+    """Exact: one B1 call whose table holds narrow entries of every width
+    beside wide ones (64-bit latents, weights past the bound) equals the
+    plain version, on each route."""
+    _need_card()
+    orders = (1, 6, 32)
+    R, N = (1, 300) if route == "warp" else (40, 100)
+    bases, desc = _conv1_edge_table(7, orders, (8, 16, 32), R, N, wide_too=True)
+    narrow = desc[:, dec.C1_COLS.index("narrow")]
+    assert narrow.any() and not narrow.all()
+    assert _warp_route(int(desc[:, dec.C1_COLS.index("n_rows")].sum())) == (route == "warp")
+    _conv1_on_card_equals_plain(bases, desc, orders)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_conv1_narrow_long_row_on_card(bits):
+    """Exact: a narrow row of 300,000 numbers at the domain's edge (order
+    6, q at its cap, mixed signs) on the warp route against the serial
+    recurrence."""
+    _need_card()
+    rng = np.random.default_rng(300 + bits)
+    w, q, bias = conv1_edge_params(rng, 6, bits, True, 0)
+    N = 300_000
+    lat = torch.from_numpy(rng.integers(0, 2**64, (1, N), dtype=np.uint64).view(np.int64))
+    mom = torch.from_numpy(rng.integers(0, 2**64, (1, 6), dtype=np.uint64).view(np.int64))
+    assert dec.conv1_narrow(w, q, bias, bits)
+    got = dec.conv1_decode_pages(lat.cuda(), mom.cuda(), w, q, bias, 6, bits)
+    want = _serial_conv1(lat[0].numpy().view(np.uint64), mom[0].numpy(), w, q, bias, bits)
+    assert np.array_equal(got[0].cpu().numpy().view(np.uint64), want)
+
+
+@pytest.mark.gpu
+def test_conv1_narrow_row_outside_the_domain_is_refused_on_card():
+    """A row marked narrow whose 64-bit latents, weights one unit past the
+    bound or q past its cap leave the narrow domain, or a narrow column
+    other than 0 and 1, is refused, and nothing is launched."""
+    _need_card()
+    bases, desc = _conv1_edge_table(11, (2, 5), (16,), 1, 64)
+    bases = [b.cuda() for b in bases]
+    c = {name: i for i, name in enumerate(dec.C1_COLS)}
+    w = desc[0, c["w0"] : c["w0"] + 2].tolist()
+    past = (1 << 31) - (sum(abs(x) for x in w) << 16)  # |bias| + 2^16 * sum|w| == 2^31
+    before = kernels.LAUNCHES["conv1_recon"]
+    for col, value in (("bits", 64), ("bias", past), ("bias", -past), ("quant", 32), ("narrow", 2)):
+        bad = desc.copy()
+        bad[0, c[col]] = value
+        bad[0, c["narrow"]] = value if col == "narrow" else 1
+        with pytest.raises(RuntimeError, match="conv1_recon kernel launch failed"):
+            dec.conv1_recon_chunks(bases, bad)
+    ok = desc.copy()
+    ok[0, c["bias"]] = past - 1
+    assert dec.conv1_narrow(w, int(ok[0, c["quant"]]), past - 1, 16)
+    assert kernels.LAUNCHES["conv1_recon"] == before
+    dec.conv1_recon_chunks(bases[:2] + [bases[2].clone()], ok)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv1_recon"] == before + 2
 
 
 def _float_mult_inputs(nt, rng, n=50_000):

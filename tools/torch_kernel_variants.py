@@ -45,7 +45,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcodec_tpu_torch.experiments import common
+from pcodec_tpu_torch.experiments import common, sass
 from pcodec_tpu_torch.experiments import micro_gather as mg
 from pcodec_tpu_torch.experiments import proto_dma as pd
 from pcodec_tpu_torch.experiments import proto_round_loop as prl
@@ -635,46 +635,106 @@ def e4a_variants(parent, card: str) -> None:
 
 
 # B1's edits: order 6 alone built; a row a thread or a warp forced either
-# way (the committed launch picks by the rows' count); the load guarded as
-# first written; rings of 16 and 64 latents; no loads
-_B1_LANES = "const int lane_shift = rows <= (long long)sms * SCHEDULERS_PER_SM ? 5 : 0;"
-_B1_LOAD = "ring[u] = __ldg(lat + ((ahead < S ? ahead : S - 1) & stride_mask));"
-_B1_ONE = ("launch_order<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,\n"
-           "                       26, 27, 28, 29, 30, 31, 32>", "launch_order<6>")
+# way (the committed launch picks by the rows' count); every row in 64-bit
+# steps on the warp route (the narrow column ignored); no loads on the warp
+# route; the widening products in C++ (nvcc makes each a 64-bit product of
+# the sign-extended operands) in place of mad.wide.s32; lane u keeping
+# step u's value by a compare and select a step (no shared memory); the
+# block's 32 latents shuffled (warp route) or the tile's loaded (page
+# route) before its steps; and, only timed, no shuffles and the page route
+# without its walk, copies or stores
+_B1_ROUTE = "const bool warp_route = rows <= (long long)sms * SCHEDULERS_PER_SM;"
+_B1_FORM = "return !__ldg(d + NARROW) ? FORM_WIDE : __ldg(d + BITS) <= 16 ? FORM_S32 : FORM_S64;"
+_B1_ONE = ("if constexpr ((K - 1) % BUILD_PARTS == BUILD_PART)", "if constexpr (K == 6)")
+# the parent tree's one kernel an order (the source before the warp and tile kernels)
+_B1_ONE_PARENT = ("launch_order<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, "
+                  "25,\n                       26, 27, 28, 29, 30, 31, 32>", "launch_order<6>")
+_B1_STEPS = "    for (int u = 0; u < 32; ++u) vals[u] = f.step(__shfl_sync(0xffffffffu, cur, u));"
+_B1_STEPS_HOISTED = ("    typename F::D ds[32];\n#pragma unroll\n    for (int u = 0; u < 32; ++u) ds[u] = "
+                     "__shfl_sync(0xffffffffu, cur, u);\n#pragma unroll\n"
+                     "    for (int u = 0; u < 32; ++u) vals[u] = f.step(ds[u]);")
+_B1_STORE = ("    __syncwarp();\n    if (i0 + lane < S) o[i0 + lane] = F::value(vals[lane]);\n"
+             "    __syncwarp();  // every lane's read done before the next block's stores\n")
+_B1_SELECT = [("  typename F::V* vals = warp_vals[threadIdx.x >> 5];", ""),
+              ("#pragma unroll\n" + _B1_STEPS + "\n" + _B1_STORE,
+               "    typename F::V mine = 0;\n#pragma unroll\n    for (int u = 0; u < 32; ++u) {\n"
+               "      const typename F::V val = f.step(__shfl_sync(0xffffffffu, cur, u));\n"
+               "      if (lane == u) mine = val;\n    }\n    if (i0 + lane < S) o[i0 + lane] = F::value(mine);\n")]
+_B1_WIDENING = [("const long long s = mad_wide(w[K - 1], c[K - 1], part);",
+                 "const long long s = part + (long long)w[K - 1] * c[K - 1];"),
+                ("next = mad_wide(w[j], c[j + 1], next);", "next += (long long)w[j] * c[j + 1];")]
+_B1_WALK = "      for (int e = 0; e < TILE; ++e) x[e] = f.step(f.prep(x[e]));"
+_B1_WALK_HOISTED = ("      u64 xs[TILE];\n#pragma unroll\n      for (int e = 0; e < TILE; ++e) xs[e] = "
+                    "f.prep(x[e]);\n#pragma unroll\n      for (int e = 0; e < TILE; ++e) x[e] = f.step(xs[e]);")
 _B1 = {
     "committed": [_B1_ONE],
-    "a thread a row": [_B1_ONE, (_B1_LANES, "const int lane_shift = 0;")],
-    "a warp a row": [_B1_ONE, (_B1_LANES, "const int lane_shift = 5;")],
-    "guarded loads": [_B1_ONE, (_B1_LOAD, "ring[u] = ahead < S ? __ldg(lat + (ahead & stride_mask)) : 0ull;")],
-    "a ring of 16": [_B1_ONE, ("constexpr int AHEAD = 32;", "constexpr int AHEAD = 16;")],
-    "a ring of 64": [_B1_ONE, ("constexpr int AHEAD = 32;", "constexpr int AHEAD = 64;")],
-    "no loads": [_B1_ONE, (_B1_LOAD, "")],
+    "a thread a row": [_B1_ONE, (_B1_ROUTE, "const bool warp_route = false;")],
+    "a warp a row": [_B1_ONE, (_B1_ROUTE, "const bool warp_route = true;")],
+    "every row 64-bit": [_B1_ONE, (_B1_FORM, "return FORM_WIDE;")],
+    "no loads": [_B1_ONE, ("ahead = load(i0 + 32 + lane);", "")],
+    "widening products as nvcc writes them": [_B1_ONE, *_B1_WIDENING],
+    "a compare and select a step": [_B1_ONE, *_B1_SELECT],
+    "shuffles at the block's start": [_B1_ONE, ("#pragma unroll\n" + _B1_STEPS, _B1_STEPS_HOISTED)],
+    "no shuffles": [_B1_ONE, ("f.step(__shfl_sync(0xffffffffu, cur, u))", "f.step(cur)")],
+    "tile walk's loads first": [_B1_ONE, (_B1_WALK, _B1_WALK_HOISTED)],
+    "no tile walk": [_B1_ONE, ("if (active) {  // steps past S", "if (false) {  // steps past S")],
+    "no tile copies": [_B1_ONE, ("if (i0 + e < x.len) cp_async8(", "if (false) cp_async8(")],
+    "no tile stores": [_B1_ONE, ("if (i0 + e < x.len) x.out[i0 + e] = slot[row * TILE_PAD + e];", "")],
 }
 # (rows, row length): a standalone chunk alone, conv1_i32_lpc's 32 chunks, its PCT pages
 B1_SHAPES = ((1, 262144), (32, 262144), (8192, 1024))
 B1_ORDER = 6
 
 
-def b1_variants(card: str) -> None:
+def b1_chains(libs: dict, card: str) -> None:
+    """The chain by count a step (experiments.sass.b1_chain) of the order-6
+    loops of the committed build and, where built, the parent's, from each
+    library's whole SASS (one order)."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    loops = {"committed": [("conv1_warp_kernelILi6E", f) for f in ("widening", "32bit", "64bit")]
+             + [("conv1_tile_kernelILi6E", "64bit")], "parent": [("conv1_kernelILi6E", "64bit")]}
+    for name, picks in loops.items():
+        text = sass.dump(tool, libs[name]._name) if name in libs else ""
+        for fn, form in picks if text else ():
+            c = sass.b1_chain(text, fn, form)
+            print(f"B1 chain by count, {name} {fn} {form} loop, a step: " + (
+                "not found" if c is None else
+                f"chain {c['chain_cycles']:.2f} cycles, {c['chain_instructions']:.2f} instructions "
+                f"({c['chain_variable']:.2f} waited on by scoreboard); issue stall cycles {c['issue_cycles']:.2f}, "
+                f"{c['instructions']:.2f} instructions") + f" [{card}]", flush=True)
+
+
+def b1_variants(parent, card: str) -> None:
+    """B1's variants on order-6 rows of 32-bit latents in the narrow domain
+    at B1_SHAPES; with `parent`, that tree's conv1_recon.cu as it is (its
+    descriptor without the narrow column) timed beside them."""
     libs = build_variants(os.path.join(kernels._CSRC, "conv1_recon.cu"), _B1, "b1_")
+    if parent:
+        libs |= build_variants(os.path.join(parent, "pcodec_tpu_torch", "csrc", "conv1_recon.cu"),
+                               {"parent": [_B1_ONE_PARENT]}, "b1_parent_")
     _bind(libs, "conv1_recon")
+    b1_chains(libs, card)
     dev = torch.device("cuda")
     rng = np.random.default_rng(19)
     w = rng.integers(-(1 << 12), 1 << 12, B1_ORDER).tolist()
     q, bias, bits = 14, 12345, 32
+    if not dec.conv1_narrow(w, q, bias, bits):
+        raise AssertionError("B1's variant rows must lie in the narrow domain")
     for rows, n in B1_SHAPES:
         lat = torch.from_numpy(rng.integers(0, 2**32, (rows, n), dtype=np.uint64).view(np.int64)).to(dev)
         mom = torch.from_numpy(rng.integers(0, 2**32, (rows, B1_ORDER), dtype=np.uint64).view(np.int64)).to(dev)
         desc = np.array([dec.conv1_row(w, q, bias, bits, rows, n, rows * n, 0, lat=(0, 0), mom=(1, 0), out=(2, 0))])
-        desc_dev = torch.from_numpy(desc).to(dev)
+        descs = {False: desc, True: np.ascontiguousarray(np.delete(desc, dec.C1_COLS.index("narrow"), axis=1))}
+        descs_dev = {k: torch.from_numpy(v).to(dev) for k, v in descs.items()}
 
         def run(name):
             out = torch.empty_like(lat)
             bases = (lat, mom, out)
             launched = ctypes.c_int(0)
+            d, d_dev = descs[name == "parent"], descs_dev[name == "parent"]
             rc = libs[name].conv1_recon((ctypes.c_uint64 * 3)(*[b.data_ptr() for b in bases]),
-                                        (ctypes.c_int64 * 3)(*[b.numel() for b in bases]), 3, desc.ctypes.data,
-                                        desc_dev.data_ptr(), 1, ctypes.byref(launched), 0,
+                                        (ctypes.c_int64 * 3)(*[b.numel() for b in bases]), 3, d.ctypes.data,
+                                        d_dev.data_ptr(), 1, ctypes.byref(launched), 0,
                                         torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")
@@ -691,7 +751,8 @@ def b1_variants(card: str) -> None:
             return common.time_ms(lambda: run(name), runs=5, warmup=1, hold=True)[0]
 
         times = _in_turns(libs, timed)
-        print(f"B1 {rows} rows of {n}, order {B1_ORDER}, card alone ms (two turns; ns a step of the first): "
+        print(f"B1 {rows} rows of {n}, order {B1_ORDER}, 32-bit latents in the narrow domain, card alone ms (two "
+              "turns; ns a step of the first): "
               + "; ".join(f"{k} {a:.4f}/{b:.4f} ({a * 1e6 / (n - B1_ORDER):.1f})" for k, (a, b) in times.items())
               + f"; each == the committed kernel but those named \"no ...\" [{card}]", flush=True)
 
@@ -783,7 +844,7 @@ def main(parent=None, only=None, device="cuda") -> None:
     if only in (None, "b5"):
         b5_variants(card)
     if only in (None, "b1"):
-        b1_variants(card)
+        b1_variants(parent, card)
     if only in (None, "b3"):
         b3_variants(card)
 
